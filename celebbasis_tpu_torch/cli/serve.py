@@ -215,9 +215,7 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def _png_b64(img: np.ndarray) -> str:
-    arr = (img if img.dtype == np.uint8
-           else ((img + 1.0) * 127.5).clip(0, 255).astype(np.uint8))
-    return base64.b64encode(encode_png(arr)).decode("ascii")
+    return base64.b64encode(encode_png(img)).decode("ascii")
 
 
 def make_handler(service: TxtToImgService):

@@ -24,7 +24,8 @@
 //
 // What the design does about it.  A block owns one (batch, head, 64-row query
 // tile); its four warps own 16 rows each.  K/V tiles of 64 keys stream
-// through shared memory; scores, running max, running sum and the output
+// through two shared-memory stages filled by cp.async, so the next tile
+// arrives while this one is consumed; scores, running max, running sum and the output
 // accumulator live in fp32 registers, so the score matrix never leaves the
 // SM.  The head dim is padded to a multiple of 16 in shared memory only
 // (zero-filled columns), never in device memory.  The ragged last key tile
@@ -33,7 +34,7 @@
 // skipped on store.  bf16 inputs take mma.sync.m16n8k16 with fp32
 // accumulation (operands in the input type, as the Pallas body's dot_general
 // does); fp32 inputs take a plain-FMA kernel with the same tiling idea, so
-// that fp32 callers get fp32 products.  wgmma, TMA and a multi-stage pipeline
+// that fp32 callers get fp32 products.  wgmma, TMA and warp specialisation
 // are left for a later change.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
@@ -98,9 +99,34 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&t);
 }
 
-// Copies ROWS x D bf16 values (16 bytes at a time) into a ROWS x (DP + 8)
-// shared tile; rows at or beyond `rows_total` and columns in [D, DP) are
-// zero-filled.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16-byte asynchronous copy global -> shared; with `pred` false nothing is
+// read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int src_bytes = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Queues the copy of ROWS x D bf16 values (16 bytes at a time) into a
+// ROWS x (DP + 8) shared tile; rows at or beyond `rows_total` and columns in
+// [D, DP) are zero-filled.
 template <int ROWS, int DP>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
                                                const __nv_bfloat16* src,
@@ -112,22 +138,21 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   for (int i = tid; i < ROWS * CH; i += kThreads) {
     const int r = i / CH, c = i - r * CH;
     const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < rows_total && c * 8 < D) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)gr * row_stride +
-                                            c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
+    const bool ok = gr < rows_total && c * 8 < D;
+    const __nv_bfloat16* from =
+        ok ? src + (long long)gr * row_stride + c * 8 : src;
+    cp_async16(dst + r * LD + c * 8, from, ok);
   }
 }
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   constexpr int BM = 64, BN = 64, LD = DP + 8;
+  // Q fragments stay in registers where the accumulators leave room
+  constexpr bool kQInRegs = DP <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BM * LD;
-  __nv_bfloat16* sV = sK + BN * LD;
+  __nv_bfloat16* sKV = sQ + BM * LD;   // [stage][K | V][BN][LD]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * BM;
@@ -142,24 +167,50 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   __nv_bfloat16* go = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                       h * p.o_sh;
 
+  const int n_tiles = (p.M + BN - 1) / BN;
+  auto load_kv = [&](int t) {
+    __nv_bfloat16* sK = sKV + (t & 1) * 2 * BN * LD;
+    load_tile_bf16<BN, DP>(sK, gk, p.k_sn, t * BN, p.M, p.D, tid);
+    load_tile_bf16<BN, DP>(sK + BN * LD, gv, p.v_sn, t * BN, p.M, p.D, tid);
+  };
+
+  // group 0: Q and the first K/V tile
   load_tile_bf16<BM, DP>(sQ, gq, p.q_sn, q0, p.N, p.D, tid);
+  load_kv(0);
+  cp_async_commit();
 
   float o_acc[DP / 8][4];
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o_acc[j][e] = 0.f;
-  float m_i[2] = {kNegInf, kNegInf};
-  float l_i[2] = {0.f, 0.f};   // per-thread partial row sums
+  float m_i[2] = {kNegInf, kNegInf};   // running max, log2 domain
+  float l_i[2] = {0.f, 0.f};           // per-thread partial row sums
   const float scale_log2 = p.scale * kLog2e;
+  uint32_t qf[DP / 16][4];   // used only when kQInRegs
 
-  const int n_tiles = (p.M + BN - 1) / BN;
   for (int t = 0; t < n_tiles; ++t) {
-    const int kbase = t * BN;
-    if (t > 0) __syncthreads();   // all warps are done with the last tile
-    load_tile_bf16<BN, DP>(sK, gk, p.k_sn, kbase, p.M, p.D, tid);
-    load_tile_bf16<BN, DP>(sV, gv, p.v_sn, kbase, p.M, p.D, tid);
+    // two stages: tile t + 1 streams in while tile t is consumed
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const __nv_bfloat16* sK = sKV + (t & 1) * 2 * BN * LD;
+    const __nv_bfloat16* sV = sK + BN * LD;
+    const int kbase = t * BN;
+
+    if constexpr (kQInRegs) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                  (lane >> 4) * 8);
+      }
+    }
 
     // S = Q K^T: 16 rows x 64 keys per warp, fp32
     float s[BN / 8][4];
@@ -170,8 +221,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       uint32_t a[4];
-      ldmatrix_x4(a, sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                         (lane >> 4) * 8);
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                           (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int nj = 0; nj < BN / 16; ++nj) {
         uint32_t bk[4];
@@ -182,22 +238,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
       }
     }
 
-    // scale into the log2 domain; mask the ragged last key tile
-    const bool ragged = kbase + BN > p.M;
+    // mask the ragged last key tile (raw scores; the scale is positive)
+    if (kbase + BN > p.M) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = s[j][e] * scale_log2;
-        if (ragged) {
-          const int col = kbase + j * 8 + (lane & 3) * 2 + (e & 1);
-          if (col >= p.M) val = kNegInf;
-        }
-        s[j][e] = val;
-      }
+        for (int e = 0; e < 4; ++e)
+          if (kbase + j * 8 + (lane & 3) * 2 + (e & 1) >= p.M)
+            s[j][e] = kNegInf;
     }
 
-    // online softmax; this thread holds rows (lane/4) and (lane/4 + 8)
+    // online softmax in the log2 domain, the scale folded into one FMA;
+    // this thread holds rows (lane/4) and (lane/4 + 8)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = kNegInf;
@@ -206,14 +258,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
         mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_i[r], mx);
-      const float alpha = exp2f(m_i[r] - m_new);
+      const float m_new = fmaxf(m_i[r], mx * scale_log2);
+      const float alpha = exp2_approx(m_i[r] - m_new);
       m_i[r] = m_new;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const float p0 = exp2f(s[j][2 * r] - m_new);
-        const float p1 = exp2f(s[j][2 * r + 1] - m_new);
+        const float p0 = exp2_approx(fmaf(s[j][2 * r], scale_log2, -m_new));
+        const float p1 =
+            exp2_approx(fmaf(s[j][2 * r + 1], scale_log2, -m_new));
         s[j][2 * r] = p0;
         s[j][2 * r + 1] = p1;
         sum += p0 + p1;
@@ -244,6 +297,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
         mma_bf16(o_acc[2 * dj + 1], a, bv[2], bv[3]);
       }
     }
+    __syncthreads();   // this stage is free for the tile after next
   }
 
   // epilogue: finish the row sums across the four threads of a row, divide,
@@ -273,7 +327,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
 template <int DP>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   constexpr int LD = DP + 8;
-  constexpr int smem = (64 + 64 + 64) * LD * 2;
+  constexpr int smem = (64 + 2 * (64 + 64)) * LD * 2;   // Q + 2 stages of K, V
   // per device and cheap, so set on every launch
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -7,7 +7,10 @@ Counterpart of ``celebbasis_tpu/ops/basic.py``:
 * CLIP's activation is quick-GELU ``x * sigmoid(1.702 x)``.
 
 Normalisations compute in float32 whatever the storage or compute type and
-return the input's type.
+return the input's type.  For a bf16 input on a CUDA device they call ATen's
+kernels on the bf16 tensor directly: those accumulate statistics and apply
+the affine in float32 and round once at the end, which is the same
+arithmetic without two cast passes over the activation.
 
 Layout: public tensors of the port are channels-last ``(B, H, W, C)`` like the
 JAX package's.  Inside the conv stacks the same memory is viewed as
@@ -45,6 +48,12 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def _native_fp32_stats(x: torch.Tensor) -> bool:
+    """True where ATen's norm kernels already do float32 statistics on the
+    tensor as it is (CUDA, bf16): no up-cast copy is needed."""
+    return x.is_cuda and x.dtype == torch.bfloat16
+
+
 class GroupNorm(nn.Module):
     """float32 GroupNorm(32, eps=1e-6) over the channel axis of a
     ``(B, C, ...)`` tensor (axis 1)."""
@@ -57,6 +66,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _native_fp32_stats(x):
+            return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), self.epsilon)
         y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
                          self.bias.float(), self.epsilon)
         return y.to(x.dtype)
@@ -72,6 +84,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _native_fp32_stats(x):
+            return F.layer_norm(x, (self.features,), self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), self.epsilon)
         y = F.layer_norm(x.float(), (self.features,), self.weight.float(),
                          self.bias.float(), self.epsilon)
         return y.to(x.dtype)

@@ -24,10 +24,13 @@ def _check_impl(impl):
 
 
 def geglu_xla(x, w1, b1, w2, b2):
-    h = x @ w1.to(x.dtype) + b1.to(x.dtype)
+    # F.linear(x, w.T, b) is x @ w + b with the bias added in the product's
+    # epilogue: no separate pass over the (T, 8C) intermediate
+    dt = x.dtype
+    h = F.linear(x, w1.to(dt).t(), b1.to(dt))
     h, gate = h.chunk(2, dim=-1)
     h = h * F.gelu(gate, approximate="tanh")
-    return h @ w2.to(x.dtype) + b2.to(x.dtype)
+    return F.linear(h, w2.to(dt).t(), b2.to(dt))
 
 
 def ln_xla(x, scale, bias, eps: float = 1e-5):

@@ -32,7 +32,8 @@ from celebbasis_tpu_torch.models.clip_text import (CLIPTextConfig,
                                                    CLIPTextEncoder)
 from celebbasis_tpu_torch.models.unet import UNetConfig, UNetModel
 from celebbasis_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-from celebbasis_tpu_torch.text.tokenizer import (CLIPTokenizer,
+from celebbasis_tpu_torch.text.tokenizer import (PLACEHOLDER_WORDS,
+                                                 CLIPTokenizer,
                                                  token_for_string)
 
 
@@ -58,8 +59,7 @@ class PipelineConfig:
     vae: VAEConfig = VAEConfig.sd_v1()
     clip: CLIPTextConfig = CLIPTextConfig.sd_v1()
     basis: BasisConfig = BasisConfig()
-    placeholder_strings: Tuple[str, ...] = ("sks", "ks", "ata", "tre", "ry",
-                                            "bop", "rn", "&", "*", "`")
+    placeholder_strings: Tuple[str, ...] = PLACEHOLDER_WORDS
     scale_factor: float = 0.18215
     timesteps: int = 1000
     linear_start: float = 0.00085

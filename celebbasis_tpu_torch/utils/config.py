@@ -21,9 +21,8 @@ from celebbasis_tpu_torch.core.basis import BasisConfig
 from celebbasis_tpu_torch.models.clip_text import CLIPTextConfig
 from celebbasis_tpu_torch.models.unet import UNetConfig
 from celebbasis_tpu_torch.models.vae import VAEConfig
-
-PLACEHOLDER_STRINGS = ("sks", "ks", "ata", "tre", "ry", "bop", "rn", "&", "*",
-                       "`")
+from celebbasis_tpu_torch.text.tokenizer import \
+    PLACEHOLDER_WORDS as PLACEHOLDER_STRINGS
 
 
 def deep_merge(base: Dict, over: Dict) -> Dict:

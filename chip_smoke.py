@@ -109,17 +109,22 @@ def phase_build() -> None:
 
 # -- phase 3 ------------------------------------------------------------------
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
+def time_ms(fn, iters: int, warmup: int = 3, repeats: int = 3) -> float:
+    """CUDA-event time per call over `iters` back-to-back calls; the least of
+    `repeats` such readings (the host that issues the launches is shared)."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float("inf")
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def bound(B, H, N, M, D, dtype):
@@ -162,7 +167,7 @@ def check_shape(entry, B, H, N, M, D, dtype, timed):
     if timed:
         bms, bby = bound(B, H, N, M, D, dtype)
         rec.update(
-            kernel_ms=time_ms(run, 20), plain_ms=time_ms(plain, 3, warmup=1),
+            kernel_ms=time_ms(run, 20), plain_ms=time_ms(plain, 3, warmup=1, repeats=1),
             bound_ms=bms, bound_by=bby,
             library_ms=time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -204,7 +209,7 @@ def phase_parity():
     from celebbasis_tpu_torch.core.basis import build_celeb_basis
     from celebbasis_tpu_torch.loader import _FALLBACK_NAMES, init_weights
     from celebbasis_tpu_torch.pipeline import (CelebBasisPipeline,
-                                               PipelineConfig)
+                                               PipelineConfig, finish_images)
     from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -250,7 +255,6 @@ def phase_parity():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
-    from celebbasis_tpu_torch.pipeline import finish_images
     u8_k = finish_images(img_k, "uint8").int()
     u8_p = finish_images(img_p, "uint8").int()
     dfloat = (img_k - img_p).abs().max().item()
