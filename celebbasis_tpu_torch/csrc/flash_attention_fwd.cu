@@ -22,20 +22,21 @@
 // zeros), (b) the exp and rescale work of the softmax, which runs on the
 // ordinary ALUs beside the tensor cores, and (c) mma.sync instead of wgmma.
 //
-// What the design does about it.  A block owns one (batch, head, 64-row query
-// tile); its four warps own 16 rows each.  K/V tiles of 64 keys stream
-// through two shared-memory stages filled by cp.async, so the next tile
-// arrives while this one is consumed; scores, running max, running sum and the output
-// accumulator live in fp32 registers, so the score matrix never leaves the
-// SM.  The head dim is padded to a multiple of 16 in shared memory only
-// (zero-filled columns), never in device memory.  The ragged last key tile
-// (M = 77) is masked in registers and its missing rows are zero-filled in
-// shared memory; the ragged last query tile is zero-filled on load and
-// skipped on store.  bf16 inputs take mma.sync.m16n8k16 with fp32
-// accumulation (operands in the input type, as the Pallas body's dot_general
-// does); fp32 inputs take a plain-FMA kernel with the same tiling idea, so
-// that fp32 callers get fp32 products.  wgmma, TMA and warp specialisation
-// are left for a later change.
+// What the design does about it.  A block owns one (batch, head, query tile
+// of 64 or 128 rows); each of its warps owns 16 rows.  K/V tiles of 64 keys
+// stream through two shared-memory stages filled by cp.async, one barrier
+// per tile, so the next tile arrives while this one is consumed.  Scores,
+// running max, running sum and the output accumulator live in fp32
+// registers, so the score matrix never leaves the SM; the exponentials are
+// ex2.approx with the softmax scale folded into one FMA.  The head dim is
+// padded to a multiple of 16 in shared memory only (zero-filled columns),
+// never in device memory.  The ragged last key tile (M = 77) is masked in
+// registers and its missing rows are zero-filled in shared memory; the
+// ragged last query tile is zero-filled on load and skipped on store.  bf16
+// inputs take mma.sync.m16n8k16 with fp32 accumulation (operands in the
+// input type, as the Pallas body's dot_general does); fp32 inputs take a
+// plain-FMA kernel with the same tiling idea, so that fp32 callers get fp32
+// products.  wgmma, TMA and warp specialisation are left for a later change.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_fwd.so flash_attention_fwd.cu
@@ -127,7 +128,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // Queues the copy of ROWS x D bf16 values (16 bytes at a time) into a
 // ROWS x (DP + 8) shared tile; rows at or beyond `rows_total` and columns in
 // [D, DP) are zero-filled.
-template <int ROWS, int DP>
+template <int ROWS, int DP, int NT>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
                                                const __nv_bfloat16* src,
                                                long long row_stride, int row0,
@@ -135,7 +136,7 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
                                                int tid) {
   constexpr int LD = DP + 8;
   constexpr int CH = DP / 8;
-  for (int i = tid; i < ROWS * CH; i += kThreads) {
+  for (int i = tid; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = i - r * CH;
     const int gr = row0 + r;
     const bool ok = gr < rows_total && c * 8 < D;
@@ -145,9 +146,9 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
-  constexpr int BM = 64, BN = 64, LD = DP + 8;
+template <int DP, int BM>
+__global__ void __launch_bounds__(BM * 2) flash_fwd_bf16(const Params p) {
+  constexpr int BN = 64, LD = DP + 8, NT = BM * 2;   // one warp per 16 rows
   // Q fragments stay in registers where the accumulators leave room
   constexpr bool kQInRegs = DP <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -170,12 +171,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   const int n_tiles = (p.M + BN - 1) / BN;
   auto load_kv = [&](int t) {
     __nv_bfloat16* sK = sKV + (t & 1) * 2 * BN * LD;
-    load_tile_bf16<BN, DP>(sK, gk, p.k_sn, t * BN, p.M, p.D, tid);
-    load_tile_bf16<BN, DP>(sK + BN * LD, gv, p.v_sn, t * BN, p.M, p.D, tid);
+    load_tile_bf16<BN, DP, NT>(sK, gk, p.k_sn, t * BN, p.M, p.D, tid);
+    load_tile_bf16<BN, DP, NT>(sK + BN * LD, gv, p.v_sn, t * BN, p.M, p.D,
+                               tid);
   };
 
   // group 0: Q and the first K/V tile
-  load_tile_bf16<BM, DP>(sQ, gq, p.q_sn, q0, p.N, p.D, tid);
+  load_tile_bf16<BM, DP, NT>(sQ, gq, p.q_sn, q0, p.N, p.D, tid);
   load_kv(0);
   cp_async_commit();
 
@@ -190,15 +192,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   uint32_t qf[DP / 16][4];   // used only when kQInRegs
 
   for (int t = 0; t < n_tiles; ++t) {
-    // two stages: tile t + 1 streams in while tile t is consumed
+    // two stages, one barrier per tile: once tile t has landed and every
+    // warp is past tile t - 1, that tile's stage takes tile t + 1, which
+    // streams in while tile t is consumed
+    cp_async_wait<0>();
+    __syncthreads();
     if (t + 1 < n_tiles) {
       load_kv(t + 1);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();
     const __nv_bfloat16* sK = sKV + (t & 1) * 2 * BN * LD;
     const __nv_bfloat16* sV = sK + BN * LD;
     const int kbase = t * BN;
@@ -297,7 +299,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
         mma_bf16(o_acc[2 * dj + 1], a, bv[2], bv[3]);
       }
     }
-    __syncthreads();   // this stage is free for the tile after next
   }
 
   // epilogue: finish the row sums across the four threads of a row, divide,
@@ -324,17 +325,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   }
 }
 
-template <int DP>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+template <int DP, int BM>
+cudaError_t launch_bf16_tile(const Params& p, cudaStream_t stream) {
   constexpr int LD = DP + 8;
-  constexpr int smem = (64 + 2 * (64 + 64)) * LD * 2;   // Q + 2 stages of K, V
+  constexpr int smem = (BM + 2 * (64 + 64)) * LD * 2;   // Q + 2 stages of K, V
   // per device and cheap, so set on every launch
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_bf16<DP, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((p.N + 63) / 64, p.B * p.H);
-  flash_fwd_bf16<DP><<<grid, kThreads, smem, stream>>>(p);
+  dim3 grid((p.N + BM - 1) / BM, p.B * p.H);
+  flash_fwd_bf16<DP, BM><<<grid, BM * 2, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Long query sequences take 128-row tiles (eight warps share each K/V tile,
+// which halves the copies per product); short ones keep 64 rows so that the
+// grid still fills the card.
+template <int DP>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  if (p.N >= 1024) return launch_bf16_tile<DP, 128>(p, stream);
+  return launch_bf16_tile<DP, 64>(p, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ Counterpart of ``celebbasis_tpu/models/clip_text.py``.  The model exposes the
 two stages that personalisation needs apart:
 
 * ``token_embed(input_ids)`` -- the raw token-table lookup (used by the
-  celeb-basis builder and by the injection path);
+  celeb-basis construction and by the injection path);
 * ``encode(inputs_embeds)`` -- position embeddings + causal transformer +
   final LayerNorm.
 

@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -49,26 +49,25 @@ def find_nvcc() -> str:
         "from source at first use and need the CUDA toolkit")
 
 
-def library_path(name: str, extra_flags: Sequence[str] = ()) -> str:
+def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, name + ".cu")
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
-def build(name: str, extra_flags: Sequence[str] = (),
-          verbose: bool = False) -> str:
+def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library's path.  Safe against concurrent builders: the
+    returns the library's path.  Safe against concurrent builds: the
     compiler writes to a private name that is renamed into place."""
-    out = library_path(name, extra_flags)
+    out = library_path(name)
     if os.path.exists(out):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC_DIR, name + ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -77,8 +76,6 @@ def build(name: str, extra_flags: Sequence[str] = (),
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) on {name}.cu\n"
             f"$ {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 

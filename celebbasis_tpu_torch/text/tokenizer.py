@@ -351,7 +351,7 @@ def _canonical_prime_words() -> Tuple[str, ...]:
     """Deterministic word list pre-registered into synthetic vocabs.
 
     Placeholders first (must always win a slot), then every word of the
-    shipped celeb-name files — so the offline basis builder and both CLIs
+    shipped celeb-name files — so the offline basis construction and both CLIs
     see identical token ids.  Sorted file order keeps it stable.
     """
     words: List[str] = list(PLACEHOLDER_WORDS)

@@ -3,7 +3,7 @@ injection against the JAX pipeline.
 
 Weights, the celeb basis and the manager state are made on the JAX side and
 carried over (not rebuilt); x_T is given; 4 DDIM steps, guidance 10, fp32 on
-the CPU.  Float images agree within 1e-3 (four guided UNet steps and a VAE
+the CPU.  Float images agree within 1e-3 (four CFG UNet steps and a VAE
 decode, each ~1e-4, with the guidance scale amplifying the difference of two
 UNet rows), uint8 pixels within one level (truncation at a level boundary).
 """
@@ -69,7 +69,7 @@ def test_tokenizers_and_configs_agree(both):
                                   both["jp"].token_table(both["params"]))
 
 
-def test_basis_builder_matches_jax(both):
+def test_basis_construction_matches_jax(both):
     table = both["tp"].token_table()
     ours = build_celeb_basis(NAMES, both["ttok"], table,
                              both["tp"].cfg.basis)

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where one denoising step of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_profile_unet.py [--steps 5] [--batch 2]
+    python3 torch_scripts/profile_unet.py [--steps 5] [--batch 2]
 
 Builds the SD v1 UNet of ``celebbasis_tpu_torch`` at full width on random
 bf16 weights, runs classifier-free-guidance forwards (batch doubled, 64x64
 latents, 77x768 context) on the GPU, and prints
 
-* the wall time of one guided forward (host clock around a synchronised
+* the wall time of one CFG forward (host clock around a synchronised
   loop) and the share of it the device was busy (sum of kernel times from
   ``torch.profiler`` over the same loop);
 * device time by kernel family: the hand-written flash attention, cuDNN /
@@ -22,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -114,12 +115,12 @@ def main() -> int:
     for route in ("cuda", "xla", "xla", "cuda"):     # in turns, one process
         attn_ops.set_default_impl(route)
         ms = wall_ms(step, args.steps)
-        result.setdefault(f"guided_forward_ms_{route}", []).append(ms)
-        print(f"attention route {route}: {ms:.2f} ms per guided forward")
+        result.setdefault(f"cfg_forward_ms_{route}", []).append(ms)
+        print(f"attention route {route}: {ms:.2f} ms per CFG forward")
     attn_ops.set_default_impl(None)
     fams, flash = device_ms_by_family(step, args.steps)
     busy = sum(fams.values())
-    wall = min(result["guided_forward_ms_cuda"])
+    wall = min(result["cfg_forward_ms_cuda"])
     if busy <= 0:
         print("torch.profiler reported no device time; only wall times are "
               "valid")
@@ -128,7 +129,8 @@ def main() -> int:
             print(f"  {fam:24s} {ms:7.3f} ms  {100 * ms / busy:5.1f}% of "
                   f"device time")
         for name, rec in sorted(flash.items()):
-            print(f"  {name.split('(')[0][-40:]}: "
+            label = re.search(r"flash_fwd_\w+<[^>]*>", name)
+            print(f"  {label.group(0) if label else name}: "
                   f"{rec['launches_per_forward']:.0f} launches per forward, "
                   f"mean {rec['mean_device_us']:.1f} us on the device")
         print(f"device busy {busy:.2f} ms of {wall:.2f} ms wall: idle share "
