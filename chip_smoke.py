@@ -195,6 +195,9 @@ def phase_kernels():
                                   timed=False))
         shapes.append(check_shape(entry, 1, 2, 200, 300, 256, torch.float32,
                                   timed=False))
+        # ragged tiles on the long-sequence (128-row) path
+        shapes.append(check_shape(entry, 1, 2, 1100, 333, 40, torch.bfloat16,
+                                  timed=False))
         records[entry] = shapes
     return records
 

@@ -117,21 +117,3 @@ def test_cpu_calls_launch_no_kernel_and_build_nothing(tmp_path, monkeypatch):
     assert tfa.launch_count() == 0
     assert tfa.launch_count("flash_attention_nhd") == 0
     assert list(tmp_path.iterdir()) == []
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """Needs a CUDA device and nvcc: builds the kernel and holds it against
-    the plain version (chip_smoke.py does the same at the serving shapes)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        g = torch.Generator(device="cuda").manual_seed(0)
-        q = torch.randn(2, 100, 3 * 40, device="cuda", generator=g).to(dtype)
-        k = torch.randn(2, 77, 3 * 40, device="cuda", generator=g).to(dtype)
-        v = torch.randn(2, 77, 3 * 40, device="cuda", generator=g).to(dtype)
-        before = tfa.launch_count("flash_attention_nhd")
-        out = tfa.flash_attention_nhd(q, k, v, 3)
-        assert tfa.launch_count("flash_attention_nhd") == before + 1
-        ref = tfa.flash_attention_nhd_plain(q, k, v, 3)
-        assert (out.float() - ref.float()).abs().max().item() <= tol
