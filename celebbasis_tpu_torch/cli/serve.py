@@ -42,6 +42,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from celebbasis_tpu_torch.ops.attention import resolved_impl
+
 
 class _Job:
     __slots__ = ("prompt", "seed", "ids", "n", "event", "result", "error")
@@ -235,6 +237,7 @@ def make_handler(service: TxtToImgService):
                     "batch": service.batch, "steps": service.steps,
                     "image_size": service.image_size,
                     "device": str(service.device),
+                    "attention": resolved_impl(service.device),
                     "requests": service.requests,
                     "batched_calls": service.batched_calls,
                     "batched_rows": service.batched_rows,
@@ -315,7 +318,8 @@ def main(argv=None):
                                 make_handler(service))
     print(f"[serve] listening on http://{args.host}:{httpd.server_address[1]}"
           f" (batch={args.batch}, {args.ddim_steps} steps, "
-          f"{service.device})")
+          f"{service.device}, attention route "
+          f"{resolved_impl(service.device)})")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

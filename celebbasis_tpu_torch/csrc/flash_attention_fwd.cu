@@ -498,15 +498,12 @@ extern "C" int flash_attention_fwd(
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (D <= 16) return launch_bf16<16>(p, st);
-    if (D <= 32) return launch_bf16<32>(p, st);
+    // Padded widths: those of the SD v1 UNet (head dims 40, 80, 160) and the
+    // limit.  Any other head dim runs at the next width up, its extra columns
+    // zero-filled in shared memory; a width of its own is one line here.
     if (D <= 48) return launch_bf16<48>(p, st);
-    if (D <= 64) return launch_bf16<64>(p, st);
     if (D <= 80) return launch_bf16<80>(p, st);
-    if (D <= 96) return launch_bf16<96>(p, st);
-    if (D <= 128) return launch_bf16<128>(p, st);
     if (D <= 160) return launch_bf16<160>(p, st);
-    if (D <= 192) return launch_bf16<192>(p, st);
     return launch_bf16<256>(p, st);
   }
   if (dtype == 0) {

@@ -16,9 +16,16 @@ Routes (``impl``):
 As in the JAX package, masked attention (CLIP's causal mask) always takes the
 plain core: the kernel is mask-free.  The kernel's own limit is on the head
 dim: a multiple of 8 (16-byte bf16 rows) and at most 256 (a warp's output
-tile has to fit in registers).  The VAE's one-head d=512 mid-block attention
-is beyond it and takes the plain core, as it does in the JAX package (there
-for a VMEM rule, here for this register rule).
+tile has to fit in registers).  Exactly one unmasked case leaves the ``"cuda"``
+route: a head dim above 256 -- the VAE's one-head d=512 mid-block attention --
+takes the plain core, as it does in the JAX package (there for a VMEM rule,
+here for this register rule).  Any other head dim the kernel does not take (not
+a multiple of 8) raises on a CUDA tensor; nothing else is rerouted.
+
+``CELEBBASIS_ATTN`` (read at import) or ``set_default_impl`` pins the route
+for the whole process; ``resolved_impl(device)`` says which route calls
+without ``impl`` take, and the serving daemon reports it at start-up and in
+``/healthz``.
 
 ``CELEBBASIS_FLASH_LAYOUT=bhnd`` routes through the per-head entry point
 ``flash_attention`` instead of the packed ``flash_attention_nhd``; both reach
@@ -45,7 +52,9 @@ def set_default_impl(impl: str | None) -> None:
     _DEFAULT_IMPL = impl
 
 
-def _resolve_impl(device: torch.device) -> str:
+def resolved_impl(device: torch.device | str) -> str:
+    """The route that calls without ``impl`` take for tensors on `device`."""
+    device = torch.device(device)
     if _DEFAULT_IMPL is not None:
         if _DEFAULT_IMPL not in _IMPLS:
             raise ValueError(f"CELEBBASIS_ATTN must be one of {_IMPLS}; "
@@ -68,12 +77,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask: optional additive mask broadcastable to (B, heads, N, M).
     Returns (B, N, C).
     """
-    impl = impl or _resolve_impl(q.device)
+    impl = impl or resolved_impl(q.device)
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}; got {impl!r}")
     B, N, C = q.shape
     H = num_heads
-    use_kernel = impl == "cuda" and mask is None and _flash.supports(C // H)
+    # the one rerouted case: head dims beyond the kernel's register budget
+    use_kernel = (impl == "cuda" and mask is None
+                  and C // H <= _flash.MAX_HEAD_DIM)
     if use_kernel and os.environ.get("CELEBBASIS_FLASH_LAYOUT") != "bhnd":
         return _flash.flash_attention_nhd(q, k, v, H)
     qh, kh, vh = _split_heads(q, H), _split_heads(k, H), _split_heads(v, H)

@@ -4,10 +4,9 @@ Each kernel source under ``celebbasis_tpu_torch/csrc/`` has a plain C
 interface and includes no PyTorch headers, so ``nvcc`` turns it into a shared
 library in seconds; ``ctypes`` loads it.  The build happens at first use (never
 at import), from the sources in the package alone, into
-``celebbasis_tpu_torch/_build/`` (or ``$CELEBBASIS_BUILD_DIR``).  The library
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a finished build is reused.  A failed build raises with the
-compiler's output.
+``celebbasis_tpu_torch/_build/``.  The library name carries a hash of the
+source and the flags, so an edited source is rebuilt and a finished build is
+reused.  A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -30,8 +29,7 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> str:
-    return os.environ.get("CELEBBASIS_BUILD_DIR",
-                          os.path.join(PACKAGE_DIR, "_build"))
+    return os.path.join(PACKAGE_DIR, "_build")
 
 
 def find_nvcc() -> str:

@@ -49,6 +49,27 @@ def supports(head_dim: int) -> bool:
     return 0 < head_dim <= MAX_HEAD_DIM and head_dim % HEAD_DIM_MULTIPLE == 0
 
 
+def bf16_error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest ``|out - ref|`` of a bf16 result in units of what rounding
+    allows, element by element; at most 1 when the two agree.
+
+    Allowed per element: ``2**-7 * |ref|``, one bf16 unit in the last place
+    (the two sides may round the output to neighbouring values), plus
+    ``2**-5`` of the outputs' root mean square for the rounding of the
+    probabilities to bf16 before the second product: ``2**-9`` relative per
+    weight on either side, which cancellation in the weighted sum turns into
+    an absolute error; over millions of outputs, with rows whose softmax is
+    more peaked than the mean, its largest value came to ``2**-6`` of the
+    rms on an H100 at the SD v1 shapes, and the limit leaves a factor of two.
+    The limit scales with what is compared: a flat softmax over thousands of
+    keys gives outputs of a few hundredths, and an absolute limit sized for
+    unit outputs would let any result pass there.
+    """
+    out, ref = out.float(), ref.float()
+    allowed = ref.abs() * 2.0 ** -7 + ref.square().mean().sqrt() * 2.0 ** -5
+    return ((out - ref).abs() / allowed).max().item()
+
+
 # -- plain versions -----------------------------------------------------------
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,

@@ -10,7 +10,8 @@ flash-attention kernel against its plain PyTorch version.  Phases:
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
 2. ``build``   builds the kernel library from ``celebbasis_tpu_torch/csrc``;
 3. ``kernels`` both entry points of the kernel against their plain versions at
-               the serving path's shapes, with times, bounds and a library
+               the serving path's shapes (the error limit scales with
+               the outputs compared), with device times, bounds and a library
                yardstick (``F.scaled_dot_product_attention``, called here and
                nowhere in the port);
 4. ``parity``  the tiny pipeline in fp32 through the kernel route and through
@@ -49,8 +50,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DDIM_STEPS = 50
 ATTN_PER_UNET = 32           # 16 transformer blocks x (self + cross)
 TOL = {torch.float32: 2e-5,  # summation order only
-       torch.bfloat16: 2e-2}  # bf16 rounding of p and of the output,
-                              # unit-scale inputs
+       torch.bfloat16: 2e-2}  # bf16 rounding of p and of the output, for
+                              # outputs of unit scale; the binding limit for
+                              # bf16 is fa.bf16_error_ratio <= 1, which
+                              # scales with the outputs that are compared
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # H100 SXM dense tensor-core rate
               torch.float32: 67e12}     # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
@@ -109,22 +112,36 @@ def phase_build() -> None:
 
 # -- phase 3 ------------------------------------------------------------------
 
-def time_ms(fn, iters: int, warmup: int = 3, repeats: int = 3) -> float:
-    """CUDA-event time per call over `iters` back-to-back calls; the least of
-    `repeats` such readings (the host that issues the launches is shared)."""
-    for _ in range(warmup):
-        fn()
-    best = float("inf")
+def time_ms(fn, iters: int, repeats: int = 5):
+    """Device time per call: `iters` calls are captured into one CUDA graph,
+    so that its replay runs them back to back with no host between them
+    (most of the serving shapes finish faster than the host can issue the
+    next launch).  Returns (median, least) of `repeats` replays, by CUDA
+    events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    readings = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / iters)
-    return best
+        readings.append(start.elapsed_time(end) / iters)
+    del graph
+    return float(np.median(readings)), min(readings)
 
 
 def bound(B, H, N, M, D, dtype):
@@ -138,11 +155,14 @@ def bound(B, H, N, M, D, dtype):
                                        else "bytes")
 
 
-def check_shape(entry, B, H, N, M, D, dtype, timed):
+def check_shape(entry, B, H, N, M, D, dtype, timed, q_scale=1.0):
+    """`q_scale` 1 gives logits of unit variance (a nearly flat softmax over
+    many keys, outputs of a few hundredths); 4 gives a peaked softmax and
+    outputs of unit scale at any M."""
     g = torch.Generator(device="cuda").manual_seed(N * 131 + M * 7 + D)
-    mk = lambda L: torch.randn(B, L, H * D, device="cuda",
-                               generator=g).to(dtype)
-    q, k, v = mk(N), mk(M), mk(M)
+    mk = lambda L, scale=1.0: (torch.randn(B, L, H * D, device="cuda",
+                                           generator=g) * scale).to(dtype)
+    q, k, v = mk(N, q_scale), mk(M), mk(M)
     heads = lambda x: x.reshape(B, x.shape[1], H, D).permute(0, 2, 1, 3)
     q4, k4, v4 = heads(q), heads(k), heads(v)
     if entry == "flash_attention_nhd":
@@ -161,18 +181,24 @@ def check_shape(entry, B, H, N, M, D, dtype, timed):
         raise RuntimeError(f"{entry}: shape/dtype {out.shape} {out.dtype} "
                            f"vs plain {ref.shape} {ref.dtype}")
     err = (out.float() - ref.float()).abs().max().item()
-    rec = {"B": B, "H": H, "N": N, "M": M, "D": D,
+    rec = {"B": B, "H": H, "N": N, "M": M, "D": D, "q_scale": q_scale,
            "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": err, "tol": TOL[dtype]}
+           "max_abs_err": err, "tol": TOL[dtype],
+           "ref_rms": ref.float().square().mean().sqrt().item(),
+           "ref_max": ref.float().abs().max().item()}
+    ok = np.isfinite(err) and err <= TOL[dtype]
+    if dtype == torch.bfloat16:
+        rec["err_ratio"] = fa.bf16_error_ratio(out, ref)
+        ok = ok and rec["err_ratio"] <= 1.0
     if timed:
         bms, bby = bound(B, H, N, M, D, dtype)
-        rec.update(
-            kernel_ms=time_ms(run, 20), plain_ms=time_ms(plain, 3, warmup=1, repeats=1),
-            bound_ms=bms, bound_by=bby,
-            library_ms=time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q4, k4, v4), 20))
-    ok = np.isfinite(err) and err <= TOL[dtype]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4)
+        iters = 10 if N * M >= 1 << 22 else 50
+        (rec["kernel_ms"], rec["kernel_ms_min"]) = time_ms(run, iters)
+        (rec["plain_ms"], rec["plain_ms_min"]) = time_ms(plain, 3)
+        (rec["library_ms"], rec["library_ms_min"]) = time_ms(sdpa, iters)
+        rec.update(bound_ms=bms, bound_by=bby)
     log("kernels", f"{entry} {json.dumps(rec)} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{entry} disagrees with its plain version at "
@@ -198,6 +224,17 @@ def phase_kernels():
         # ragged tiles on the long-sequence (128-row) path
         shapes.append(check_shape(entry, 1, 2, 1100, 333, 40, torch.bfloat16,
                                   timed=False))
+        # head dims that run at a wider padded width (64 in 80), and the limit
+        shapes.append(check_shape(entry, 2, 3, 100, 77, 64, torch.bfloat16,
+                                  timed=False))
+        shapes.append(check_shape(entry, 1, 2, 200, 300, 256, torch.bfloat16,
+                                  timed=False))
+        # peaked softmax: outputs of unit scale through many K/V tiles, so
+        # that every stage of the tile pipeline shows in the result
+        for N, D in SERVE_LEVELS[:2]:
+            shapes.append(check_shape(entry, B_SERVE, H_SERVE, N, N, D,
+                                      torch.bfloat16, timed=False,
+                                      q_scale=4.0))
         records[entry] = shapes
     return records
 
@@ -476,6 +513,8 @@ def main() -> int:
             "source": "celebbasis_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": replaces, "launches": launches[entry],
             "max_abs_err": max(s["max_abs_err"] for s in shapes[entry]),
+            "max_err_ratio": max(s.get("err_ratio", 0.0)
+                                 for s in shapes[entry]),
             "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],

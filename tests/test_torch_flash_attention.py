@@ -110,10 +110,40 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_cpu_calls_launch_no_kernel_and_build_nothing(tmp_path, monkeypatch):
-    monkeypatch.setenv("CELEBBASIS_BUILD_DIR", str(tmp_path))
+    from celebbasis_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "build_dir", lambda: str(tmp_path))
     tfa.reset_launch_count()
     q = torch.ones(1, 4, 16)
     tfa.flash_attention_nhd(q, q, q, 2)
     assert tfa.launch_count() == 0
     assert tfa.launch_count("flash_attention_nhd") == 0
     assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 1024, 40), (2, 2, 64, 77, 160)])
+def test_scaled_bf16_limit_holds_between_two_right_kernels(shape):
+    """The Pallas kernel (online softmax, its own rounding points) and the
+    port's plain version are both right: their bf16 results lie within the
+    limit that scales with the outputs, flat softmax (1024 keys) or not."""
+    H = shape[1]
+    (jq, jk, jv), (tq, tk, tv) = _qkv(shape, "bfloat16", 3)
+    ref = t(np.asarray(jfa.flash_attention_nhd(jq, jk, jv, H, block_q=64,
+                                               block_k=128), np.float32))
+    got = tfa.flash_attention_nhd(tq, tk, tv, H)
+    assert tfa.bf16_error_ratio(got, ref) <= 1.0
+    assert tfa.bf16_error_ratio(got, got) == 0.0
+
+
+def test_scaled_bf16_limit_catches_a_wrong_result_at_small_outputs():
+    """A flat softmax over 1024 keys gives outputs of a few hundredths, where
+    an absolute limit sized for unit outputs says little.  A result that
+    drops the last 8 keys, or scales the logits for a head dim of 48 instead
+    of 40, must fail the scaled limit by a wide margin."""
+    shape = (1, 2, 256, 1024, 40)
+    _, (q, k, v) = _qkv(shape, "bfloat16", 4)
+    ref = tfa.flash_attention_nhd(q, k, v, 2)
+    assert ref.float().square().mean().sqrt().item() < 0.06
+    dropped = tfa.flash_attention_nhd(q, k[:, :-8], v[:, :-8], 2)
+    rescaled = tfa.flash_attention_nhd(q * (40 / 48) ** 0.5, k, v, 2)
+    for wrong in (dropped, rescaled):
+        assert tfa.bf16_error_ratio(wrong, ref) > 4.0

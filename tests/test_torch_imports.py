@@ -18,8 +18,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = r"""
 import importlib, os, pkgutil, sys
-os.environ["CELEBBASIS_BUILD_DIR"] = sys.argv[1]
 import celebbasis_tpu_torch
+build_dir = os.path.join(os.path.dirname(celebbasis_tpu_torch.__file__),
+                         "_build")
+ls = lambda: set(os.listdir(build_dir)) if os.path.isdir(build_dir) else set()
+before = ls()
 names = ["celebbasis_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(celebbasis_tpu_torch.__path__,
                                           "celebbasis_tpu_torch.")]
@@ -30,13 +33,13 @@ bad = sorted(m for m in sys.modules
                                     "celebbasis_tpu"))
 print("MODULES", len(names))
 print("BAD", bad)
-print("BUILT", os.listdir(sys.argv[1]))
+print("BUILT", sorted(ls() - before))
 """
 
 
-def test_imports_pull_in_no_jax_and_build_nothing(tmp_path):
+def test_imports_pull_in_no_jax_and_build_nothing():
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(tmp_path)],
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
                          capture_output=True, text=True, cwd=REPO, env=env)
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())

@@ -64,6 +64,7 @@ def test_healthz(server):
     with urllib.request.urlopen(url + "/healthz") as r:
         h = json.loads(r.read())
     assert h["ok"] and h["warm"] and h["batch"] == 2 and h["device"] == "cpu"
+    assert h["attention"] == "xla"      # the CPU's route is the plain core
 
 
 def test_txt2img_roundtrip_and_determinism(server):
