@@ -1,13 +1,19 @@
 // Flash-attention forward for NVIDIA Hopper (sm_90a), written by hand.
 //
-// Replaces two Pallas TPU kernels of celebbasis_tpu/ops/flash_attention.py:
+// Replaces three Pallas TPU kernels of celebbasis_tpu/ops/flash_attention.py:
 //   * _fwd_kernel_packed (via _forward_nhd, public flash_attention_nhd):
 //     q/k/v/o as untransposed (B, N, H*D);
 //   * _fwd_kernel_infer (via _forward(with_stats=False), public
-//     flash_attention): q/k/v/o as (B, H, N, D).
-// Both compute, per (batch, head), softmax(q k^T * D^-0.5) v with an online
-// softmax over key tiles, fp32 statistics and fp32 accumulators, padded keys
-// masked with -1e30, and no logsumexp output.  One kernel serves both: it
+//     flash_attention): q/k/v/o as (B, H, N, D);
+//   * _fwd_kernel with stats (via _forward(with_stats=True), the forward of
+//     the differentiated call): the same output plus, per query row, the
+//     logsumexp of the scaled logits (fp32), which the backward kernels of
+//     flash_attention_bwd.cu read.  It is the LSE = true instantiation of the
+//     kernels below (entry flash_attention_fwd_lse); its output equals the
+//     inference forward's bit for bit, the arithmetic being the same code.
+// All compute, per (batch, head), softmax(q k^T * D^-0.5) v with an online
+// softmax over key tiles, fp32 statistics and fp32 accumulators, and padded
+// keys masked with -1e30.  One kernel serves both layouts: it
 // takes base pointers plus the batch, head and row strides (in elements; the
 // element stride along the head dim is 1), so the packed layout is read in
 // place and the per-head layout is the same code with other strides.
@@ -40,16 +46,15 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_fwd.so flash_attention_fwd.cu
+// (flash_common.cuh beside it holds the helpers shared with the backward.)
 // Plain C interface at the bottom; no PyTorch headers.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace flash;
+
 constexpr int kThreads = 128;
 
 struct Params {
@@ -57,6 +62,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;   // (B, H, N) contiguous; written only by the LSE variants
   int B, H, N, M, D;
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
@@ -69,84 +75,7 @@ struct Params {
 // bf16: tensor-core kernel (mma.sync m16n8k16, fp32 accumulate)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16-byte asynchronous copy global -> shared; with `pred` false nothing is
-// read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Queues the copy of ROWS x D bf16 values (16 bytes at a time) into a
-// ROWS x (DP + 8) shared tile; rows at or beyond `rows_total` and columns in
-// [D, DP) are zero-filled.
-template <int ROWS, int DP, int NT>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long row_stride, int row0,
-                                               int rows_total, int D,
-                                               int tid) {
-  constexpr int LD = DP + 8;
-  constexpr int CH = DP / 8;
-  for (int i = tid; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = i - r * CH;
-    const int gr = row0 + r;
-    const bool ok = gr < rows_total && c * 8 < D;
-    const __nv_bfloat16* from =
-        ok ? src + (long long)gr * row_stride + c * 8 : src;
-    cp_async16(dst + r * LD + c * 8, from, ok);
-  }
-}
-
-template <int DP, int BM>
+template <int DP, int BM, bool LSE>
 __global__ void __launch_bounds__(BM * 2) flash_fwd_bf16(const Params p) {
   constexpr int BN = 64, LD = DP + 8, NT = BM * 2;   // one warp per 16 rows
   // Q fragments stay in registers where the accumulators leave room
@@ -321,31 +250,37 @@ __global__ void __launch_bounds__(BM * 2) flash_fwd_bf16(const Params p) {
                                     o_acc[j][2 * r + 1] * inv);
         }
       }
+      if constexpr (LSE) {
+        // m is in the log2 domain with the scale folded in
+        if ((lane & 3) == 0)
+          p.lse[(long long)blockIdx.y * p.N + row] =
+              (m_i[r] + log2f(l)) * kLn2;
+      }
     }
   }
 }
 
-template <int DP, int BM>
+template <int DP, int BM, bool LSE>
 cudaError_t launch_bf16_tile(const Params& p, cudaStream_t stream) {
   constexpr int LD = DP + 8;
   constexpr int smem = (BM + 2 * (64 + 64)) * LD * 2;   // Q + 2 stages of K, V
   // per device and cheap, so set on every launch
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<DP, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_bf16<DP, BM, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
   dim3 grid((p.N + BM - 1) / BM, p.B * p.H);
-  flash_fwd_bf16<DP, BM><<<grid, BM * 2, smem, stream>>>(p);
+  flash_fwd_bf16<DP, BM, LSE><<<grid, BM * 2, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Long query sequences take 128-row tiles (eight warps share each K/V tile,
 // which halves the copies per product); short ones keep 64 rows so that the
 // grid still fills the card.
-template <int DP>
+template <int DP, bool LSE>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  if (p.N >= 1024) return launch_bf16_tile<DP, 128>(p, stream);
-  return launch_bf16_tile<DP, 64>(p, stream);
+  if (p.N >= 1024) return launch_bf16_tile<DP, 128, LSE>(p, stream);
+  return launch_bf16_tile<DP, 64, LSE>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -355,7 +290,7 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
 // tiles of 32 keys.  Lane j of a warp scores key j of the tile against the
 // warp's four rows; lane j also owns output columns j, j + 32, ...
 
-template <int NREG>   // D <= 32 * NREG
+template <int NREG, bool LSE>   // D <= 32 * NREG
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   constexpr int BM = 16, BN = 32, RPW = 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -453,19 +388,62 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
         const int c = lane + 32 * i;
         if (c < D) go[(long long)row * p.o_sn + c] = acc[r][i] * inv;
       }
+      if constexpr (LSE) {
+        if (lane == 0)
+          p.lse[(long long)blockIdx.y * p.N + row] = m_i[r] + logf(l_i[r]);
+      }
     }
   }
 }
 
-template <int NREG>
+template <int NREG, bool LSE>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const int smem = (16 + 32 + 32) * (p.D + 1) * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32<NREG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<NREG, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
   dim3 grid((p.N + 15) / 16, p.B * p.H);
-  flash_fwd_f32<NREG><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_f32<NREG, LSE><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool LSE>
+int dispatch(const Params& p, int dtype, cudaStream_t st) {
+  if (p.D <= 0 || p.D > 256 || p.D % 8 != 0 || p.B <= 0 || p.H <= 0 ||
+      p.N <= 0 || p.M <= 0)
+    return -1;
+  if ((long long)p.B * p.H > 65535) return -1;
+  if (dtype == 1) {
+    // Padded widths: those of the SD v1 UNet (head dims 40, 80, 160) and the
+    // limit.  Any other head dim runs at the next width up, its extra columns
+    // zero-filled in shared memory; a width of its own is one line here.
+    if (p.D <= 48) return launch_bf16<48, LSE>(p, st);
+    if (p.D <= 80) return launch_bf16<80, LSE>(p, st);
+    if (p.D <= 160) return launch_bf16<160, LSE>(p, st);
+    return launch_bf16<256, LSE>(p, st);
+  }
+  if (dtype == 0) {
+    if (p.D <= 32) return launch_f32<1, LSE>(p, st);
+    if (p.D <= 64) return launch_f32<2, LSE>(p, st);
+    if (p.D <= 128) return launch_f32<4, LSE>(p, st);
+    return launch_f32<8, LSE>(p, st);
+  }
+  return -1;
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int N, int M, int D,
+                   const long long* strides, float scale) {
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
+  p.B = B; p.H = H; p.N = N; p.M = M; p.D = D;
+  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_sn = strides[2];
+  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_sn = strides[5];
+  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_sn = strides[8];
+  p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_sn = strides[11];
+  p.scale = scale;
+  return p;
 }
 
 }  // namespace
@@ -473,46 +451,31 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements: *_sb between
-// batches, *_sh between heads, *_sn between rows; the head dim is contiguous.
-// bf16 needs 16-byte aligned base pointers and strides that are multiples
-// of 8.  Returns 0 on success, a cudaError_t value if the launch was
-// refused, or -1 for arguments this kernel does not take (D not a multiple
-// of 8, D > 256, unknown dtype, empty tensors).
+// dtype: 0 = float32, 1 = bfloat16.  `strides` is a host array of 12 element
+// strides: (batch, head, row) for q, k, v, o in turn; the head dim is
+// contiguous.  bf16 needs 16-byte aligned base pointers and strides that are
+// multiples of 8.  Returns 0 on success, a cudaError_t value if the launch
+// was refused, or -1 for arguments this kernel does not take (D not a
+// multiple of 8, D > 256, unknown dtype, empty tensors).
+
+// The inference forward (the two Pallas inference kernels).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int N, int M, int D, long long q_sb, long long q_sh,
-    long long q_sn, long long k_sb, long long k_sh, long long k_sn,
-    long long v_sb, long long v_sh, long long v_sn, long long o_sb,
-    long long o_sh, long long o_sn, float scale, void* stream) {
-  if (D <= 0 || D > 256 || D % 8 != 0 || B <= 0 || H <= 0 || N <= 0 || M <= 0)
-    return -1;
-  if ((long long)B * H > 65535) return -1;
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.B = B; p.H = H; p.N = N; p.M = M; p.D = D;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
-  p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    // Padded widths: those of the SD v1 UNet (head dims 40, 80, 160) and the
-    // limit.  Any other head dim runs at the next width up, its extra columns
-    // zero-filled in shared memory; a width of its own is one line here.
-    if (D <= 48) return launch_bf16<48>(p, st);
-    if (D <= 80) return launch_bf16<80>(p, st);
-    if (D <= 160) return launch_bf16<160>(p, st);
-    return launch_bf16<256>(p, st);
-  }
-  if (dtype == 0) {
-    if (D <= 32) return launch_f32<1>(p, st);
-    if (D <= 64) return launch_f32<2>(p, st);
-    if (D <= 128) return launch_f32<4>(p, st);
-    return launch_f32<8>(p, st);
-  }
-  return -1;
+    int H, int N, int M, int D, const long long* strides, float scale,
+    void* stream) {
+  const Params p = make_params(q, k, v, o, nullptr, B, H, N, M, D, strides,
+                               scale);
+  return dispatch<false>(p, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The training forward (Pallas _fwd_kernel with stats): the same o, and per
+// row lse = max + log(sum) of the scaled logits, fp32, (B, H, N) contiguous.
+extern "C" int flash_attention_fwd_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B, int H, int N, int M, int D, const long long* strides,
+    float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, lse, B, H, N, M, D, strides, scale);
+  return dispatch<true>(p, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,9 +1,12 @@
-"""Run assembly: spec + checkpoints -> pipeline, basis, manager state.
+"""Run assembly: spec + checkpoints -> pipeline, basis, meta-net, manager
+state.
 
-Counterpart of ``celebbasis_tpu/loader.py``: builds the model bundle on the
-asked device (random-init from a seed; the pretrained weights are not
-vendored), constructs/caches the celeb basis from the float32 token table
-before any storage cast, and sets up the manager state.
+Counterpart of ``celebbasis_tpu/loader.py``: builds the model bundle and the
+MetaIdNet on the asked device (random-init from a seed; the pretrained
+weights are not vendored), constructs/caches the celeb basis from the float32
+token table before any storage cast, and sets up the manager state.
+Everything comes back frozen (``requires_grad`` False); what trains is chosen
+by ``train.step.build_trainable``.
 
 ``device`` defaults to ``"cuda"``.  With no card and no explicit
 ``device="cpu"`` this raises: nothing carries on on the CPU by itself.
@@ -20,6 +23,9 @@ import torch.nn as nn
 from celebbasis_tpu_torch.core import manager as mgr
 from celebbasis_tpu_torch.core.basis import (build_celeb_basis,
                                              build_celeb_basis_cached)
+from celebbasis_tpu_torch.core.meta_net import (EqualLinear, MetaIdNet,
+                                                MetaNetConfig)
+from celebbasis_tpu_torch.models.iresnet import IResNetConfig, PReLU
 from celebbasis_tpu_torch.pipeline import CelebBasisPipeline, PipelineConfig
 from celebbasis_tpu_torch.text.tokenizer import (CLIPTokenizer,
                                                  default_tokenizer)
@@ -55,7 +61,7 @@ class Assembled:
     tokenizer: CLIPTokenizer
     pipeline: CelebBasisPipeline
     basis: torch.Tensor              # (es, 1+inner, width)
-    meta_net: None                   # MetaIdNet: not ported yet
+    meta_net: MetaIdNet
     manager_state: mgr.ManagerState
     device: torch.device
 
@@ -75,28 +81,37 @@ def init_weights(module: nn.Module, generator: torch.Generator,
     """Random-init from ``generator`` (whose device the draws are made on),
     in the spirit of the flax initialisers: LeCun-normal kernels, zero
     biases, unit norm scales, N(0, 0.01) position table, N(0, 1) token
-    table.  ``zero_convs=True`` keeps the reference's zero-initialised output
+    table, N(0, 1) EqualLinear weights and coefficient table, PReLU slopes
+    of 0.25.  ``zero_convs=True`` keeps the reference's zero-initialised output
     convs (with them a random-init UNet predicts eps = 0);
     ``zero_convs=False`` draws them like any other kernel, for smoke runs in
     which every layer should matter."""
     from celebbasis_tpu_torch.ops.basic import ZeroConv
 
-    zero = set()
-    if zero_convs:
-        for m in module.modules():
-            if isinstance(m, ZeroConv):
-                zero.update(id(p) for p in m.parameters())
+    zero, unit_normal, slopes = set(), set(), set()
+    for m in module.modules():
+        if zero_convs and isinstance(m, ZeroConv):
+            zero.update(id(p) for p in m.parameters())
+        elif isinstance(m, EqualLinear):
+            unit_normal.add(id(m.weight))
+        elif isinstance(m, MetaIdNet) and m.cfg.use_rm_mlp:
+            unit_normal.add(id(m.coef_table))
+        elif isinstance(m, PReLU):
+            slopes.add(id(m.alpha))
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if id(p) in zero or leaf == "bias":
                 p.zero_()
+            elif id(p) in slopes:
+                p.fill_(0.25)
             elif p.ndim == 1:
                 p.fill_(1.0)
             else:
                 if leaf == "position_embedding":
                     std = 0.01
-                elif name.endswith("token_embedding.weight"):
+                elif name.endswith("token_embedding.weight") \
+                        or id(p) in unit_normal:
                     std = 1.0
                 else:
                     std = (p[0].numel()) ** -0.5       # fan_in
@@ -107,6 +122,7 @@ def init_weights(module: nn.Module, generator: torch.Generator,
 
 
 def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
+             fr_ckpt: Optional[str] = None,
              vocab_path: Optional[str] = None,
              embedding_ckpt: Optional[str] = None,
              image_size: int = 512, seed: int = 0,
@@ -122,6 +138,11 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
             "loading CompVis/HF checkpoints is not ported yet; the port "
             "runs on random-init weights or on weights carried over with "
             "utils.bridge.load_jax_params")
+    if fr_ckpt:
+        raise NotImplementedError(
+            "loading the CosFace backbone checkpoint is not ported yet; the "
+            "face net runs on random-init weights or on weights carried "
+            "over with utils.bridge.load_jax_params")
     tokenizer = default_tokenizer(vocab_path)
     if tokenizer.vocab_size != spec.clip.vocab_size:
         # offline synthetic fallback must match the model's embedding table
@@ -145,6 +166,16 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
         basis = build_celeb_basis(_FALLBACK_NAMES, tokenizer, table,
                                   spec.basis)
 
+    meta_cfg = MetaNetConfig(
+        inner_dim=spec.meta_inner_dim, num_es=spec.num_embeds_per_token,
+        heads=spec.meta_heads, mlp_depth=spec.meta_mlp_depth,
+        token_dim=spec.clip.width, use_rm_mlp=spec.use_rm_mlp,
+        num_ids=spec.max_ids, iresnet=IResNetConfig.r100())
+    with torch.device(dev):
+        meta = MetaIdNet(meta_cfg, dtype=dtype)
+    meta.requires_grad_(False).eval()
+    init_weights(meta, gen)
+
     # manager state, optionally from a trained embeddings_gs-*.pt
     m_cfg = pipe.manager_cfg
     init_emb = None
@@ -160,7 +191,7 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
         cast_float_params(pipe, param_dtype)
 
     return Assembled(spec, tokenizer, pipe,
-                     torch.from_numpy(basis).to(dev), None, state, dev)
+                     torch.from_numpy(basis).to(dev), meta, state, dev)
 
 
 def manager_config_from_spec(spec: RunSpec, pipe: CelebBasisPipeline

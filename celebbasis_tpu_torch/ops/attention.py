@@ -13,6 +13,10 @@ Routes (``impl``):
   JAX package's, kept so that callers and tests read alike); the default for
   tensors on the CPU.
 
+Both entry points of the kernel route are differentiable: a call whose q, k or
+v requires grad goes through the training forward and the backward kernels, on
+either layout, and a call in which nothing does stays on the inference forward.
+
 As in the JAX package, masked attention (CLIP's causal mask) always takes the
 plain core: the kernel is mask-free.  The kernel's own limit is on the head
 dim: a multiple of 8 (16-byte bf16 rows) and at most 256 (a warp's output

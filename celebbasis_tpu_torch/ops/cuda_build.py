@@ -5,14 +5,18 @@ interface and includes no PyTorch headers, so ``nvcc`` turns it into a shared
 library in seconds; ``ctypes`` loads it.  The build happens at first use (never
 at import), from the sources in the package alone, into
 ``celebbasis_tpu_torch/_build/``.  The library name carries a hash of the
-source and the flags, so an edited source is rebuilt and a finished build is
-reused.  A failed build raises with the compiler's output.
+source, of the headers beside it and of the flags, so an edited source is
+rebuilt and a finished build is reused.  A failed build raises with the
+compiler's output; a finished one keeps ``ptxas``'s report (registers, shared
+memory and spills per kernel) in ``ptxas_report``.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,10 +26,11 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_ptxas: Dict[str, str] = {}
 
 
 def build_dir() -> str:
@@ -50,8 +55,9 @@ def find_nvcc() -> str:
 def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, name + ".cu")
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:12]}.so")
 
@@ -75,7 +81,45 @@ def build(name: str) -> str:
             f"nvcc failed ({proc.returncode}) on {name}.cu\n"
             f"$ {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
+    _ptxas[name] = proc.stderr
     return out
+
+
+def build_all(names) -> Dict[str, str]:
+    """Builds several sources at once, one ``nvcc`` each, all started
+    together; returns name -> library path."""
+    results: Dict[str, object] = {}
+
+    def one(name):
+        try:
+            results[name] = build(name)
+        except Exception as e:   # noqa: BLE001 -- re-raised below
+            results[name] = e
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r in results.values():
+        if isinstance(r, Exception):
+            raise r
+    return {n: results[n] for n in names}
+
+
+def ptxas_report(name: str) -> Dict[str, int]:
+    """What ``ptxas -v`` said when this process built ``csrc/<name>.cu``:
+    the number of kernels, the most registers a thread of any kernel uses and
+    the bytes of spill stores and loads, summed.  Empty if the library was
+    built by an earlier process."""
+    text = _ptxas.get(name)
+    if text is None:
+        return {}
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0),
+            "spill_bytes": sum(spills)}
 
 
 def load(name: str) -> ctypes.CDLL:

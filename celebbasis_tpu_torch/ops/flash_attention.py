@@ -1,21 +1,32 @@
-"""Flash-attention forward: wrappers of the hand-written Hopper kernel.
+"""Flash attention: wrappers of the hand-written Hopper kernels.
 
-Counterpart of ``celebbasis_tpu/ops/flash_attention.py``'s two inference
-forwards: ``flash_attention_nhd`` (packed ``(B, N, H*D)``, the serving
-default) and ``flash_attention`` (per-head ``(B, H, N, D)``).  Both launch the
-one kernel in ``csrc/flash_attention_fwd.cu`` with the strides of the layout
-they were given: no head transpose is materialised in either.
+Counterpart of ``celebbasis_tpu/ops/flash_attention.py``: the two entry points
+``flash_attention_nhd`` (packed ``(B, N, H*D)``, the default) and
+``flash_attention`` (per-head ``(B, H, N, D)``).  Both hand the kernels the
+strides of the layout they were given: no head transpose is materialised in
+either, forward or backward.
 
-Each entry point has its plain PyTorch version beside it
-(``flash_attention_nhd_plain``, ``flash_attention_plain``: the same function
-with fp32 logits and softmax).  A wrapper takes the plain version only when
-the tensors lie on the CPU.  On CUDA tensors it launches the kernel or
-raises; nothing falls back.
+Which kernel a call launches on CUDA tensors:
 
-Forward only: the gradient arrives with the backward kernels.
+* nothing requires grad (or grad mode is off): the inference forward of
+  ``csrc/flash_attention_fwd.cu`` (counters ``flash_attention_nhd`` /
+  ``flash_attention``);
+* q, k or v requires grad: one ``torch.autograd.Function`` whose forward is
+  the logsumexp-saving forward of the same source (counter ``fwd_lse``) and
+  whose backward launches the kernels of ``csrc/flash_attention_bwd.cu``:
+  ``dq`` when q needs a gradient, ``dkv`` when k or v does (counters ``dq``,
+  ``dkv``), after the small ``delta = rowsum(dO * O)`` kernel of that source.
+  The backward uses no atomics: the same inputs give the same bits.
 
-``launch_count()`` counts kernel launches (and nothing else), per entry point
-and in total, so a run can show that its path went through the kernel.
+Each kernel has its plain PyTorch version beside it
+(``flash_attention_plain`` / ``flash_attention_nhd_plain``,
+``flash_attention_lse_plain``, ``flash_attention_bwd_plain``).  A wrapper
+takes the plain version only when the tensors lie on the CPU, where the
+gradient is ordinary autograd through it.  On CUDA tensors it launches the
+kernel or raises; nothing falls back.
+
+``launch_count()`` counts kernel launches (and nothing else), per kernel and
+in total, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -28,15 +39,39 @@ from celebbasis_tpu_torch.ops import cuda_build
 MAX_HEAD_DIM = 256      # accumulators for a 16-row warp tile fit in registers
 HEAD_DIM_MULTIPLE = 8   # 16-byte rows for bf16 vector loads
 
-_launches = {"flash_attention_nhd": 0, "flash_attention": 0}
+_launches = {"flash_attention_nhd": 0, "flash_attention": 0,
+             "fwd_lse": 0, "dq": 0, "dkv": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_TAIL = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP]
+# C entry -> (library, argument types); see the sources' C interfaces
+_SIGNATURES = {
+    "flash_attention_fwd": ("flash_attention_fwd",
+                            [_VP] * 4 + [_INT] * 6 + _TAIL),
+    "flash_attention_fwd_lse": ("flash_attention_fwd",
+                                [_VP] * 5 + [_INT] * 6 + _TAIL),
+    "flash_attention_bwd_delta": (
+        "flash_attention_bwd",
+        [_VP] * 3 + [_INT] * 5 + [ctypes.POINTER(ctypes.c_longlong), _VP]),
+    "flash_attention_bwd_dq": ("flash_attention_bwd",
+                               [_VP] * 7 + [_INT] * 6 + _TAIL),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                [_VP] * 8 + [_INT] * 6 + _TAIL),
+}
+LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
+_fns = {}
 
 
 def launch_count(entry: str | None = None) -> int:
-    """Kernel launches since the last reset: of one entry point
-    (``"flash_attention_nhd"`` or ``"flash_attention"``), or of both."""
+    """Kernel launches since the last reset: of one counter
+    (``"flash_attention_nhd"``, ``"flash_attention"``, ``"fwd_lse"``,
+    ``"dq"``, ``"dkv"``), or of all."""
     return sum(_launches.values()) if entry is None else _launches[entry]
+
+
+def launch_counts() -> dict:
+    return dict(_launches)
 
 
 def reset_launch_count() -> None:
@@ -45,7 +80,7 @@ def reset_launch_count() -> None:
 
 
 def supports(head_dim: int) -> bool:
-    """Head dims the kernel takes: a multiple of 8, at most 256."""
+    """Head dims the kernels take: a multiple of 8, at most 256."""
     return 0 < head_dim <= MAX_HEAD_DIM and head_dim % HEAD_DIM_MULTIPLE == 0
 
 
@@ -70,6 +105,26 @@ def bf16_error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
     return ((out - ref).abs() / allowed).max().item()
 
 
+def bf16_grad_error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """``bf16_error_ratio`` for a gradient (dq, dk or dv, last dim the head
+    dim): the rms term is taken over the element's own row where that is
+    larger than the tensor's.
+
+    The backward kernels round p and ds = p (dp - delta) to bf16 before their
+    second products, ``2**-9`` relative per term like the forward's p, and a
+    gradient row is a weighted sum with cancellation like an output row.  But
+    p is normalised over keys, not over queries: a key that many queries
+    attend to collects a dk / dv row many times the tensor's rms, and its
+    rounding error grows with the row, not with the tensor.  Where the
+    softmax is flat the two rms agree and this is ``bf16_error_ratio``.
+    """
+    out, ref = out.float(), ref.float()
+    rms = torch.maximum(ref.square().mean(-1, keepdim=True).sqrt(),
+                        ref.square().mean().sqrt())
+    allowed = ref.abs() * 2.0 ** -7 + rms * 2.0 ** -5
+    return ((out - ref).abs() / allowed).max().item()
+
+
 # -- plain versions -----------------------------------------------------------
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -86,111 +141,304 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_nhd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, N, H*D), (B, M, H*D) x2 -> (B, N, H*D)."""
-    B, N, C = q.shape
-    M = k.shape[1]
-    D = C // num_heads
-    split = lambda x, L: x.reshape(B, L, num_heads, D).permute(0, 2, 1, 3)
-    out = flash_attention_plain(split(q, N), split(k, M), split(v, M))
-    return out.permute(0, 2, 1, 3).reshape(B, N, C)
+    out = flash_attention_plain(*(_split(x, num_heads) for x in (q, k, v)))
+    return _merge(out)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor):
+    """The training forward, (B, H, N, D) layout: ``(o, lse)`` with
+    ``lse = logsumexp(q k^T * D**-0.5)`` per query row, fp32 ``(B, H, N)``."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.matmul(probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype), lse
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """The backward written out, (B, H, N, D) layout, fp32 products as in the
+    Pallas bodies: ``p = exp(q k^T scale - lse)``, ``dp = dO v^T``,
+    ``ds = p (dp - delta)`` with ``delta = rowsum(dO * O)``;
+    ``dq = (ds k) scale``, ``dk = ds^T (q scale)``, ``dv = p^T dO``.
+    Returns ``(dq, dk, dv)`` in the inputs' types.  Not written through
+    autograd, so that it checks the algebra."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf * scale)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, H*D) -> (B, H, L, D), a view."""
+    B, L, C = x.shape
+    return x.reshape(B, L, num_heads, C // num_heads).permute(0, 2, 1, 3)
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, D) -> (B, L, H*D)."""
+    B, H, L, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B, L, H * D)
 
 
 # -- kernel launch ------------------------------------------------------------
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = cuda_build.load("flash_attention_fwd")
-        fn = lib.flash_attention_fwd
+def _fn(name: str):
+    """The C entry `name`, its library built and loaded at first use."""
+    if name not in _fns:
+        library, argtypes = _SIGNATURES[name]
+        lib = cuda_build.load(library)
+        fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
         err = lib.flash_attention_error_string
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        _fn = (fn, err)
-    return _fn
+        _fns[name] = (fn, err)
+    return _fns[name]
 
 
-def _launch(entry, q, k, v, o, B, H, N, M, D, strides):
-    """strides: (batch, head, row) element strides for q, k, v, o."""
+def _call(name: str, device: torch.device, args_before_stream) -> None:
+    """Launch on `device`'s current stream; raises if the launch is refused."""
+    fn, err = _fn(name)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args_before_stream, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args_before_stream,
+                    torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed ({rc}): "
+                           f"{err(rc).decode()}")
+
+
+def _strides(t: torch.Tensor, num_heads: int | None):
+    """(batch, head, row) element strides of a packed (B, L, H*D) tensor
+    (`num_heads` given) or of a per-head (B, H, L, D) one (None)."""
+    if num_heads is None:
+        return (t.stride(0), t.stride(1), t.stride(2))
+    return (t.stride(0), t.shape[2] // num_heads, t.stride(1))
+
+
+def _aligned(t: torch.Tensor, strides) -> bool:
+    """What the bf16 kernels' 16-byte vector loads need of a tensor."""
+    return t.data_ptr() % 16 == 0 and not any(s % 8 for s in strides)
+
+
+def _stride_array(tensors, num_heads):
+    flat = [s for t in tensors for s in _strides(t, num_heads)]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _geometry(q, k, v, num_heads):
+    """Checks q, k, v of either layout; returns (B, H, N, M, D)."""
+    if num_heads is None:
+        if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
+                or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+            raise ValueError(f"bad shapes q{tuple(q.shape)} "
+                             f"k{tuple(k.shape)} v{tuple(v.shape)}")
+        B, H, N, D = q.shape
+        M = k.shape[2]
+    else:
+        if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape \
+                or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] \
+                or q.shape[2] % num_heads:
+            raise ValueError(f"bad shapes q{tuple(q.shape)} "
+                             f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                             f"heads={num_heads}")
+        B, N, C = q.shape
+        H, M, D = num_heads, k.shape[1], C // num_heads
+    return B, H, N, M, D
+
+
+def _check_cuda_inputs(q, k, v, num_heads, H, B, D):
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention takes float32 or bfloat16 q/k/v of "
                         f"one type; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one device")
     if not supports(D):
-        raise ValueError(f"head dim {D} unsupported: the kernel takes a "
+        raise ValueError(f"head dim {D} unsupported: the kernels take a "
                          f"multiple of {HEAD_DIM_MULTIPLE} up to "
                          f"{MAX_HEAD_DIM}")
     if B * H > 65535:
         raise ValueError(f"batch*heads = {B * H} exceeds the grid limit")
-    if q.dtype == torch.bfloat16:
-        for name, t, st in zip("qkvo", (q, k, v, o), strides):
-            if t.data_ptr() % 16 or any(s % 8 for s in st):
-                raise ValueError(
-                    f"{name}: bf16 rows must be 16-byte aligned (strides "
-                    f"{st}, offset {t.storage_offset()})")
-    fn, err = _kernel()
-    flat = [s for st in strides for s in st]
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, N, M, D, *flat, D ** -0.5)
-    if q.device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(q.device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed ({rc}): "
-                           f"{err(rc).decode()}")
-    _launches[entry] += 1
-    return o
-
-
-def _check_last_stride(**tensors):
-    for name, t in tensors.items():
+    for name, t in zip("qkv", (q, k, v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dim must be contiguous; "
                              f"got strides {t.stride()}")
+        if t.dtype == torch.bfloat16 \
+                and not _aligned(t, _strides(t, num_heads)):
+            raise ValueError(
+                f"{name}: bf16 rows must be 16-byte aligned (strides "
+                f"{t.stride()}, offset {t.storage_offset()})")
+
+
+def _forward_cuda(q, k, v, num_heads, with_lse: bool):
+    """One forward launch; returns o, or (o, lse) with `with_lse`."""
+    B, H, N, M, D = _geometry(q, k, v, num_heads)
+    _check_cuda_inputs(q, k, v, num_heads, H, B, D)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = _stride_array((q, k, v, o), num_heads)
+    dims = (_DTYPE_CODE[q.dtype], B, H, N, M, D, strides, D ** -0.5)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if with_lse:
+        lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+        _call("flash_attention_fwd_lse", q.device,
+              (*ptrs, lse.data_ptr(), *dims))
+        _launches["fwd_lse"] += 1
+        return o, lse
+    _call("flash_attention_fwd", q.device, (*ptrs, *dims))
+    _launches["flash_attention" if num_heads is None
+              else "flash_attention_nhd"] += 1
+    return o
+
+
+def flash_attention_lse(q, k, v, num_heads: int | None = None):
+    """The training forward on its own: ``(o, lse)``; q, k, v packed
+    ``(B, L, H*D)`` with `num_heads`, per-head ``(B, H, L, D)`` without.
+    ``lse`` is fp32 ``(B, H, N)`` in both layouts."""
+    if q.device.type == "cpu":
+        _geometry(q, k, v, num_heads)
+        if num_heads is None:
+            return flash_attention_lse_plain(q, k, v)
+        o, lse = flash_attention_lse_plain(
+            *(_split(x, num_heads) for x in (q, k, v)))
+        return _merge(o), lse
+    return _forward_cuda(q, k, v, num_heads, with_lse=True)
+
+
+def _readable(t: torch.Tensor, num_heads) -> torch.Tensor:
+    """A tensor autograd handed over (the incoming gradient), brought to rows
+    the kernels can read: last dim contiguous, bf16 rows 16-byte aligned."""
+    if t.stride(-1) != 1 or (t.dtype == torch.bfloat16 and not _aligned(
+            t, _strides(t, num_heads))):
+        return t.contiguous()
+    return t
+
+
+def flash_attention_delta(o, do, num_heads: int | None = None):
+    """``delta = rowsum(dO * O)``, fp32 ``(B, H, N)``: the backward's
+    prologue, a small kernel of its own on CUDA tensors."""
+    if num_heads is None:
+        B, H, N, D = o.shape
+    else:
+        B, N, C = o.shape
+        H, D = num_heads, C // num_heads
+    if o.device.type == "cpu":
+        prod = do.float() * o.float()
+        if num_heads is not None:
+            prod = _split(prod, num_heads)
+        return prod.sum(-1)
+    do = _readable(do, num_heads)
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=o.device)
+    _call("flash_attention_bwd_delta", o.device,
+          (o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+           _DTYPE_CODE[o.dtype], B, H, N, D,
+           _stride_array((o, do), num_heads)))
+    return delta
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, num_heads: int | None = None,
+                        need_dq: bool = True, need_dkv: bool = True,
+                        delta=None):
+    """The backward on its own: ``(dq, dk, dv)`` in the layout and type of
+    q, k, v; a gradient that is not asked for is None and its kernel is not
+    launched.  `o` and `lse` are what ``flash_attention_lse`` returned;
+    `delta` is computed here unless it is given."""
+    B, H, N, M, D = _geometry(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        args = (q, k, v, o, do)
+        if num_heads is not None:
+            args = tuple(_split(x, num_heads) for x in args)
+        dq, dk, dv = flash_attention_bwd_plain(*args[:4], lse, args[4])
+        if num_heads is not None:
+            dq, dk, dv = _merge(dq), _merge(dk), _merge(dv)
+        return (dq if need_dq else None, dk if need_dkv else None,
+                dv if need_dkv else None)
+    _check_cuda_inputs(q, k, v, num_heads, H, B, D)
+    if do.dtype != q.dtype or do.shape != q.shape or o.shape != q.shape \
+            or lse.shape != (B, H, N) or lse.dtype != torch.float32:
+        raise ValueError(f"bad backward inputs: do {tuple(do.shape)} "
+                         f"{do.dtype}, o {tuple(o.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    do = _readable(do, num_heads)
+    lse = lse.contiguous()
+    if delta is None:
+        delta = flash_attention_delta(o, do, num_heads)
+    code = _DTYPE_CODE[q.dtype]
+    dq = dk = dv = None
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    if need_dq:
+        dq = torch.empty_like(q)   # q's strides where q is dense
+        _call("flash_attention_bwd_dq", q.device,
+              (*common, dq.data_ptr(), code, B, H, N, M, D,
+               _stride_array((q, k, v, do, dq), num_heads), D ** -0.5))
+        _launches["dq"] += 1
+    if need_dkv:
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        _call("flash_attention_bwd_dkv", q.device,
+              (*common, dk.data_ptr(), dv.data_ptr(), code, B, H, N, M, D,
+               _stride_array((q, k, v, do, dk, dv), num_heads), D ** -0.5))
+        _launches["dkv"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The differentiable call on CUDA tensors, either layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        o, lse = _forward_cuda(q, k, v, num_heads, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.num_heads = num_heads
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do, ctx.num_heads, need_dq=need_q,
+            need_dkv=need_k or need_v)
+        return dq, dk if need_k else None, dv if need_v else None, None
+
+
+def _attend(q, k, v, num_heads):
+    if q.device.type == "cpu":
+        _geometry(q, k, v, num_heads)
+        if num_heads is None:
+            return flash_attention_plain(q, k, v)
+        return flash_attention_nhd_plain(q, k, v, num_heads)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, num_heads)
+    return _forward_cuda(q, k, v, num_heads, with_lse=False)
 
 
 def flash_attention_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int) -> torch.Tensor:
-    """q: (B, N, H*D); k, v: (B, M, H*D) -> (B, N, H*D), untransposed."""
-    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] \
-            or q.shape[2] % num_heads:
-        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                         f"v{tuple(v.shape)} heads={num_heads}")
-    if q.device.type == "cpu":
-        return flash_attention_nhd_plain(q, k, v, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check_last_stride(q=q, k=k, v=v)
-    B, N, C = q.shape
-    M, D = k.shape[1], C // num_heads
-    o = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
-    strides = [(t.stride(0), D, t.stride(1)) for t in (q, k, v, o)]
-    return _launch("flash_attention_nhd", q, k, v, o, B, num_heads, N, M, D,
-                   strides)
+    """q: (B, N, H*D); k, v: (B, M, H*D) -> (B, N, H*D), untransposed.
+    Differentiable."""
+    return _attend(q, k, v, num_heads)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """q: (B, H, N, D); k, v: (B, H, M, D) -> (B, H, N, D).  The inputs may be
     permuted views (e.g. of a packed ``(B, N, H, D)`` buffer): only the last
-    dim has to be contiguous."""
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
-            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
-        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                         f"v{tuple(v.shape)}")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check_last_stride(q=q, k=k, v=v)
-    B, H, N, D = q.shape
-    M = k.shape[2]
-    o = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
-    strides = [(t.stride(0), t.stride(1), t.stride(2)) for t in (q, k, v, o)]
-    return _launch("flash_attention", q, k, v, o, B, H, N, M, D, strides)
+    dim has to be contiguous.  Differentiable."""
+    return _attend(q, k, v, None)

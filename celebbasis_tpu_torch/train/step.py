@@ -1,0 +1,348 @@
+"""Personalisation training step: coefficient-only backprop.
+
+Counterpart of ``celebbasis_tpu/train/step.py``.  One step: VAE-encode the
+image (no grad), draw t and noise, run the CLIP encoder with the embedding
+manager injecting MetaIdNet's predicted identity embeddings, predict eps with
+the frozen UNet, and take an AdamW step on **only** the StyleVectorizer MLP
+(about 0.5 M parameters; everything else is frozen).
+
+Where the JAX package splits parameter trees into ``frozen`` and
+``trainable`` and differentiates with respect to the latter, the modules here
+own their weights and *which parameters train* is which have
+``requires_grad``: ``build_trainable`` sets that and returns the groups the
+optimizer takes.  Gradients reach the MLP **through** the frozen UNet and
+CLIP, whose parameters get no ``.grad``.
+
+The step updates in place what JAX returns anew: module parameters (by the
+optimizer), and the fields of ``TrainState``.  The momentum dictionaries stay
+functional (``ManagerState`` is replaced, not written into).
+
+Randomness comes from the ``torch.Generator`` carried in the state, drawn in
+a fixed order (posterior noise, t, eps).  A batch may carry deterministic
+draws instead -- ``override_znoise``, ``override_t`` (B,) and
+``override_noise`` -- so that tests can feed this step and the JAX one the
+same numbers (the two frameworks' streams differ).
+
+Batches are channels-last like the JAX package's: image (B, H, W, 3) in
+[-1, 1]; tokens (B, 77) int64; faces (B, k, Hf, Wf, 3); ids (B, k) int64;
+num_ids (B,) int64.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn as nn
+
+from celebbasis_tpu_torch.core import manager as mgr
+from celebbasis_tpu_torch.core.meta_net import MetaIdNet
+from celebbasis_tpu_torch.diffusion import ddpm
+
+
+@dataclass
+class TrainState:
+    step: int                          # micro-batches seen
+    trainable: Dict[str, List[nn.Parameter]]
+    optimizer: "torch.optim.Optimizer | AccumulatingOptimizer"
+    manager_state: mgr.ManagerState
+    generator: torch.Generator
+
+
+def make_gnet(pipeline) -> nn.Module:
+    """The contra head's trainable g-net, sized for the flattened per-face
+    metas; on the pipeline's device."""
+    from celebbasis_tpu_torch.core.losses import ContrastiveGNet
+    width = pipeline.cfg.clip.width
+    return ContrastiveGNet(pipeline.manager_cfg.reps * width,
+                           meta_dim=width).to(pipeline.device)
+
+
+def init_gnet_params(pipeline, generator: torch.Generator) -> nn.Module:
+    """A g-net with LeCun-normal kernel and zero bias drawn from
+    ``generator`` (flax's Dense initialisers)."""
+    gnet = make_gnet(pipeline)
+    w = gnet.Dense_0.weight
+    with torch.no_grad():
+        draw = torch.randn(w.shape, generator=generator,
+                           device=generator.device) * w.shape[1] ** -0.5
+        w.copy_(draw.to(w.device))
+        gnet.Dense_0.bias.zero_()
+    return gnet
+
+
+def build_trainable(meta_net: MetaIdNet, unet: Optional[nn.Module] = None,
+                    gnet: Optional[nn.Module] = None
+                    ) -> Dict[str, List[nn.Parameter]]:
+    """The parameter groups that train: ``{"meta": [...]}`` plus ``"unet"``
+    and ``"gnet"`` when those modules are given.  Sets ``requires_grad`` on
+    exactly these (and clears it on the rest of the MetaIdNet)."""
+    meta_net.requires_grad_(False)
+    out = {"meta": meta_net.trainable_parameters()}
+    if unet is not None:
+        out["unet"] = list(unet.parameters())
+    if gnet is not None:
+        out["gnet"] = list(gnet.parameters())
+    for group in out.values():
+        for p in group:
+            p.requires_grad_(True)
+    return out
+
+
+class AccumulatingOptimizer:
+    """Gradient accumulation with ``optax.MultiSteps`` semantics: the
+    gradients of ``every`` micro-batches are averaged (as a running mean) and
+    one update of the inner optimizer is applied on the boundary."""
+
+    def __init__(self, inner: torch.optim.Optimizer, every: int):
+        self.inner, self.every = inner, every
+        self.mini_step = 0
+        self._params = [p for g in inner.param_groups for p in g["params"]]
+        self._acc = [torch.zeros_like(p) for p in self._params]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for acc, p in zip(self._acc, self._params):
+            if p.grad is not None:
+                acc += (p.grad - acc) / (self.mini_step + 1)
+            else:
+                acc -= acc / (self.mini_step + 1)
+        self.mini_step += 1
+        if self.mini_step < self.every:
+            return
+        for acc, p in zip(self._acc, self._params):
+            p.grad = acc.clone()
+            acc.zero_()
+        self.inner.step()
+        self.mini_step = 0
+
+
+def make_optimizer(trainable: Dict[str, List[nn.Parameter]],
+                   lr: float = 1e-2, model_lr: Optional[float] = None,
+                   accumulate: int = 1, weight_decay: float = 1e-2):
+    """AdamW, reference LR recipe: base 5e-3 scaled by batch (= 1e-2 at batch
+    2).
+
+    ``weight_decay`` is torch's AdamW default 1e-2: the reference constructs
+    ``torch.optim.AdamW(embedding_params, lr=lr)`` with no explicit decay, and
+    the JAX package sets the same value on optax (whose own default differs).
+
+    With ``model_lr`` set, the ``"unet"`` group runs at its own rate (the
+    reference's ``unfreeze_model`` / ``model_lr`` path); the g-net, if
+    present, rides with the MLP at the base rate.  ``accumulate > 1`` wraps
+    the optimizer in ``AccumulatingOptimizer``.
+    """
+    base = [p for name, group in trainable.items() if name != "unet"
+            for p in group]
+    groups = [{"params": base, "lr": lr}]
+    if model_lr is not None:
+        groups.append({"params": trainable["unet"], "lr": model_lr})
+    elif "unet" in trainable:
+        raise ValueError("an unfrozen UNet needs model_lr")
+    opt = torch.optim.AdamW(groups, lr=lr, weight_decay=weight_decay)
+    return AccumulatingOptimizer(opt, accumulate) if accumulate > 1 else opt
+
+
+def _check_loss_type(loss_type: str) -> None:
+    if loss_type not in mgr.VALID_LOSS_TYPES:   # never a silent no-op
+        raise ValueError(f"unknown loss_type {loss_type!r}; "
+                         f"expected one of {mgr.VALID_LOSS_TYPES}")
+
+
+def _randn(shape, generator, device):
+    return torch.randn(shape, generator=generator,
+                       device=generator.device).to(device)
+
+
+def _loss_from_posterior(pipeline, sched, loss_type, gnet, manager_state,
+                         batch, generator, mean, logvar, pred_z, pred_coeff):
+    """Steps 1b-5 shared by the cached and uncached losses: sample the
+    posterior, draw t and eps, inject, encode, predict, take the loss."""
+    dev = mean.device
+    T = pipeline.cfg.timesteps
+    zn = batch.get("override_znoise")
+    if zn is None:
+        zn = _randn(mean.shape, generator, dev)
+    z0 = ((mean + torch.exp(0.5 * logvar) * zn)
+          * pipeline.cfg.scale_factor).detach()
+    B = z0.shape[0]
+    t = batch.get("override_t")
+    if t is None:
+        t = torch.randint(0, T, (B,), generator=generator,
+                          device=generator.device).to(dev)
+    noise = batch.get("override_noise")
+    if noise is None:
+        noise = _randn(z0.shape, generator, dev)
+    z_t = ddpm.q_sample(sched, z0, t, noise)
+    with torch.no_grad():
+        embeds = pipeline.clip.token_embed(batch["tokens"])
+    new_embeds, new_mstate = mgr.train_inject(
+        pipeline.manager_cfg, manager_state, batch["tokens"], embeds, pred_z,
+        pred_coeff, batch["ids"], batch["num_ids"])
+    context = pipeline.clip.encode(new_embeds)
+    eps_pred = pipeline.unet(z_t, t, context)
+    loss, logs = ddpm.eps_mse_loss(eps_pred, noise)
+    neg, neg_logs = mgr.id_neg_loss(loss_type, pred_z, pred_coeff, gnet)
+    logs.update(neg_logs)
+    return loss + neg, (new_mstate, logs)
+
+
+def make_loss_fn(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
+                 train_unet: bool = False, gnet: Optional[nn.Module] = None):
+    """The full personalisation loss,
+    ``loss_fn(manager_state, basis, batch, generator) ->
+    (loss, (new_manager_state, logs))``, shared by the train step (backward)
+    and the eval step (value only).
+
+    ``train_unet`` is kept for the JAX package's signature; whether the UNet
+    gets gradients is decided by its parameters' ``requires_grad`` (see
+    ``build_trainable``), and this function checks that the two agree.
+    ``gnet`` is required by ``loss_type='contra'``.
+    """
+    _check_loss_type(loss_type)
+    if loss_type == "contra" and gnet is None:
+        raise ValueError("loss_type='contra' needs the trainable g-net")
+    sched = ddpm.ScheduleArrays.from_schedule(pipeline.schedule,
+                                              pipeline.device)
+
+    def loss_fn(manager_state, basis, batch, generator):
+        if any(p.requires_grad for p in pipeline.unet.parameters()) \
+                != train_unet:
+            raise ValueError("train_unet disagrees with the UNet "
+                             "parameters' requires_grad")
+        # 1. frozen VAE encode
+        with torch.no_grad():
+            mean, logvar = pipeline.vae.encode(batch["image"])
+        # 3a. identity prediction (frozen face net, trainable MLP)
+        pred_z, pred_coeff = meta_net.multi_faces(batch["faces"],
+                                                  batch["ids"], basis)
+        return _loss_from_posterior(pipeline, sched, loss_type, gnet,
+                                    manager_state, batch, generator, mean,
+                                    logvar, pred_z, pred_coeff)
+
+    return loss_fn
+
+
+def make_cached_loss_fn(pipeline, meta_net: MetaIdNet,
+                        loss_type: str = "none",
+                        gnet: Optional[nn.Module] = None):
+    """Loss over precomputed frozen features (fast-personalisation mode).
+
+    The VAE posterior (mean, logvar) and the frozen face features are
+    deterministic functions of the augmented inputs, so they are computed
+    once per augmented sample and reused; a step is then UNet + CLIP + MLP.
+    The posterior is still *sampled* afresh each step.
+
+    batch: latent_mean / latent_logvar (B, h, w, 4); fr_feats (B, k, fr_dim);
+    tokens (B, 77); ids (B, k); num_ids (B,).
+    """
+    _check_loss_type(loss_type)
+    if loss_type == "contra" and gnet is None:
+        raise ValueError("loss_type='contra' needs the trainable g-net")
+    sched = ddpm.ScheduleArrays.from_schedule(pipeline.schedule,
+                                              pipeline.device)
+
+    def loss_fn(manager_state, basis, batch, generator):
+        feats = batch["fr_feats"]
+        B, k = feats.shape[:2]
+        z, coeff = meta_net.z_from_features(
+            feats.reshape(-1, feats.shape[-1]), basis)
+        pred_z = z.reshape(B, k, *z.shape[1:])
+        pred_coeff = coeff.reshape(B, k, *coeff.shape[1:])
+        return _loss_from_posterior(
+            pipeline, sched, loss_type, gnet, manager_state, batch,
+            generator, batch["latent_mean"], batch["latent_logvar"], pred_z,
+            pred_coeff)
+
+    return loss_fn
+
+
+def _step_from_loss(loss_fn, optimizer):
+    def step_fn(state: TrainState, basis, batch):
+        loss, (new_mstate, logs) = loss_fn(state.manager_state, basis, batch,
+                                           state.generator)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        state.step += 1
+        state.manager_state = new_mstate
+        return state, {k: v.detach() for k, v in logs.items()}
+
+    return step_fn
+
+
+def make_train_step(pipeline, meta_net: MetaIdNet, optimizer,
+                    loss_type: str = "none", train_unet: bool = False,
+                    gnet: Optional[nn.Module] = None):
+    """Returns ``step_fn(state, basis, batch) -> (state, logs)``; the state
+    and the trainable parameters are updated in place."""
+    return _step_from_loss(
+        make_loss_fn(pipeline, meta_net, loss_type, train_unet, gnet),
+        optimizer)
+
+
+def make_cached_train_step(pipeline, meta_net: MetaIdNet, optimizer,
+                           loss_type: str = "none",
+                           gnet: Optional[nn.Module] = None):
+    """Fast-personalisation step over precomputed frozen features (see
+    ``make_cached_loss_fn``)."""
+    return _step_from_loss(
+        make_cached_loss_fn(pipeline, meta_net, loss_type, gnet), optimizer)
+
+
+def make_eval_step(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
+                   train_unet: bool = False, cached: bool = False,
+                   gnet: Optional[nn.Module] = None):
+    """Loss-only step for validation: no gradients, no optimizer, and the
+    momentum dictionaries are NOT advanced.
+
+    Returns ``eval_fn(state, basis, batch, generator) -> logs``.
+    """
+    if cached:
+        loss_fn = make_cached_loss_fn(pipeline, meta_net, loss_type, gnet)
+    else:
+        loss_fn = make_loss_fn(pipeline, meta_net, loss_type, train_unet,
+                               gnet)
+
+    @torch.no_grad()
+    def eval_fn(state: TrainState, basis, batch, generator):
+        loss, (_, logs) = loss_fn(state.manager_state, basis, batch,
+                                  generator)
+        logs["loss"] = loss
+        return logs
+
+    return eval_fn
+
+
+def init_train_state(generator: torch.Generator, trainable, optimizer,
+                     manager_state: mgr.ManagerState) -> TrainState:
+    return TrainState(0, trainable, optimizer, manager_state, generator)
+
+
+@torch.no_grad()
+def precompute_cache(pipeline, meta_net: MetaIdNet, loader, n_batches: int):
+    """Run the frozen VAE and face net over ``n_batches`` augmented batches
+    and return a list of cached-step batches on the pipeline's device."""
+    dev = pipeline.device
+    cached = []
+    for bi, batch in enumerate(loader):
+        if bi >= n_batches:
+            break
+        to_dev = lambda key: torch.as_tensor(batch[key]).to(dev)
+        mean, logvar = pipeline.vae.encode(to_dev("image"))
+        faces = to_dev("faces")
+        B, k = faces.shape[:2]
+        v = meta_net.face_features(faces.reshape((B * k,) + faces.shape[2:]))
+        cached.append({
+            "latent_mean": mean, "latent_logvar": logvar,
+            "fr_feats": v.reshape(B, k, -1), "tokens": to_dev("tokens"),
+            "ids": to_dev("ids"), "num_ids": to_dev("num_ids"),
+        })
+    return cached

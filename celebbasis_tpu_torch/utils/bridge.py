@@ -8,8 +8,13 @@ model:
 
 * a conv kernel HWIO ``(kh, kw, in, out)`` -> OIHW ``(out, in, kh, kw)``;
 * a dense kernel ``(in, out)`` -> ``(out, in)``;
-* ``scale`` -> ``weight`` (norms), ``embedding`` -> ``weight`` (the token
-  table); ``bias`` and ``position_embedding`` as they are;
+* ``scale`` -> ``weight`` (norms, FrozenBN), ``embedding`` -> ``weight`` (the
+  token table); ``bias``, ``position_embedding``, FrozenBN's ``mean`` / ``var``
+  (buffers in the port), PReLU's ``alpha`` and ``coef_table`` as they are;
+  a leaf already called ``weight`` (EqualLinear) is stored ``(out, in)`` in
+  both packages and is **not** transposed;
+* IResNet's ``fc`` follows a flatten in ``(H, W, C)`` order in both packages
+  (the port keeps channels-last there), so its kernel is only transposed;
 * the extra nesting of the JAX wrappers (``GroupNorm_0`` / ``LayerNorm_0``
   under ``ops.basic``'s norms, ``Conv_0`` under ``ZeroConv``) and flax's
   top-level ``params`` collection are dropped from the path.
@@ -31,7 +36,9 @@ from celebbasis_tpu_torch.core.manager import ManagerState
 
 _WRAPPER_LEVELS = ("GroupNorm_0", "LayerNorm_0", "Conv_0")
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-               "bias": "bias", "position_embedding": "position_embedding"}
+               "bias": "bias", "position_embedding": "position_embedding",
+               "weight": "weight", "mean": "mean", "var": "var",
+               "alpha": "alpha", "coef_table": "coef_table"}
 
 
 def _convert_leaf(path, name: str, value) -> torch.Tensor:
@@ -84,6 +91,12 @@ def manager_state_from_jax(state) -> ManagerState:
     emb, coeff = state
     as_t = lambda a: torch.from_numpy(np.array(a, np.float32))
     return ManagerState(as_t(emb), as_t(coeff))
+
+
+def manager_state_to_numpy(state: ManagerState):
+    """The way back: ``(id_embeddings, id_coefficients)`` as float32 numpy
+    arrays, in the JAX ``ManagerState``'s field order."""
+    return tuple(t.detach().float().cpu().numpy() for t in state)
 
 
 def basis_from_jax(basis) -> torch.Tensor:

@@ -8,8 +8,8 @@ that a caller without it can still take the typed defaults:
 ``RunSpec.sd_v1()`` is pinned (by a test) equal to what
 ``configs/aigc_id.yaml`` loads to.
 
-The trainer and dataset sections stay plain dictionaries here until the
-training side is ported.
+The trainer section is a ``train.trainer.TrainerConfig``; the dataset
+sections stay plain dictionaries until the dataset is ported.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from celebbasis_tpu_torch.models.unet import UNetConfig
 from celebbasis_tpu_torch.models.vae import VAEConfig
 from celebbasis_tpu_torch.text.tokenizer import \
     PLACEHOLDER_WORDS as PLACEHOLDER_STRINGS
+from celebbasis_tpu_torch.train.trainer import TrainerConfig
 
 
 def deep_merge(base: Dict, over: Dict) -> Dict:
@@ -96,7 +97,7 @@ class RunSpec:
     linear_end: float
     unfreeze_model: bool
     model_lr: float
-    trainer: Dict = field(default_factory=dict)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
     train_data: Optional[Dict] = None
     val_data: Optional[Dict] = None
     raw: Dict = field(repr=False, compare=False, default_factory=dict)
@@ -115,8 +116,9 @@ class RunSpec:
             save_fp16=False, loss_type="none", use_rm_mlp=False,
             scale_factor=0.18215, timesteps=1000, linear_start=0.00085,
             linear_end=0.0120, unfreeze_model=False, model_lr=0.0,
-            trainer=dict(max_steps=800, ckpt_every=200, batch_size=2,
-                         base_lr=5.0e-3, loss_type="none", tensorboard=False),
+            trainer=TrainerConfig(max_steps=800, ckpt_every=200,
+                                  batch_size=2, base_lr=5.0e-3,
+                                  loss_type="none", tensorboard=False),
             train_data=dict(pickle_path="./data/ffhq.pickle", image_size=512,
                             num_ids=2, specific_ids=[1, 2], images_per_id=1,
                             repeats=1000, split="train", diff_cnt=0,
@@ -211,12 +213,14 @@ def run_spec_from_config(cfg: Dict) -> RunSpec:
         heads=cl.get("heads", 12),
         mlp_dim=cl.get("mlp_dim", 3072),
     )
-    trainer = dict(
+    trainer = TrainerConfig(
         max_steps=get(cfg, "lightning.trainer.max_steps", 800),
         ckpt_every=get(cfg, "lightning.modelcheckpoint.params."
                             "every_n_train_steps", 200),
         batch_size=get(cfg, "data.params.batch_size", 2),
         base_lr=mp.get("base_learning_rate", 5.0e-3),
+        # the loss_type knob lives under personalization_config in the
+        # reference YAMLs; it also selects the train step's auxiliary loss
         loss_type=pp.get("loss_type", "none"),
         tensorboard=get(cfg, "lightning.tensorboard", False),
     )

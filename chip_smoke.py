@@ -3,23 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (``celebbasis_tpu_torch.cli.serve``) once at
-full Stable Diffusion v1 width on random weights, and holds the hand-written
-flash-attention kernel against its plain PyTorch version.  Phases:
+Drives the port's two main paths once each at full Stable Diffusion v1 width
+on random weights -- serving (``celebbasis_tpu_torch.cli.serve``) and
+personalisation training (``celebbasis_tpu_torch.train``) -- and holds every
+hand-written kernel against its plain PyTorch version.  Phases:
 
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
-2. ``build``   builds the kernel library from ``celebbasis_tpu_torch/csrc``;
-3. ``kernels`` both entry points of the kernel against their plain versions at
-               the serving path's shapes (the error limit scales with
-               the outputs compared), with device times, bounds and a library
-               yardstick (``F.scaled_dot_product_attention``, called here and
-               nowhere in the port);
+2. ``build``   builds the kernel libraries from ``celebbasis_tpu_torch/csrc``,
+               one ``nvcc`` per source, all started together;
+3. ``kernels`` the inference forward (both entry points) at the serving
+               path's shapes, and the training forward (with logsumexp), dq
+               and dk/dv kernels at the train step's shapes, against their
+               plain versions (the error limit scales with the values
+               compared), with device times, bounds and a library yardstick
+               (``F.scaled_dot_product_attention`` and autograd through it,
+               called here and nowhere in the port);
 4. ``parity``  the tiny pipeline in fp32 through the kernel route and through
                the plain route: pixels agree within one level;
-5. ``serve``   ``TxtToImgService`` on ``configs/aigc_id.yaml`` (bf16, 512x512,
+5. ``train_parity`` the tiny train step in fp32: loss and MLP gradients with
+               attention on the kernel route against the plain route;
+6. ``serve``   ``TxtToImgService`` on ``configs/aigc_id.yaml`` (bf16, 512x512,
                batch 2) behind the real ``ThreadingHTTPServer``: requests
                alone, co-batched, repeated, and in both attention layouts; the
-               kernel's launch counters must account for every UNet call.
+               kernel's launch counters must account for every UNet call;
+7. ``train``   ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
+               512x512 images, batch 2, two 512x512 faces per sample,
+               synthetic batches): a few uncached steps and two cached ones;
+               losses, what moved and what stayed frozen, launch counters,
+               the checkpoint, and one step's MLP gradient against the plain
+               attention route.
 
 Exits non-zero if any phase fails or if there is no CUDA device.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
@@ -30,9 +42,11 @@ from __future__ import annotations
 import base64
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -47,8 +61,15 @@ from celebbasis_tpu_torch.ops import cuda_build
 from celebbasis_tpu_torch.ops import flash_attention as fa
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-DDIM_STEPS = 50
+DDIM_STEPS = 20
 ATTN_PER_UNET = 32           # 16 transformer blocks x (self + cross)
+# per train step: the first block's self-attention sees nothing that requires
+# grad (inference forward, no backward); its cross-attention needs dk and dv
+# only; the other 30 calls need all three gradients
+TRAIN_LAUNCHES = {"flash_attention_nhd": 1, "flash_attention": 0,
+                  "fwd_lse": ATTN_PER_UNET - 1, "dq": ATTN_PER_UNET - 2,
+                  "dkv": ATTN_PER_UNET - 1}
+TRAIN_STEPS, CACHED_STEPS = 6, 2
 TOL = {torch.float32: 2e-5,  # summation order only
        torch.bfloat16: 2e-2}  # bf16 rounding of p and of the output, for
                               # outputs of unit scale; the binding limit for
@@ -61,11 +82,26 @@ PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 # (N, D) of the SD v1 UNet levels at 512x512; each also with M = 77
 SERVE_LEVELS = ((4096, 40), (1024, 80), (256, 160), (64, 160))
 B_SERVE, H_SERVE = 4, 8      # batch 2 doubled by classifier-free guidance
+B_TRAIN = 2                  # the train step has no guidance rows
 
 KERNELS = {
     "flash_attention_nhd": "celebbasis_tpu/ops/flash_attention.py:402",
     "flash_attention": "celebbasis_tpu/ops/flash_attention.py:158",
 }
+FWD_SOURCE = "celebbasis_tpu_torch/csrc/flash_attention_fwd.cu"
+BWD_SOURCE = "celebbasis_tpu_torch/csrc/flash_attention_bwd.cu"
+# counter -> (source, TPU kernel replaced, products per W = B*H*N*M*D)
+TRAIN_KERNELS = {
+    "fwd_lse": (FWD_SOURCE, "celebbasis_tpu/ops/flash_attention.py:147", 4),
+    "dq": (BWD_SOURCE, "celebbasis_tpu/ops/flash_attention.py:282", 6),
+    "dkv": (BWD_SOURCE, "celebbasis_tpu/ops/flash_attention.py:299", 8),
+}
+# fp32 gradients and lse differ from the plain version by summation order:
+# 1e-4 of the largest entry (sums over up to 4096 terms); bf16 outputs are
+# held to fa.bf16_error_ratio <= 1 and bf16 gradients to
+# fa.bf16_grad_error_ratio <= 1 (see their docstrings)
+F32_REL_TOL = 1e-4
+LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
 
 
 def log(phase: str, msg: str) -> None:
@@ -104,10 +140,14 @@ def phase_env() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    path = cuda_build.build("flash_attention_fwd")
-    log("build", f"{os.path.relpath(path, REPO)} in "
-                 f"{time.perf_counter() - t0:.1f} s")
-    fa._kernel()   # load it, so a bad library fails here
+    paths = cuda_build.build_all(fa.LIBRARIES)
+    log("build", f"{len(paths)} libraries in "
+                 f"{time.perf_counter() - t0:.1f} s (built in parallel)")
+    for name, path in paths.items():
+        log("build", f"{os.path.relpath(path, REPO)}: ptxas "
+                     f"{json.dumps(cuda_build.ptxas_report(name))}")
+    for entry in fa._SIGNATURES:
+        fa._fn(entry)   # load, so a bad library fails here
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -239,6 +279,155 @@ def phase_kernels():
     return records
 
 
+def train_bound(kernel, B, H, N, M, D, dtype):
+    """As `bound`, for the training kernels: fwd_lse reads q, k, v and writes
+    o and lse; dq reads q, k, v, dO, lse, delta and writes dq; dkv reads the
+    same and writes dk and dv."""
+    es = torch.empty((), dtype=dtype).element_size()
+    rows_q, rows_k = B * H * N, B * H * M
+    nbytes = {"fwd_lse": (2 * rows_q + 2 * rows_k) * D * es + rows_q * 4,
+              "dq": (3 * rows_q + 2 * rows_k) * D * es + rows_q * 8,
+              "dkv": (2 * rows_q + 4 * rows_k) * D * es + rows_q * 8}[kernel]
+    flops = TRAIN_KERNELS[kernel][2] * float(B) * H * N * M * D
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _agreement(name, got, ref, dtype, rec):
+    """Records error figures of one tensor; returns whether it agrees.  bf16:
+    the output by fa.bf16_error_ratio, a gradient by
+    fa.bf16_grad_error_ratio (the rms term per row: see its docstring)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    rec[f"{name}_max_abs_err"] = err
+    if dtype == torch.bfloat16:
+        ratio = fa.bf16_error_ratio if name == "o" else \
+            fa.bf16_grad_error_ratio
+        rec[f"{name}_err_ratio"] = ratio(got, ref)
+        return np.isfinite(err) and rec[f"{name}_err_ratio"] <= 1.0
+    limit = F32_REL_TOL * ref.float().abs().max().item()
+    return np.isfinite(err) and err <= limit
+
+
+def check_train_shape(layout, B, H, N, M, D, dtype, timed, q_scale=1.0):
+    """The training forward (o, lse), dq and dk/dv against their plain
+    versions on one shape, `layout` "nhd" (packed) or "bhnd" (per-head views
+    of packed buffers).  The backward is compared on the kernels' own o and
+    lse, run twice (the bits must repeat), and o must equal the inference
+    forward's bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(N * 131 + M * 7 + D + 1)
+    mk = lambda L, scale=1.0: (torch.randn(B, L, H * D, device="cuda",
+                                           generator=g) * scale).to(dtype)
+    q, k, v, do = mk(N, q_scale), mk(M), mk(M), mk(N)
+    heads = H
+    if layout == "bhnd":
+        q, k, v, do = (fa._split(x, H) for x in (q, k, v, do))
+        heads = None
+    to4 = (lambda x: x) if heads is None else (lambda x: fa._split(x, H))
+    rec = {"layout": layout, "B": B, "H": H, "N": N, "M": M, "D": D,
+           "q_scale": q_scale, "dtype": str(dtype).replace("torch.", "")}
+
+    before = fa.launch_counts()
+    o, lse = fa.flash_attention_lse(q, k, v, heads)
+    infer = fa.flash_attention_nhd(q, k, v, H) if heads else \
+        fa.flash_attention(q, k, v)
+    delta = fa.flash_attention_delta(o, do, heads)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, heads, delta=delta)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, heads)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    launched = {n: after[n] - before[n] for n in TRAIN_KERNELS}
+    if launched != {"fwd_lse": 1, "dq": 2, "dkv": 2}:
+        raise RuntimeError(f"the wrappers did not launch their kernels: "
+                           f"{launched}")
+    o_ref, lse_ref = fa.flash_attention_lse_plain(to4(q), to4(k), to4(v))
+    refs = fa.flash_attention_bwd_plain(to4(q), to4(k), to4(v), to4(o), lse,
+                                        to4(do))
+    ok = _agreement("o", to4(o), o_ref, dtype, rec)
+    rec["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+    ok = ok and rec["lse_max_abs_err"] <= LSE_TOL[dtype]
+    rec["o_equals_inference_forward"] = torch.equal(o, infer)
+    rec["bits_repeat"] = all(torch.equal(a, b) for a, b in zip(grads, again))
+    ok = ok and rec["o_equals_inference_forward"] and rec["bits_repeat"]
+    for name, got, ref, like in zip(("dq", "dk", "dv"), grads, refs,
+                                    (q, k, v)):
+        if got.shape != like.shape or got.dtype != like.dtype:
+            raise RuntimeError(f"{name}: {got.shape} {got.dtype} for an input "
+                               f"{like.shape} {like.dtype}")
+        ok = _agreement(name, to4(got), ref, dtype, rec) and ok
+        rec[f"{name}_rms"] = ref.float().square().mean().sqrt().item()
+    if timed:
+        F = torch.nn.functional
+        iters = 10 if N * M >= 1 << 22 else 50
+        runs = {
+            "fwd_lse": lambda: fa.flash_attention_lse(q, k, v, heads),
+            "dq": lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, heads, need_dkv=False, delta=delta),
+            "dkv": lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, heads, need_dq=False, delta=delta),
+        }
+        q4, k4, v4, do4 = to4(q), to4(k), to4(v), to4(do)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (q4, k4, v4)]
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves)
+            torch.autograd.grad(out, leaves, do4)
+
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                          iters)[0]
+        lib_bwd = time_ms(sdpa_fwd_bwd, iters)[0] - lib_fwd
+        plain = {"fwd_lse": time_ms(lambda: fa.flash_attention_lse_plain(
+                     q4, k4, v4), 3)[0]}
+        plain["dq"] = plain["dkv"] = time_ms(
+            lambda: fa.flash_attention_bwd_plain(q4, k4, v4, to4(o), lse,
+                                                 do4), 3)[0]
+        rec["delta_ms"] = time_ms(
+            lambda: fa.flash_attention_delta(o, do, heads), iters)[0]
+        for name, run in runs.items():
+            ms, ms_min = time_ms(run, iters)
+            bms, bby = train_bound(name, B, H, N, M, D, dtype)
+            rec[name] = {"kernel_ms": ms, "kernel_ms_min": ms_min,
+                         "plain_ms": plain[name], "bound_ms": bms,
+                         "bound_by": bby,
+                         # the library computes dq, dk and dv in one call
+                         "library_ms": lib_fwd if name == "fwd_lse"
+                         else lib_bwd}
+    log("kernels", f"train {json.dumps(rec)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"a training kernel disagrees with its plain "
+                           f"version at {rec}")
+    return rec
+
+
+def phase_train_kernels():
+    shapes = []
+    for N, D in SERVE_LEVELS:            # the UNet's levels, batch 2
+        for M in (N, 77):
+            shapes.append(check_train_shape("nhd", B_TRAIN, H_SERVE, N, M, D,
+                                            torch.bfloat16, timed=True))
+            shapes.append(check_train_shape("bhnd", B_TRAIN, H_SERVE, N, M,
+                                            D, torch.bfloat16, timed=False))
+            for layout in ("nhd", "bhnd"):
+                shapes.append(check_train_shape(layout, B_TRAIN, H_SERVE, N,
+                                                M, D, torch.float32,
+                                                timed=False))
+    for layout in ("nhd", "bhnd"):
+        # ragged query and key tiles, every padded width, both types
+        for dtype in (torch.float32, torch.bfloat16):
+            for B, H, N, M, D in ((2, 3, 100, 77, 40), (1, 2, 200, 300, 256),
+                                  (1, 2, 1100, 333, 40), (2, 3, 100, 77, 64)):
+                shapes.append(check_train_shape(layout, B, H, N, M, D, dtype,
+                                                timed=False))
+    # peaked softmax: p and ds of unit scale through many tiles, and a delta
+    # that matters
+    for N, D in SERVE_LEVELS[:3]:
+        shapes.append(check_train_shape("nhd", B_TRAIN, H_SERVE, N, N, D,
+                                        torch.bfloat16, timed=False,
+                                        q_scale=4.0))
+    return shapes
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def phase_parity():
@@ -312,6 +501,108 @@ def phase_parity():
 
 
 # -- phase 5 ------------------------------------------------------------------
+
+def synthetic_batch(tokenizer, size, face_size, seed, device):
+    """A training batch from a numpy seed: batch 2, two face slots; images
+    and faces uniform in [-1, 1], channels-last; prompts with one and two
+    placeholders; identities 0 (row 0) and 2, 1 (row 1)."""
+    r = np.random.default_rng(seed)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to(device)
+    return {
+        "image": dev(r.uniform(-1, 1, (2, size, size, 3)).astype(np.float32)),
+        "tokens": dev(np.asarray(tokenizer(
+            ["face of sks person", "a photo of sks person and ks person"]),
+            np.int64)),
+        "faces": dev(r.uniform(-1, 1, (2, 2, face_size, face_size, 3)).astype(
+            np.float32)),
+        "ids": dev(np.array([[0, 1], [2, 1]], np.int64)),
+        "num_ids": dev(np.array([1, 2], np.int64)),
+    }
+
+
+def loss_and_mlp_grad(loss_fn, meta_net, mstate, basis, batch, seed):
+    """One forward and backward with the draws of a generator seeded with
+    `seed`; returns (loss, flat MLP gradient, launch counters)."""
+    for p in meta_net.parameters():
+        p.grad = None
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fa.reset_launch_count()
+    loss, _ = loss_fn(mstate, basis, batch, gen)
+    loss.backward()
+    torch.cuda.synchronize()
+    grad = torch.cat([p.grad.flatten().float()
+                      for p in meta_net.mlp.parameters()])
+    return loss.item(), grad, fa.launch_counts()
+
+
+def phase_train_parity():
+    """Tiny pipeline and MetaIdNet, fp32, on the card: loss and MLP gradient
+    with attention on the kernel route against the plain route, the same
+    draws.  TF32 off for both, so that only the attention core differs."""
+    import dataclasses
+
+    from celebbasis_tpu_torch.core import manager as mgr
+    from celebbasis_tpu_torch.core.basis import build_celeb_basis
+    from celebbasis_tpu_torch.core.meta_net import MetaIdNet, MetaNetConfig
+    from celebbasis_tpu_torch.loader import _FALLBACK_NAMES, init_weights
+    from celebbasis_tpu_torch.pipeline import (CelebBasisPipeline,
+                                               PipelineConfig)
+    from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
+    from celebbasis_tpu_torch.train import step as tstep
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = PipelineConfig.tiny()
+        tok = CLIPTokenizer.synthetic(cfg.clip.vocab_size)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        with torch.device("cuda"):
+            pipe = CelebBasisPipeline(cfg, tok)
+            meta = MetaIdNet(dataclasses.replace(
+                MetaNetConfig.tiny(), inner_dim=cfg.basis.n_components,
+                token_dim=cfg.clip.width), dtype=torch.float32)
+        pipe.requires_grad_(False).eval()
+        meta.requires_grad_(False).eval()
+        init_weights(pipe, gen, zero_convs=False)
+        init_weights(meta, gen)
+        basis = torch.from_numpy(build_celeb_basis(
+            _FALLBACK_NAMES, tok, pipe.token_table(), cfg.basis)).cuda()
+        mstate = mgr.init_state(pipe.manager_cfg, gen, device="cuda")
+        batch = synthetic_batch(tok, 64, 40, 6, "cuda")
+        tstep.build_trainable(meta)
+        loss_fn = tstep.make_loss_fn(pipe, meta)
+        loss_k, grad_k, n_k = loss_and_mlp_grad(loss_fn, meta, mstate, basis,
+                                                batch, 7)
+        attn_ops.set_default_impl("xla")
+        try:
+            loss_p, grad_p, n_p = loss_and_mlp_grad(loss_fn, meta, mstate,
+                                                    basis, batch, 7)
+        finally:
+            attn_ops.set_default_impl(None)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rel = ((grad_k - grad_p).abs().max() / grad_p.abs().max()).item()
+    log("train_parity", f"tiny fp32 64x64: loss {loss_k:.6f} (kernel route) "
+                        f"{loss_p:.6f} (plain route); MLP gradient max "
+                        f"|diff| / max |grad| {rel:.3e}, max |grad| "
+                        f"{grad_p.abs().max().item():.3e}; launches {n_k} "
+                        f"(plain route {n_p})")
+    if not np.isfinite(loss_k) or grad_p.abs().max().item() == 0.0:
+        raise RuntimeError("train_parity: no finite loss or no gradient")
+    if min(n_k["fwd_lse"], n_k["dq"], n_k["dkv"]) == 0 or sum(n_p.values()):
+        raise RuntimeError("train_parity: the routes did not go where they "
+                           "should")
+    # fp32 on both routes: summation order only, through a UNet backward
+    if abs(loss_k - loss_p) > 1e-5 or rel > 1e-4:
+        raise RuntimeError(f"train_parity: kernel and plain routes differ "
+                           f"(loss {abs(loss_k - loss_p):.2e}, gradient "
+                           f"{rel:.2e})")
+
+
+# -- phase 6 ------------------------------------------------------------------
 
 def decode_png(data: bytes) -> np.ndarray:
     """Decoder for the PNGs the service writes (8-bit RGB, filter type 0)."""
@@ -491,6 +782,178 @@ def phase_serve():
             {name: ms for name, (_, ms) in results.items()})
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+def checksum(module) -> int:
+    """An integer checksum of the bytes of a module's parameters and
+    buffers: equal before and after means no byte changed."""
+    total = 0
+    for t in list(module.parameters()) + list(module.buffers()):
+        as_int = t.detach().contiguous().view(
+            {4: torch.int32, 2: torch.int16, 8: torch.int64}[t.element_size()])
+        total += int(as_int.sum(dtype=torch.int64).item())
+    return total
+
+
+def phase_train():
+    from celebbasis_tpu_torch.core import manager as mgr
+    from celebbasis_tpu_torch.loader import assemble, init_weights
+    from celebbasis_tpu_torch.train import step as tstep
+    from celebbasis_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from celebbasis_tpu_torch.utils.config import RunSpec, load_run_spec
+
+    config = os.path.join(REPO, "configs", "aigc_id.yaml")
+    try:
+        spec = load_run_spec([config])
+    except ImportError:
+        spec = RunSpec.sd_v1()
+    spec.celeb_txt = os.path.join(REPO, "infer_images", "wiki_names_v2.txt")
+    t0 = time.perf_counter()
+    asm = assemble(spec, image_size=512, seed=1, dtype=torch.bfloat16,
+                   cache_dir=None)
+    pipe, meta = asm.pipeline, asm.meta_net
+    # with its zero-initialised output convs a random-init UNet predicts
+    # eps = 0 whatever the context, and no gradient reaches the MLP
+    init_weights(pipe.unet, torch.Generator(device="cuda").manual_seed(5),
+                 zero_convs=False)
+    count = lambda m: sum(p.numel() for p in m.parameters()) / 1e6
+    log("train", f"assembled in {time.perf_counter() - t0:.1f} s: pipeline "
+                 f"{count(pipe):.0f} M parameters "
+                 f"({next(pipe.unet.parameters()).dtype} storage, "
+                 f"{pipe.cfg.dtype} compute), face net "
+                 f"{count(meta.fr_net):.1f} M, MLP {count(meta.mlp):.3f} M")
+    frozen = {"unet": pipe.unet, "vae": pipe.vae, "clip": pipe.clip,
+              "fr_net": meta.fr_net}
+    sums = {name: checksum(m) for name, m in frozen.items()}
+    loader = [synthetic_batch(asm.tokenizer, 512, 512, 100 + i, "cuda")
+              for i in range(TRAIN_STEPS)]
+    run_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cfg = TrainerConfig(logdir=run_root, max_steps=TRAIN_STEPS,
+                            ckpt_every=TRAIN_STEPS // 2, log_every=1,
+                            loss_type="none", seed=23)
+        trainer = Trainer(pipe, meta, asm.basis, loader, cfg)
+        state = trainer.init_state(asm.manager_state)
+        emb0 = state.manager_state.id_embeddings.clone()
+        coef0 = state.manager_state.id_coefficients.clone()
+        w0 = meta.mlp.layer_0.weight.detach().clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        state = trainer.fit(state)
+        torch.cuda.synchronize()
+        launches = fa.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(trainer.metrics_path) as f:
+            recs = [json.loads(line) for line in f]
+        step_ms = [r["step_time_s"] * 1e3 for r in recs]
+        losses = [r["loss"] for r in recs]
+        per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+        log("train", f"{TRAIN_STEPS} uncached steps: ms per step "
+                     f"{[round(x, 1) for x in step_ms]} (median of all but "
+                     f"the first {float(np.median(step_ms[1:])):.1f}); "
+                     f"losses {[round(x, 4) for x in losses]}; peak memory "
+                     f"{peak / 2**30:.2f} GiB; launches per step "
+                     f"{json.dumps(per_step)}")
+
+        if len(recs) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise RuntimeError(f"train: losses {losses}")
+        if launches != {n: c * TRAIN_STEPS
+                        for n, c in TRAIN_LAUNCHES.items()}:
+            raise RuntimeError(f"train: launches {launches} over "
+                               f"{TRAIN_STEPS} steps; expected per step "
+                               f"{TRAIN_LAUNCHES}")
+        if torch.equal(meta.mlp.layer_0.weight, w0):
+            raise RuntimeError("train: the MLP did not move")
+        for name, m in frozen.items():
+            if any(p.grad is not None or p.requires_grad
+                   for p in m.parameters()):
+                raise RuntimeError(f"train: {name} received a gradient")
+            if checksum(m) != sums[name]:
+                raise RuntimeError(f"train: the frozen {name} changed")
+        used = torch.zeros(pipe.manager_cfg.max_ids, dtype=torch.bool)
+        used[[0, 1, 2]] = True          # the ids of synthetic_batch
+        new = state.manager_state
+        moved_e = (new.id_embeddings - emb0).abs().amax(dim=(1, 2)).cpu() > 0
+        moved_c = (new.id_coefficients - coef0).abs().amax(
+            dim=(1, 2, 3)).cpu() > 0
+        if not (torch.equal(moved_e, used) and torch.equal(moved_c, used)):
+            raise RuntimeError(f"train: dictionaries moved at {moved_e} / "
+                               f"{moved_c}, ids used {used}")
+        ckpts = sorted(os.listdir(os.path.join(trainer.run_dir,
+                                               "checkpoints")))
+        want = [f"embeddings_gs-{TRAIN_STEPS // 2}.pt",
+                f"embeddings_gs-{TRAIN_STEPS}.pt"]
+        if ckpts != want:
+            raise RuntimeError(f"train: checkpoints {ckpts}, expected {want}")
+        back = mgr.load_checkpoint(
+            pipe.manager_cfg,
+            os.path.join(trainer.run_dir, "checkpoints", want[-1]),
+            device="cuda")
+        if not torch.equal(back.id_coefficients, new.id_coefficients):
+            raise RuntimeError("train: the checkpoint does not read back")
+        log("train", f"checkpoints {ckpts} read back; MLP moved by "
+                     f"{(meta.mlp.layer_0.weight - w0).abs().max().item():.4f}"
+                     f"; dictionaries moved at ids "
+                     f"{moved_e.nonzero().flatten().tolist()} only; frozen "
+                     f"modules unchanged, no gradients")
+
+        # the cached variant: frozen VAE posteriors and face features made
+        # once, then steps of UNet + CLIP + MLP
+        ccfg = TrainerConfig(logdir=run_root, suffix="cached",
+                             max_steps=CACHED_STEPS + 1, ckpt_every=100,
+                             log_every=1, cache_latents=2, seed=23)
+        ctrainer = Trainer(pipe, meta, asm.basis, loader, ccfg)
+        cstate = ctrainer.init_state(new)
+        fa.reset_launch_count()
+        ctrainer.fit(cstate)
+        torch.cuda.synchronize()
+        c_launches = fa.launch_counts()
+        with open(ctrainer.metrics_path) as f:
+            crecs = [json.loads(line) for line in f]
+        c_ms = [r["step_time_s"] * 1e3 for r in crecs]
+        log("train", f"{len(crecs)} cached steps: ms per step "
+                     f"{[round(x, 1) for x in c_ms]} (median of all but "
+                     f"the first {float(np.median(c_ms[1:])):.1f}); losses "
+                     f"{[round(r['loss'], 4) for r in crecs]}")
+        # the cache's VAE encodes run no kernel of ours (head dim 512)
+        if c_launches != {n: c * (CACHED_STEPS + 1)
+                          for n, c in TRAIN_LAUNCHES.items()} \
+                or not np.isfinite([r["loss"] for r in crecs]).all():
+            raise RuntimeError(f"train: cached steps launched {c_launches}")
+
+        # one full-width step's MLP gradient: kernel route vs plain route
+        loss_fn = tstep.make_loss_fn(pipe, meta)
+        mstate = new
+        loss_k, grad_k, _ = loss_and_mlp_grad(loss_fn, meta, mstate,
+                                              asm.basis, loader[0], 9)
+        attn_ops.set_default_impl("xla")
+        try:
+            loss_p, grad_p, n_p = loss_and_mlp_grad(loss_fn, meta, mstate,
+                                                    asm.basis, loader[0], 9)
+        finally:
+            attn_ops.set_default_impl(None)
+        cos = torch.nn.functional.cosine_similarity(grad_k, grad_p,
+                                                    dim=0).item()
+        rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+        log("train", f"full-width step, kernel route vs plain route (512x512, "
+                     f"bf16 compute): loss {loss_k:.5f} vs {loss_p:.5f}; MLP "
+                     f"gradient cosine {cos:.5f}, |diff| / |grad| {rel:.4f}, "
+                     f"|grad| {grad_p.norm().item():.3e}")
+        # bf16 compute on both routes: the attention cores round at other
+        # places, and 16 transformer blocks carry that to the loss
+        if sum(n_p.values()) or not (cos >= 0.99 and rel <= 0.1
+                                     and abs(loss_k - loss_p)
+                                     <= 0.01 * abs(loss_p)):
+            raise RuntimeError("train: the kernel route's gradient is not "
+                               "the plain route's")
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    return launches, {"uncached_ms": float(np.median(step_ms[1:])),
+                      "cached_ms": float(np.median(c_ms[1:])),
+                      "peak_gib": peak / 2 ** 30}
+
+
 # -----------------------------------------------------------------------------
 
 def main() -> int:
@@ -502,15 +965,17 @@ def main() -> int:
     card = phase_env()
     phase_build()
     shapes = phase_kernels()
+    train_shapes = phase_train_kernels()
     phase_parity()
+    phase_train_parity()
     launches, request_ms = phase_serve()
+    train_launches, train_ms = phase_train()
 
     kernels = []
     for entry, replaces in KERNELS.items():
         main_shape = shapes[entry][0]          # N = M = 4096, D = 40, bf16
         kernels.append({
-            "name": entry, "route": "cuda",
-            "source": "celebbasis_tpu_torch/csrc/flash_attention_fwd.cu",
+            "name": entry, "route": "cuda", "source": FWD_SOURCE,
             "replaces": replaces, "launches": launches[entry],
             "max_abs_err": max(s["max_abs_err"] for s in shapes[entry]),
             "max_err_ratio": max(s.get("err_ratio", 0.0)
@@ -521,8 +986,28 @@ def main() -> int:
             "library_ms": main_shape["library_ms"],
             "shape": {k: main_shape[k] for k in "BHNMD"},
             "shapes": shapes[entry]})
+    main_shape = train_shapes[0]     # B = 2, N = M = 4096, D = 40, bf16, packed
+    outputs = {"fwd_lse": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    for name, (source, replaces, _) in TRAIN_KERNELS.items():
+        timed = main_shape[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": max(s[f"{o}_max_abs_err"] for s in train_shapes
+                               for o in outputs[name]),
+            "max_err_ratio": max(s.get(f"{o}_err_ratio", 0.0)
+                                 for s in train_shapes
+                                 for o in outputs[name] if o != "lse"),
+            "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+            "shape": {k: main_shape[k] for k in "BHNMD"},
+            "shapes": [dict({k: s[k] for k in ("layout", "dtype", "q_scale",
+                                               *"BHNMD")}, **s.get(name, {}))
+                       for s in train_shapes]})
     log("done", f"{time.perf_counter() - t_start:.0f} s in all; request ms "
-                f"{json.dumps(request_ms)}")
+                f"({DDIM_STEPS} DDIM steps) {json.dumps(request_ms)}; train "
+                f"step {json.dumps(train_ms)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,7 +73,9 @@ def test_entry_points_raise_without_a_card():
             ["--config", os.path.join(REPO, "configs", "tiny.yaml")]))
     assert resolve_device("cpu").type == "cpu"
     asm = assemble(spec, image_size=32, device="cpu", dtype=torch.float32)
-    assert asm.meta_net is None and asm.device.type == "cpu"
+    assert asm.meta_net.cfg.inner_dim == spec.meta_inner_dim
+    assert not any(p.requires_grad for p in asm.meta_net.parameters())
+    assert asm.device.type == "cpu"
     assert next(asm.pipeline.parameters()).device.type == "cpu"
 
 

@@ -22,7 +22,7 @@ from celebbasis_tpu_torch.core.basis import build_celeb_basis, reconstruct
 from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import np_tree, randomize_zero_leaves, t
+from _torch_port_helpers import np_tree, random_params, t
 
 NAMES = ["Anne Hathaway", "Barack Obama", "Elon Musk", "Robert Downey",
          "Taylor Swift", "Emma Watson", "Brad Pitt", "Scarlett Johansson",
@@ -35,8 +35,9 @@ PROMPTS = ["a photo of a sks person", "a ks person and a sks person, smiling"]
 def both():
     jtok = JTokenizer.synthetic(1024)
     jp = jpipe.CelebBasisPipeline(jpipe.PipelineConfig.tiny(), jtok)
-    params = randomize_zero_leaves(
-        jp.init_params(jax.random.key(0), image_size=SIZE), seed=5)
+    params = random_params(
+        lambda key: jp.init_params(key, image_size=SIZE), jax.random.key(0),
+        seed=5)
     jbasis = j_build_basis(NAMES, jtok, jp.token_table(params), jp.cfg.basis)
     jstate = jmgr.init_state(jp.manager_cfg, jax.random.key(3))
 

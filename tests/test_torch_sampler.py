@@ -19,7 +19,7 @@ from celebbasis_tpu_torch.diffusion import schedules as tsched
 from celebbasis_tpu_torch.models import unet as tunet
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import np_tree, randomize_zero_leaves, t
+from _torch_port_helpers import np_tree, random_params, t
 
 
 @pytest.mark.parametrize("kind", ["linear", "cosine", "sqrt_linear", "sqrt"])
@@ -46,9 +46,10 @@ def test_ddim_schedule_bit_for_bit(steps, eta, method):
 @pytest.fixture(scope="module")
 def eps_pair():
     jm = junet.UNetModel(junet.UNetConfig.tiny(), jnp.float32)
-    params = jm.init(jax.random.key(1), jnp.zeros((1, 8, 8, 4)),
-                     jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 64)))
-    params = randomize_zero_leaves(params, seed=4)
+    params = random_params(jm.init, jax.random.key(1),
+                           jnp.zeros((1, 8, 8, 4)),
+                           jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 64)),
+                           seed=4)
     tm = tunet.UNetModel(tunet.UNetConfig.tiny(), torch.float32)
     bridge.load_jax_params(tm, np_tree(params))
     tm.requires_grad_(False).eval()

@@ -17,6 +17,8 @@ import urllib.request
 import numpy as np
 import pytest
 
+import _torch_port_helpers  # noqa: F401  (one PyTorch thread per worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

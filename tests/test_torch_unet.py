@@ -20,7 +20,7 @@ from celebbasis_tpu_torch.models import unet as tunet
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import (manifest_shapes, module_shapes, np_tree,
-                                 randomize_zero_leaves, t)
+                                 random_params, t)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,9 +29,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def pair():
     jm = junet.UNetModel(junet.UNetConfig.tiny(), jnp.float32)
     x = jnp.zeros((1, 8, 8, 4))
-    params = jm.init(jax.random.key(0), x, jnp.zeros((1,), jnp.int32),
-                     jnp.zeros((1, 77, 64)))
-    params = randomize_zero_leaves(params, seed=2)   # zero-convs take part
+    params = random_params(jm.init, jax.random.key(0), x,
+                           jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 64)),
+                           seed=2)                   # zero-convs take part
     tm = tunet.UNetModel(tunet.UNetConfig.tiny(), torch.float32)
     bridge.load_jax_params(tm, np_tree(params))
     return jm, params, tm.eval()

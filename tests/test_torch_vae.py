@@ -18,7 +18,7 @@ from celebbasis_tpu_torch.models import vae as tvae
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import (manifest_shapes, module_shapes, np_tree,
-                                 randomize_zero_leaves, t)
+                                 random_params, t)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -27,8 +27,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def pair():
     jm = jvae.AutoencoderKL(jvae.VAEConfig.tiny(), jnp.float32)
     rng = jax.random.key(0)
-    params = jm.init(rng, jnp.zeros((1, 16, 16, 3)), rng)
-    params = randomize_zero_leaves(params, seed=3)
+    params = random_params(jm.init, rng, jnp.zeros((1, 16, 16, 3)), rng,
+                           seed=3)
     tm = tvae.AutoencoderKL(tvae.VAEConfig.tiny(), torch.float32)
     bridge.load_jax_params(tm, np_tree(params))
     return jm, params, tm.eval()

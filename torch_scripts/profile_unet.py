@@ -38,7 +38,7 @@ from celebbasis_tpu_torch.ops import attention as attn_ops  # noqa: E402
 from celebbasis_tpu_torch.utils.precision import cast_float_params  # noqa: E402
 
 FAMILIES = (
-    ("flash_attention", ("flash_fwd",)),
+    ("flash_attention", ("flash_fwd", "flash_bwd")),
     ("conv", ("conv", "cudnn", "implicit_gemm", "fprop", "xmma")),
     ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "splitk")),
     ("norm", ("norm", "RowwiseMoments", "welford")),
@@ -129,7 +129,7 @@ def main() -> int:
             print(f"  {fam:24s} {ms:7.3f} ms  {100 * ms / busy:5.1f}% of "
                   f"device time")
         for name, rec in sorted(flash.items()):
-            label = re.search(r"flash_fwd_\w+<[^>]*>", name)
+            label = re.search(r"flash_(fwd|bwd)_\w+<[^>]*>", name)
             print(f"  {label.group(0) if label else name}: "
                   f"{rec['launches_per_forward']:.0f} launches per forward, "
                   f"mean {rec['mean_device_us']:.1f} us on the device")
