@@ -42,6 +42,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from celebbasis_tpu_torch.ops import geglu
 from celebbasis_tpu_torch.ops.attention import resolved_impl
 
 
@@ -238,6 +239,7 @@ def make_handler(service: TxtToImgService):
                     "image_size": service.image_size,
                     "device": str(service.device),
                     "attention": resolved_impl(service.device),
+                    "geglu": geglu.resolved_impl(service.device),
                     "requests": service.requests,
                     "batched_calls": service.batched_calls,
                     "batched_rows": service.batched_rows,
@@ -319,7 +321,8 @@ def main(argv=None):
     print(f"[serve] listening on http://{args.host}:{httpd.server_address[1]}"
           f" (batch={args.batch}, {args.ddim_steps} steps, "
           f"{service.device}, attention route "
-          f"{resolved_impl(service.device)})")
+          f"{resolved_impl(service.device)}, GEGLU route "
+          f"{geglu.resolved_impl(service.device)})")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -130,3 +130,42 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _loaded[name] = lib
         return lib
+
+
+class Entry:
+    """A C entry ``int name(args..., cudaStream_t)`` of ``csrc/<library>.cu``,
+    bound at its first call (never at import).  ``error_fn`` names the
+    library's ``const char* f(int)`` that explains a non-zero result."""
+
+    def __init__(self, library: str, name: str, argtypes, error_fn: str):
+        self.library, self.name = library, name
+        self.argtypes, self.error_fn = list(argtypes), error_fn
+        self._fns = None
+
+    def bind(self):
+        """(entry, error function), the library built and loaded first."""
+        if self._fns is None:
+            lib = load(self.library)
+            fn = getattr(lib, self.name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = self.argtypes + [ctypes.c_void_p]
+            err = getattr(lib, self.error_fn)
+            err.restype = ctypes.c_char_p
+            err.argtypes = [ctypes.c_int]
+            self._fns = (fn, err)
+        return self._fns
+
+    def __call__(self, device, *args) -> None:
+        """Launch on `device`'s current stream; raises if the launch is
+        refused."""
+        import torch
+
+        fn, err = self.bind()
+        if device.index == torch.cuda.current_device():
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} launch failed ({rc}): "
+                               f"{err(rc).decode()}")

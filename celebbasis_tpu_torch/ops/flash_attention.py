@@ -44,8 +44,9 @@ _launches = {"flash_attention_nhd": 0, "flash_attention": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
-_TAIL = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP]
-# C entry -> (library, argument types); see the sources' C interfaces
+_TAIL = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+# C entry -> (library, argument types before the stream); see the sources'
+# C interfaces
 _SIGNATURES = {
     "flash_attention_fwd": ("flash_attention_fwd",
                             [_VP] * 4 + [_INT] * 6 + _TAIL),
@@ -53,14 +54,16 @@ _SIGNATURES = {
                                 [_VP] * 5 + [_INT] * 6 + _TAIL),
     "flash_attention_bwd_delta": (
         "flash_attention_bwd",
-        [_VP] * 3 + [_INT] * 5 + [ctypes.POINTER(ctypes.c_longlong), _VP]),
+        [_VP] * 3 + [_INT] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
     "flash_attention_bwd_dq": ("flash_attention_bwd",
                                [_VP] * 7 + [_INT] * 6 + _TAIL),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                 [_VP] * 8 + [_INT] * 6 + _TAIL),
 }
+ENTRIES = {name: cuda_build.Entry(library, name, argtypes,
+                                  "flash_attention_error_string")
+           for name, (library, argtypes) in _SIGNATURES.items()}
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
-_fns = {}
 
 
 def launch_count(entry: str | None = None) -> int:
@@ -191,35 +194,6 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
 
 # -- kernel launch ------------------------------------------------------------
 
-def _fn(name: str):
-    """The C entry `name`, its library built and loaded at first use."""
-    if name not in _fns:
-        library, argtypes = _SIGNATURES[name]
-        lib = cuda_build.load(library)
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        err = lib.flash_attention_error_string
-        err.restype = ctypes.c_char_p
-        err.argtypes = [ctypes.c_int]
-        _fns[name] = (fn, err)
-    return _fns[name]
-
-
-def _call(name: str, device: torch.device, args_before_stream) -> None:
-    """Launch on `device`'s current stream; raises if the launch is refused."""
-    fn, err = _fn(name)
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args_before_stream, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            rc = fn(*args_before_stream,
-                    torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed ({rc}): "
-                           f"{err(rc).decode()}")
-
-
 def _strides(t: torch.Tensor, num_heads: int | None):
     """(batch, head, row) element strides of a packed (B, L, H*D) tensor
     (`num_heads` given) or of a per-head (B, H, L, D) one (None)."""
@@ -294,11 +268,11 @@ def _forward_cuda(q, k, v, num_heads, with_lse: bool):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     if with_lse:
         lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-        _call("flash_attention_fwd_lse", q.device,
-              (*ptrs, lse.data_ptr(), *dims))
+        ENTRIES["flash_attention_fwd_lse"](q.device, *ptrs, lse.data_ptr(),
+                                           *dims)
         _launches["fwd_lse"] += 1
         return o, lse
-    _call("flash_attention_fwd", q.device, (*ptrs, *dims))
+    ENTRIES["flash_attention_fwd"](q.device, *ptrs, *dims)
     _launches["flash_attention" if num_heads is None
               else "flash_attention_nhd"] += 1
     return o
@@ -342,10 +316,9 @@ def flash_attention_delta(o, do, num_heads: int | None = None):
         return prod.sum(-1)
     do = _readable(do, num_heads)
     delta = torch.empty((B, H, N), dtype=torch.float32, device=o.device)
-    _call("flash_attention_bwd_delta", o.device,
-          (o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-           _DTYPE_CODE[o.dtype], B, H, N, D,
-           _stride_array((o, do), num_heads)))
+    ENTRIES["flash_attention_bwd_delta"](
+        o.device, o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        _DTYPE_CODE[o.dtype], B, H, N, D, _stride_array((o, do), num_heads))
     return delta
 
 
@@ -382,16 +355,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, num_heads: int | None = None,
               lse.data_ptr(), delta.data_ptr())
     if need_dq:
         dq = torch.empty_like(q)   # q's strides where q is dense
-        _call("flash_attention_bwd_dq", q.device,
-              (*common, dq.data_ptr(), code, B, H, N, M, D,
-               _stride_array((q, k, v, do, dq), num_heads), D ** -0.5))
+        ENTRIES["flash_attention_bwd_dq"](
+            q.device, *common, dq.data_ptr(), code, B, H, N, M, D,
+            _stride_array((q, k, v, do, dq), num_heads), D ** -0.5)
         _launches["dq"] += 1
     if need_dkv:
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-        _call("flash_attention_bwd_dkv", q.device,
-              (*common, dk.data_ptr(), dv.data_ptr(), code, B, H, N, M, D,
-               _stride_array((q, k, v, do, dk, dv), num_heads), D ** -0.5))
+        ENTRIES["flash_attention_bwd_dkv"](
+            q.device, *common, dk.data_ptr(), dv.data_ptr(), code, B, H, N, M,
+            D, _stride_array((q, k, v, do, dk, dv), num_heads), D ** -0.5)
         _launches["dkv"] += 1
     return dq, dk, dv
 

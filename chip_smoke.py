@@ -17,21 +17,28 @@ hand-written kernel against its plain PyTorch version.  Phases:
                plain versions (the error limit scales with the values
                compared), with device times, bounds and a library yardstick
                (``F.scaled_dot_product_attention`` and autograd through it,
-               called here and nowhere in the port);
+               called here and nowhere in the port); the two GEGLU kernels
+               (FF sub-block with and without LN and residual) at the
+               serving and training shapes in bf16 and fp32, and
+               ``int8_matmul`` at the UNet's projection shapes, bit for bit;
 4. ``parity``  the tiny pipeline in fp32 through the kernel route and through
-               the plain route: pixels agree within one level;
+               the plain route (attention, then GEGLU): pixels agree within
+               one level;
 5. ``train_parity`` the tiny train step in fp32: loss and MLP gradients with
-               attention on the kernel route against the plain route;
+               attention, then GEGLU, on the kernel route against the plain
+               route;
 6. ``serve``   ``TxtToImgService`` on ``configs/aigc_id.yaml`` (bf16, 512x512,
                batch 2) behind the real ``ThreadingHTTPServer``: requests
-               alone, co-batched, repeated, and in both attention layouts; the
-               kernel's launch counters must account for every UNet call;
+               alone, co-batched, repeated, in both attention layouts, and
+               with the GEGLU kernel route; the kernels' launch counters must
+               account for every UNet call;
 7. ``train``   ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
                512x512 images, batch 2, two 512x512 faces per sample,
                synthetic batches): a few uncached steps and two cached ones;
                losses, what moved and what stayed frozen, launch counters,
                the checkpoint, and one step's MLP gradient against the plain
-               attention route.
+               attention route; then the same gradient and a few uncached
+               and cached steps with the GEGLU kernel route.
 
 Exits non-zero if any phase fails or if there is no CUDA device.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
@@ -59,6 +66,8 @@ import torch
 from celebbasis_tpu_torch.ops import attention as attn_ops
 from celebbasis_tpu_torch.ops import cuda_build
 from celebbasis_tpu_torch.ops import flash_attention as fa
+from celebbasis_tpu_torch.ops import geglu
+from celebbasis_tpu_torch.ops import quant
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DDIM_STEPS = 20
@@ -70,6 +79,7 @@ TRAIN_LAUNCHES = {"flash_attention_nhd": 1, "flash_attention": 0,
                   "fwd_lse": ATTN_PER_UNET - 1, "dq": ATTN_PER_UNET - 2,
                   "dkv": ATTN_PER_UNET - 1}
 TRAIN_STEPS, CACHED_STEPS = 6, 2
+GEGLU_TRAIN_STEPS = 3        # uncached steps with the GEGLU kernel route
 TOL = {torch.float32: 2e-5,  # summation order only
        torch.bfloat16: 2e-2}  # bf16 rounding of p and of the output, for
                               # outputs of unit scale; the binding limit for
@@ -102,6 +112,29 @@ TRAIN_KERNELS = {
 # fa.bf16_grad_error_ratio <= 1 (see their docstrings)
 F32_REL_TOL = 1e-4
 LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
+
+GEGLU_SOURCE = "celebbasis_tpu_torch/csrc/geglu.cu"
+INT8_SOURCE = "celebbasis_tpu_torch/csrc/int8_matmul.cu"
+# counter -> TPU kernel replaced
+GEGLU_KERNELS = {"geglu_block": "celebbasis_tpu/ops/geglu.py:233",
+                 "geglu_ffn": "celebbasis_tpu/ops/geglu.py:126"}
+INT8_REPLACES = "celebbasis_tpu/ops/quant.py:82"
+GEGLU_PER_UNET = 16          # one FF sub-block per transformer block
+# (rows, C) of the FF sub-blocks at 512x512: 64^2, 32^2, 16^2 latents and the
+# 8^2 mid block; serving has 4 rows of batch (2 x guidance), training 2
+GEGLU_SERVE_SHAPES = ((16384, 320), (4096, 640), (1024, 1280), (256, 1280))
+GEGLU_TRAIN_SHAPES = ((8192, 320), (2048, 640), (512, 1280), (128, 1280))
+# fp32: summation order only, over up to 5120 terms
+GEGLU_F32_REL_TOL = 2e-5
+# bf16: geglu.bf16_mean_error of the outputs against the plain version; on
+# an H100 right kernels read at most 0.018 (the widest level), the exact erf
+# GELU in place of the tanh form 0.117-0.121 (torch_scripts/mutation_check.sh)
+GEGLU_BF16_MEAN_ERR = 0.05
+# (M, K, N): the UNet's projections at batch 4 -- q/k/v/out at 64^2, FF in,
+# FF out, 32^2 and 16^2 levels -- and a ragged case
+INT8_SHAPES = ((16384, 320, 320), (16384, 320, 2560), (16384, 1280, 320),
+               (4096, 640, 640), (1024, 1280, 1280), (100, 300, 77))
+PEAK_INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core rate
 
 
 def log(phase: str, msg: str) -> None:
@@ -140,14 +173,16 @@ def phase_env() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    paths = cuda_build.build_all(fa.LIBRARIES)
+    paths = cuda_build.build_all(fa.LIBRARIES + geglu.LIBRARIES
+                                 + quant.LIBRARIES)
     log("build", f"{len(paths)} libraries in "
                  f"{time.perf_counter() - t0:.1f} s (built in parallel)")
     for name, path in paths.items():
         log("build", f"{os.path.relpath(path, REPO)}: ptxas "
                      f"{json.dumps(cuda_build.ptxas_report(name))}")
-    for entry in fa._SIGNATURES:
-        fa._fn(entry)   # load, so a bad library fails here
+    for module in (fa, geglu, quant):
+        for entry in module.ENTRIES.values():
+            entry.bind()    # load, so a bad library fails here
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -428,6 +463,160 @@ def phase_train_kernels():
     return shapes
 
 
+def geglu_inputs(rows, C, dtype, seed):
+    """x, LN scale and bias, W1, b1, W2, b2 of one FF sub-block, the weights
+    drawn like the UNet's nn.Linear ones and handed over as the module hands
+    them: transposed views of (out, in) buffers in `dtype`, biases fp32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    inner = 4 * C
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    x = rnd(rows, C).to(dtype)
+    ln = (1 + 0.1 * rnd(C), 0.1 * rnd(C))
+    w1 = (rnd(2 * inner, C) * C ** -0.5).to(dtype).t()
+    w2 = (rnd(C, inner) * inner ** -0.5).to(dtype).t()
+    return x, ln, w1, 0.05 * rnd(2 * inner), w2, 0.05 * rnd(C)
+
+
+def geglu_bound(rows, C, dtype):
+    """24 rows C^2 operations (both products, inner = 4C) against x, out and
+    the weights once (biases and LN vectors in fp32)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    flops = 24.0 * rows * C * C
+    nbytes = 2.0 * rows * C * es + 12.0 * C * C * es + 12.0 * C * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_geglu(entry, rows, C, dtype, timed):
+    """One GEGLU kernel (`entry` "geglu_block" or "geglu_ffn") against its
+    plain version: fp32 within GEGLU_F32_REL_TOL of the largest output; bf16
+    by fa.bf16_error_ratio <= 1 and geglu.bf16_mean_error <=
+    GEGLU_BF16_MEAN_ERR."""
+    x, (lns, lnb), w1, b1, w2, b2 = geglu_inputs(rows, C, dtype,
+                                                 rows * 7 + C)
+    if entry == "geglu_block":
+        run = lambda: geglu.geglu_block(x, lns, lnb, w1, b1, w2, b2,
+                                        impl="cuda")
+        plain = lambda: geglu.geglu_block_plain(x, lns, lnb, w1, b1, w2, b2)
+        xla = lambda: geglu.geglu_block_xla(x, lns, lnb, w1, b1, w2, b2)
+    else:
+        run = lambda: geglu.geglu_ffn(x, w1, b1, w2, b2, impl="cuda")
+        plain = lambda: geglu.geglu_ffn_plain(x, w1, b1, w2, b2)
+        xla = lambda: geglu.geglu_xla(x, w1, b1, w2, b2)
+    before = geglu.launch_counts()[entry]
+    out = run()
+    torch.cuda.synchronize()
+    if geglu.launch_counts()[entry] != before + 1:
+        raise RuntimeError(f"{entry}: the wrapper did not launch its kernel")
+    ref = plain()
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise RuntimeError(f"{entry}: shape/dtype {out.shape} {out.dtype} "
+                           f"vs plain {ref.shape} {ref.dtype}")
+    err = (out.float() - ref.float()).abs().max().item()
+    rec = {"rows": rows, "C": C, "inner": 4 * C,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "ref_max": ref.float().abs().max().item(),
+           "splits": geglu._splits(x.device, dtype, rows, C, 4 * C)}
+    if dtype == torch.bfloat16:
+        rec["err_ratio"] = fa.bf16_error_ratio(out, ref)
+        rec["mean_err"] = geglu.bf16_mean_error(out, ref)
+        ok = np.isfinite(err) and rec["err_ratio"] <= 1.0 \
+            and rec["mean_err"] <= GEGLU_BF16_MEAN_ERR
+    else:
+        ok = np.isfinite(err) and err <= GEGLU_F32_REL_TOL * rec["ref_max"]
+    if timed:
+        F = torch.nn.functional
+        u = torch.randn(rows, C, device="cuda").to(dtype)
+        y = torch.randn(rows, 4 * C, device="cuda").to(dtype)
+        w1t, w2t = w1.t(), w2.t()
+        iters = 10 if rows * C >= 1 << 22 else 50
+        (rec["kernel_ms"], rec["kernel_ms_min"]) = time_ms(run, iters)
+        rec["plain_ms"] = time_ms(plain, 3)[0]
+        rec["xla_route_ms"] = time_ms(xla, iters)[0]
+        # no PyTorch call computes a GEGLU block: the two products alone
+        rec["library_ms"] = time_ms(lambda: (F.linear(u, w1t), F.linear(
+            y, w2t)), iters)[0]
+        rec["bound_ms"], rec["bound_by"] = geglu_bound(rows, C, dtype)
+    log("kernels", f"{entry} {json.dumps(rec)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{entry} disagrees with its plain version at "
+                           f"{rec}")
+    return rec
+
+
+def phase_geglu_kernels():
+    """Both GEGLU kernels at the serving and training shapes in bf16 and
+    fp32, and a ragged row count; the serving shapes in bf16 are timed."""
+    records = {}
+    for entry in GEGLU_KERNELS:
+        shapes = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for rows, C in GEGLU_SERVE_SHAPES + GEGLU_TRAIN_SHAPES:
+                shapes.append(check_geglu(entry, rows, C, dtype,
+                                          timed=dtype == torch.bfloat16))
+            shapes.append(check_geglu(entry, 100, 320, dtype, timed=False))
+        records[entry] = shapes
+    return records
+
+
+def int8_bound(M, K, N, dtype):
+    es = torch.empty((), dtype=dtype).element_size()
+    ops = 2.0 * M * N * K
+    nbytes = M * K * es + K * N + N * 4 + M * N * es
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_int8(M, K, N, dtype, timed):
+    """int8_matmul against its plain version: equal bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(M + 3 * K + 7 * N)
+    w = torch.randn(K, N, device="cuda", generator=g) * K ** -0.5
+    w_q, w_s = quant.quantize_per_channel(w)
+    x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+    before = quant.launch_counts()["int8_matmul"]
+    out = quant.int8_matmul(x, w_q, w_s)
+    torch.cuda.synchronize()
+    if quant.launch_counts()["int8_matmul"] != before + 1:
+        raise RuntimeError("int8_matmul: the wrapper did not launch its "
+                           "kernels")
+    ref = quant.int8_matmul_plain(x, w_q, w_s)
+    rec = {"M": M, "K": K, "N": N, "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "equal": torch.equal(out, ref),
+           "ref_max": ref.float().abs().max().item()}
+    if timed:
+        iters = 10 if M * N >= 1 << 24 else 50
+        (rec["kernel_ms"], rec["kernel_ms_min"]) = time_ms(
+            lambda: quant.int8_matmul(x, w_q, w_s), iters)
+        rec["plain_ms"] = time_ms(
+            lambda: quant.int8_matmul_plain(x, w_q, w_s), 3)[0]
+        # the library's int8 product alone, on x already quantised: no
+        # quantisation, no dequantisation
+        xq = quant._quantize_rows(x)[0].to(torch.int8)
+        try:
+            rec["library_int_mm_ms"] = time_ms(
+                lambda: torch._int_mm(xq, w_q), iters)[0]
+        except RuntimeError as e:
+            rec["library_int_mm_ms"] = None
+            rec["library_error"] = str(e).splitlines()[0][:120]
+        rec["bound_ms"], rec["bound_by"] = int8_bound(M, K, N, dtype)
+    log("kernels", f"int8_matmul {json.dumps(rec)} "
+                   f"{'ok' if rec['equal'] else 'FAIL'}")
+    if not rec["equal"]:
+        raise RuntimeError(f"int8_matmul differs from its plain version at "
+                           f"{rec}")
+    return rec
+
+
+def phase_int8_kernels():
+    return [check_int8(M, K, N, dtype, timed=dtype == torch.bfloat16
+                       and M > 100)
+            for dtype in (torch.bfloat16, torch.float32)
+            for M, K, N in INT8_SHAPES]
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def phase_parity():
@@ -498,6 +687,37 @@ def phase_parity():
         raise RuntimeError("parity: the routes did not go where they should")
     if dpix > 1:
         raise RuntimeError(f"parity: pixels differ by {dpix} levels (> 1)")
+    # the same with the FF sub-blocks on the GEGLU kernel route
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    geglu.set_default_impl("cuda")
+    try:
+        geglu.reset_launch_count()
+        img_g = fn(state, basis, tokens, uncond, ids, num_ids, None, x_T=x_T)
+        torch.cuda.synchronize()
+        n_geglu = geglu.launch_counts()
+    finally:
+        geglu.set_default_impl(None)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    n_ff = ff_blocks(pipe.unet)
+    dpix = (finish_images(img_g, "uint8").int() - u8_k).abs().max().item()
+    log("parity", f"GEGLU kernel route vs plain route: launches {n_geglu} "
+                  f"({n_ff} FF sub-blocks per UNet call), max |float diff| "
+                  f"{(img_g - img_k).abs().max().item():.3e}, max pixel diff "
+                  f"{dpix} levels")
+    if n_geglu["geglu_ffn"] or not n_geglu["geglu_block"] \
+            or n_geglu["geglu_block"] % n_ff:
+        raise RuntimeError("parity: the GEGLU route did not go where it "
+                           "should")
+    if not torch.isfinite(img_g).all() or dpix > 1:
+        raise RuntimeError(f"parity: the GEGLU routes differ by {dpix} "
+                           f"levels (> 1)")
+
+
+def ff_blocks(unet) -> int:
+    from celebbasis_tpu_torch.models.unet import FeedForwardGEGLU
+    return sum(isinstance(m, FeedForwardGEGLU) for m in unet.modules())
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -527,12 +747,13 @@ def loss_and_mlp_grad(loss_fn, meta_net, mstate, basis, batch, seed):
         p.grad = None
     gen = torch.Generator(device="cuda").manual_seed(seed)
     fa.reset_launch_count()
+    geglu.reset_launch_count()
     loss, _ = loss_fn(mstate, basis, batch, gen)
     loss.backward()
     torch.cuda.synchronize()
     grad = torch.cat([p.grad.flatten().float()
                       for p in meta_net.mlp.parameters()])
-    return loss.item(), grad, fa.launch_counts()
+    return loss.item(), grad, {**fa.launch_counts(), **geglu.launch_counts()}
 
 
 def phase_train_parity():
@@ -600,6 +821,30 @@ def phase_train_parity():
         raise RuntimeError(f"train_parity: kernel and plain routes differ "
                            f"(loss {abs(loss_k - loss_p):.2e}, gradient "
                            f"{rel:.2e})")
+    # the FF sub-blocks on the GEGLU kernel route (attention on its kernel
+    # route on both sides); the backward recomputes through the plain path
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    geglu.set_default_impl("cuda")
+    try:
+        loss_g, grad_g, n_g = loss_and_mlp_grad(loss_fn, meta, mstate, basis,
+                                                batch, 7)
+    finally:
+        geglu.set_default_impl(None)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rel = ((grad_g - grad_k).abs().max() / grad_k.abs().max()).item()
+    log("train_parity", f"GEGLU kernel route vs plain route: loss "
+                        f"{loss_g:.6f} vs {loss_k:.6f}; MLP gradient max "
+                        f"|diff| / max |grad| {rel:.3e}; geglu_block "
+                        f"launches {n_g['geglu_block']} "
+                        f"({ff_blocks(pipe.unet)} FF sub-blocks)")
+    if n_g["geglu_block"] != ff_blocks(pipe.unet) or n_k["geglu_block"]:
+        raise RuntimeError("train_parity: the GEGLU route did not go where "
+                           "it should")
+    if abs(loss_g - loss_k) > 1e-5 or rel > 1e-4:
+        raise RuntimeError(f"train_parity: the GEGLU routes differ (loss "
+                           f"{abs(loss_g - loss_k):.2e}, gradient {rel:.2e})")
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -735,7 +980,18 @@ def phase_serve():
         calls_total = healthz(url)["batched_calls"] - calls0
         n_per_head = fa.launch_count("flash_attention")
         h = healthz(url)
+
+        # the FF sub-blocks on the GEGLU kernel route
+        geglu.set_default_impl("cuda")
+        h_geglu = healthz(url)
+        calls_g0 = h_geglu["batched_calls"]
+        geglu.reset_launch_count()
+        ask("geglu_cuda", p_a, 11)
+        ask("geglu_cuda_repeat", p_a, 11)
+        calls_geglu = healthz(url)["batched_calls"] - calls_g0
+        n_geglu = geglu.launch_counts()
     finally:
+        geglu.set_default_impl(None)
         os.environ.pop("CELEBBASIS_FLASH_LAYOUT", None)
         httpd.shutdown()
         httpd.server_close()
@@ -778,7 +1034,30 @@ def phase_serve():
     log("serve", f"per-head layout vs packed layout: max pixel diff {d}")
     if d > 1:
         raise RuntimeError(f"the two layouts differ by {d} levels")
-    return ({"flash_attention_nhd": n_packed, "flash_attention": n_per_head},
+
+    img_g = results["geglu_cuda"][0][0]
+    dg = np.abs(img_g.astype(int) - ref.astype(int))
+    log("serve", f"GEGLU route: healthz geglu={h_geglu['geglu']!r} (default "
+                 f"{h['geglu']!r}); launches {json.dumps(n_geglu)} over "
+                 f"{calls_geglu} device calls; request ms "
+                 f"{results['geglu_cuda'][1]:.1f} / "
+                 f"{results['geglu_cuda_repeat'][1]:.1f} (xla route: alone "
+                 f"{results['alone'][1]:.1f}, repeat "
+                 f"{results['repeat'][1]:.1f}); pixels vs the xla route: max "
+                 f"diff {dg.max()}, mean {dg.mean():.3f} levels (bf16 rounds "
+                 f"at other places on the two routes)")
+    if h["geglu"] != "xla" or h_geglu["geglu"] != "cuda":
+        raise RuntimeError(f"/healthz names the GEGLU route {h['geglu']!r} / "
+                           f"{h_geglu['geglu']!r}")
+    if n_geglu != {"geglu_block": GEGLU_PER_UNET * DDIM_STEPS * calls_geglu,
+                   "geglu_ffn": 0} or calls_geglu != 2:
+        raise RuntimeError(f"GEGLU launches {n_geglu} over {calls_geglu} "
+                           f"device calls; expected {GEGLU_PER_UNET} per "
+                           f"UNet call")
+    if not np.array_equal(results["geglu_cuda_repeat"][0][0], img_g):
+        raise RuntimeError("the GEGLU route does not repeat its pixels")
+    return ({"flash_attention_nhd": n_packed, "flash_attention": n_per_head,
+             "geglu_block": n_geglu["geglu_block"]},
             {name: ms for name, (_, ms) in results.items()})
 
 
@@ -947,11 +1226,80 @@ def phase_train():
                                      <= 0.01 * abs(loss_p)):
             raise RuntimeError("train: the kernel route's gradient is not "
                                "the plain route's")
+
+        # the FF sub-blocks on the GEGLU kernel route: the same step's MLP
+        # gradient against the plain GEGLU route (attention on its kernel
+        # route on both sides), then uncached and cached steps
+        geglu.set_default_impl("cuda")
+        try:
+            loss_g, grad_g, n_g = loss_and_mlp_grad(loss_fn, meta, mstate,
+                                                    asm.basis, loader[0], 9)
+            cos = torch.nn.functional.cosine_similarity(grad_g, grad_k,
+                                                        dim=0).item()
+            rel = ((grad_g - grad_k).norm() / grad_k.norm()).item()
+            log("train", f"full-width step, GEGLU kernel route vs plain "
+                         f"route: loss {loss_g:.5f} vs {loss_k:.5f}; MLP "
+                         f"gradient cosine {cos:.5f}, |diff| / |grad| "
+                         f"{rel:.4f}; geglu_block launches "
+                         f"{n_g['geglu_block']}")
+            if n_g["geglu_block"] != GEGLU_PER_UNET or not (
+                    cos >= 0.99 and rel <= 0.1
+                    and abs(loss_g - loss_k) <= 0.01 * abs(loss_k)):
+                raise RuntimeError("train: the GEGLU kernel route's gradient "
+                                   "is not the plain route's")
+            geglu_ms, geglu_launches = {}, 0
+            for suffix, steps, cache in (("geglu", GEGLU_TRAIN_STEPS, 0),
+                                         ("geglu_cached", CACHED_STEPS + 1,
+                                          2)):
+                gtrainer = Trainer(pipe, meta, asm.basis, loader,
+                                   TrainerConfig(
+                                       logdir=run_root, suffix=suffix,
+                                       max_steps=steps, ckpt_every=100,
+                                       log_every=1, cache_latents=cache,
+                                       seed=23))
+                gstate = gtrainer.init_state(new)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fa.reset_launch_count()
+                geglu.reset_launch_count()
+                gtrainer.fit(gstate)
+                torch.cuda.synchronize()
+                got = {**fa.launch_counts(), **geglu.launch_counts()}
+                if not cache:
+                    geglu_ms["geglu_peak_gib"] = \
+                        torch.cuda.max_memory_allocated() / 2 ** 30
+                with open(gtrainer.metrics_path) as f:
+                    grecs = [json.loads(line) for line in f]
+                g_ms = [r["step_time_s"] * 1e3 for r in grecs]
+                geglu_ms[f"{suffix}_ms"] = float(np.median(g_ms[1:]))
+                log("train", f"{len(grecs)} {suffix} steps (GEGLU kernel "
+                             f"route): ms per step "
+                             f"{[round(x, 1) for x in g_ms]}; losses "
+                             f"{[round(r['loss'], 4) for r in grecs]}; "
+                             f"launches {json.dumps(got)}")
+                want = {**{n: c * steps for n, c in TRAIN_LAUNCHES.items()},
+                        "geglu_block": GEGLU_PER_UNET * steps,
+                        "geglu_ffn": 0}
+                if got != want or len(grecs) != steps \
+                        or not np.isfinite([r["loss"] for r in grecs]).all():
+                    raise RuntimeError(f"train: GEGLU route steps launched "
+                                       f"{got}; expected {want}")
+                geglu_launches += got["geglu_block"]
+        finally:
+            geglu.set_default_impl(None)
+        log("train", f"xla vs GEGLU kernel route: uncached ms per step "
+                     f"{float(np.median(step_ms[1:])):.1f} vs "
+                     f"{geglu_ms['geglu_ms']:.1f}, cached "
+                     f"{float(np.median(c_ms[1:])):.1f} vs "
+                     f"{geglu_ms['geglu_cached_ms']:.1f}, peak memory "
+                     f"{peak / 2**30:.2f} vs {geglu_ms['geglu_peak_gib']:.2f} "
+                     f"GiB")
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
-    return launches, {"uncached_ms": float(np.median(step_ms[1:])),
-                      "cached_ms": float(np.median(c_ms[1:])),
-                      "peak_gib": peak / 2 ** 30}
+    return ({**launches, "geglu_block": geglu_launches},
+            {"uncached_ms": float(np.median(step_ms[1:])),
+             "cached_ms": float(np.median(c_ms[1:])),
+             "peak_gib": peak / 2 ** 30, **geglu_ms})
 
 
 # -----------------------------------------------------------------------------
@@ -966,6 +1314,8 @@ def main() -> int:
     phase_build()
     shapes = phase_kernels()
     train_shapes = phase_train_kernels()
+    geglu_shapes = phase_geglu_kernels()
+    int8_shapes = phase_int8_kernels()
     phase_parity()
     phase_train_parity()
     launches, request_ms = phase_serve()
@@ -1005,6 +1355,46 @@ def main() -> int:
             "shapes": [dict({k: s[k] for k in ("layout", "dtype", "q_scale",
                                                *"BHNMD")}, **s.get(name, {}))
                        for s in train_shapes]})
+    for name, replaces in GEGLU_KERNELS.items():
+        recs = geglu_shapes[name]
+        main_shape = recs[0]              # 16384 x 320, bf16: 64^2, serving
+        kernels.append({
+            "name": name, "route": "cuda", "source": GEGLU_SOURCE,
+            "replaces": replaces,
+            # geglu_block: the serving and training runs on the GEGLU kernel
+            # route; geglu_ffn is on no path of the port (nor of the JAX
+            # package): only the kernels phase launches it
+            "launches": (launches["geglu_block"]
+                         + train_launches["geglu_block"])
+            if name == "geglu_block" else 0,
+            "kernels_phase_launches": len(recs),
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "max_err_ratio": max(r.get("err_ratio", 0.0) for r in recs),
+            "max_mean_err": max(r.get("mean_err", 0.0) for r in recs),
+            "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
+            "xla_route_ms": main_shape["xla_route_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"],
+            "library_call": "the block's two F.linear products alone",
+            "shape": {k: main_shape[k] for k in ("rows", "C", "dtype")},
+            "shapes": recs})
+    main_shape = int8_shapes[1]           # 16384 x 320 -> 2560, bf16: FF in
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES,
+        "launches": 0,                    # on no path: kernels phase only
+        "kernels_phase_launches": len(int8_shapes),
+        "max_abs_err": max(r["max_abs_err"] for r in int8_shapes),
+        "all_equal": all(r["equal"] for r in int8_shapes),
+        "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_int_mm_ms"],
+        "library_call": "torch._int_mm on the quantised x, without the "
+                        "quantisation and the dequantisation",
+        "shape": {k: main_shape[k] for k in ("M", "K", "N", "dtype")},
+        "shapes": int8_shapes})
     log("done", f"{time.perf_counter() - t_start:.0f} s in all; request ms "
                 f"({DDIM_STEPS} DDIM steps) {json.dumps(request_ms)}; train "
                 f"step {json.dumps(train_ms)}")

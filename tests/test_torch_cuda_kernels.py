@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from celebbasis_tpu_torch.ops import flash_attention as fa
+from celebbasis_tpu_torch.ops import geglu
+from celebbasis_tpu_torch.ops import quant
 
 # absolute limits; bf16 is also held to the limits that scale with the values
 # compared (bf16_error_ratio <= 1 for outputs, bf16_grad_error_ratio <= 1 for
@@ -156,3 +158,86 @@ def test_autograd_route_on_card():
     g2 = torch.autograd.grad(out, (qb, kb, vb), dob.detach())
     for a, b in zip(g1, g2):
         assert torch.equal(a, b)
+
+
+def _geglu_args(rows, C, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    inner = 4 * C
+    return (rnd(rows, C).to(dtype), 1 + 0.1 * rnd(C), 0.1 * rnd(C),
+            (rnd(2 * inner, C) * C ** -0.5).to(dtype).t(),
+            0.05 * rnd(2 * inner),
+            (rnd(C, inner) * inner ** -0.5).to(dtype).t(), 0.05 * rnd(C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_geglu_kernels_match_plain_on_card(dtype):
+    """Both GEGLU kernels against their plain versions: a ragged row count,
+    every row-tile width (split and unsplit inner sweeps), and the tiny
+    UNet's widths (narrower than a tile)."""
+    _need_card()
+    for rows, C in ((100, 320), (300, 640), (128, 1280), (4096, 320),
+                    (77, 64), (40, 32)):
+        x, lns, lnb, w1, b1, w2, b2 = _geglu_args(rows, C, dtype, seed=rows)
+        for entry in ("geglu_block", "geglu_ffn"):
+            before = geglu.launch_counts()[entry]
+            if entry == "geglu_block":
+                out = geglu.geglu_block(x, lns, lnb, w1, b1, w2, b2,
+                                        impl="cuda")
+                ref = geglu.geglu_block_plain(x, lns, lnb, w1, b1, w2, b2)
+            else:
+                out = geglu.geglu_ffn(x, w1, b1, w2, b2, impl="cuda")
+                ref = geglu.geglu_ffn_plain(x, w1, b1, w2, b2)
+            assert geglu.launch_counts()[entry] == before + 1
+            assert out.shape == ref.shape and out.dtype == ref.dtype
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.float32:
+                assert err <= 2e-5 * ref.abs().max().item(), (entry, rows, C)
+            else:
+                assert fa.bf16_error_ratio(out, ref) <= 1.0, (entry, rows, C)
+
+
+@pytest.mark.cuda
+def test_geglu_route_launches_the_kernel_and_backward_recomputes():
+    """Route "cuda" on a CUDA tensor goes through the kernel (by the
+    counter); gradients recompute through the plain path and agree with
+    autograd through the "xla" route."""
+    _need_card()
+    x, lns, lnb, w1, b1, w2, b2 = _geglu_args(200, 64, torch.float32, seed=9)
+    x.requires_grad_(True)
+    w1.requires_grad_(True)
+    geglu.reset_launch_count()
+    out = geglu.geglu_block(x, lns, lnb, w1, b1, w2, b2, impl="cuda")
+    assert geglu.launch_counts() == {"geglu_block": 1, "geglu_ffn": 0}
+    gx, gw1 = torch.autograd.grad(out.square().sum(), (x, w1))
+    assert geglu.launch_counts()["geglu_block"] == 1    # no kernel backward
+    ref = geglu.geglu_block(x, lns, lnb, w1, b1, w2, b2, impl="xla")
+    rx, rw1 = torch.autograd.grad(ref.square().sum(), (x, w1))
+    assert (gx - rx).abs().max().item() <= 1e-4 * rx.abs().max().item()
+    assert (gw1 - rw1).abs().max().item() <= 1e-4 * rw1.abs().max().item()
+    geglu.set_default_impl("cuda")
+    try:
+        with torch.no_grad():
+            geglu.geglu_ffn(x, w1, b1, w2, b2)
+    finally:
+        geglu.set_default_impl(None)
+    assert geglu.launch_counts()["geglu_ffn"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_equals_plain_on_card(dtype):
+    """Bit for bit, with the weights in the layout quantize_per_channel
+    stores and in the JAX layout (copied by the wrapper), and a ragged K."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for M, K, N in ((100, 300, 77), (1024, 640, 640), (300, 1280, 320)):
+        w_q, w_s = quant.quantize_per_channel(
+            torch.randn(K, N, device="cuda", generator=g))
+        x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+        ref = quant.int8_matmul_plain(x, w_q, w_s)
+        before = quant.launch_counts()["int8_matmul"]
+        for w in (w_q, w_q.contiguous()):
+            assert torch.equal(quant.int8_matmul(x, w, w_s), ref)
+        assert quant.launch_counts()["int8_matmul"] == before + 2

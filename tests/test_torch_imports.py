@@ -32,6 +32,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
                                     "celebbasis_tpu"))
 print("MODULES", len(names))
+print("KERNEL_MODULES", sorted(n for n in names if n.endswith(
+    (".flash_attention", ".geglu", ".quant"))))
 print("BAD", bad)
 print("BUILT", sorted(ls() - before))
 """
@@ -44,6 +46,9 @@ def test_imports_pull_in_no_jax_and_build_nothing():
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
     assert int(lines["MODULES"]) >= 25
+    assert lines["KERNEL_MODULES"] == str(sorted(
+        f"celebbasis_tpu_torch.ops.{m}" for m in ("flash_attention", "geglu",
+                                                  "quant")))
     assert lines["BAD"] == "[]"
     assert lines["BUILT"] == "[]"
 
@@ -89,8 +94,10 @@ def test_kernel_wrapper_refuses_a_cuda_tensor_it_cannot_serve():
         pytest.skip("this check is for machines without nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.find_nvcc()
-    assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR,
-                                       "flash_attention_fwd.cu"))
+    for source in ("flash_attention_fwd", "flash_attention_bwd", "geglu",
+                   "int8_matmul"):
+        assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR,
+                                           source + ".cu"))
 
 
 def test_stdlib_token_split_equals_regex():

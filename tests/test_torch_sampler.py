@@ -53,7 +53,8 @@ def eps_pair():
     tm = tunet.UNetModel(tunet.UNetConfig.tiny(), torch.float32)
     bridge.load_jax_params(tm, np_tree(params))
     tm.requires_grad_(False).eval()
-    return (lambda x, ts, c: jm.apply(params, x, ts, c)), tm
+    apply = jax.jit(jm.apply)     # one compile; eager dispatch is slower
+    return (lambda x, ts, c: apply(params, x, ts, c)), tm
 
 
 def _inputs(B=2, seed=0):

@@ -67,6 +67,7 @@ def test_healthz(server):
         h = json.loads(r.read())
     assert h["ok"] and h["warm"] and h["batch"] == 2 and h["device"] == "cpu"
     assert h["attention"] == "xla"      # the CPU's route is the plain core
+    assert h["geglu"] == "xla"          # the kernel route is opt-in
 
 
 def test_txt2img_roundtrip_and_determinism(server):

@@ -44,8 +44,8 @@ def test_tiny_eps_matches_jax(pair, size):
     x = r.standard_normal((3, size, size, 4)).astype(np.float32)
     ts = np.array([1, 500, 981], np.int32)
     ctx = r.standard_normal((3, 77, 64)).astype(np.float32)
-    ref = np.asarray(jm.apply(params, jnp.asarray(x), jnp.asarray(ts),
-                              jnp.asarray(ctx)))
+    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x),
+                                       jnp.asarray(ts), jnp.asarray(ctx)))
     with torch.no_grad():
         got = tm(t(x), t(ts).long(), t(ctx))
     assert got.shape == x.shape and got.dtype == torch.float32
@@ -68,8 +68,8 @@ def test_bf16_compute_tracks_fp32_like_the_jax_module(pair):
     ts = np.array([1, 500, 981], np.int32)
     ctx = r.standard_normal((3, 77, 64)).astype(np.float32)
     args = (jnp.asarray(x), jnp.asarray(ts), jnp.asarray(ctx))
-    ref32 = np.asarray(jm.apply(params, *args))
-    ref16 = np.asarray(jm16.apply(params, *args))
+    ref32 = np.asarray(jax.jit(jm.apply)(params, *args))
+    ref16 = np.asarray(jax.jit(jm16.apply)(params, *args))
     with torch.no_grad():
         got16 = tm16.eval()(t(x), t(ts).long(), t(ctx)).numpy()
     jax_err = np.abs(ref16 - ref32).mean()

@@ -1,26 +1,35 @@
 #!/usr/bin/env bash
 # Does chip_smoke.py's kernel check bite?  Needs an NVIDIA GPU and nvcc.
 #
-#     bash torch_scripts/mutation_check.sh
+#     bash torch_scripts/mutation_check.sh [case ...]
 #
-# Copies the repository into a temporary directory once per case: unchanged,
-# and with one kernel broken:
+# Copies the repository into a temporary directory once per case (all cases
+# when none is named): unchanged ("none"), and with one kernel broken:
 #   forward   scale   the softmax scale taken for the padded head dim (48)
 #                     instead of the real one (40);
 #             stale   one K/V tile's copy skipped, so that its shared-memory
 #                     stage is stale;
 #   backward  dqscale the final scale of dq dropped;
 #             delta   delta = rowsum(dO * O) dropped from ds in the dq kernel;
-#             dvp     p^T taken 10 % too small in the dk/dv kernel.
-# Each copy runs the bf16 check of chip_smoke.py at three self-attention
-# shapes: the forward check at the serving shapes, the training check (forward
-# with logsumexp, dq, dk/dv) at the train step's shapes with a peaked softmax.
-# The unchanged copy must print no "CAUGHT", each broken copy three; the
-# script fails otherwise.  The repository itself is never modified.
+#             dvp     p^T taken 10 % too small in the dk/dv kernel;
+#   geglu     erf     the exact (erf) GELU in place of the tanh form, in the
+#                     bf16 kernel only;
+#             residual  x dropped from x + GEGLU(LN(x));
+#   int8      rowscale  the activation scale taken from the row's first
+#                     64-value K tile instead of the whole row.
+# Each copy runs the bf16 check of chip_smoke.py at three shapes: the forward
+# check at the serving shapes, the training check (forward with logsumexp,
+# dq, dk/dv) at the train step's shapes with a peaked softmax, the GEGLU
+# block check and the int8 check at the serving shapes of the 64^2, 32^2 and
+# 16^2 levels.  The unchanged copy must print no "CAUGHT", each broken copy
+# three; the script fails otherwise.  The repository itself is never
+# modified.
 set -euo pipefail
 repo="$(cd "$(dirname "$0")/.." && pwd)"
 fwd=celebbasis_tpu_torch/csrc/flash_attention_fwd.cu
 bwd=celebbasis_tpu_torch/csrc/flash_attention_bwd.cu
+ffn=celebbasis_tpu_torch/csrc/geglu.cu
+i8=celebbasis_tpu_torch/csrc/int8_matmul.cu
 check_fwd='import chip_smoke as c, torch
 for a in [(4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80), (4, 8, 256, 256, 160)]:
     try:
@@ -35,7 +44,22 @@ for a in [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80), (2, 8, 256, 256, 160)]
     except RuntimeError:
         print("CAUGHT", a)
 '
-for mutation in none scale stale dqscale delta dvp; do
+check_geglu='import chip_smoke as c, torch
+for a in [(16384, 320), (4096, 640), (1024, 1280)]:
+    try:
+        c.check_geglu("geglu_block", *a, torch.bfloat16, False)
+    except RuntimeError:
+        print("CAUGHT", a)
+'
+check_int8='import chip_smoke as c, torch
+for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
+    try:
+        c.check_int8(*a, torch.bfloat16, False)
+    except RuntimeError:
+        print("CAUGHT", a)
+'
+cases="${*:-none scale stale dqscale delta dvp erf residual rowscale}"
+for mutation in $cases; do
   work="$(mktemp -d)"
   cp -r "$repo/." "$work"
   rm -rf "$work/celebbasis_tpu_torch/_build"
@@ -46,14 +70,19 @@ for mutation in none scale stale dqscale delta dvp; do
     dqscale) sed -i 's/dq_acc\[j\]\[2 \* r\] \* p.scale/dq_acc[j][2 * r]/; s/dq_acc\[j\]\[2 \* r + 1\] \* p.scale/dq_acc[j][2 * r + 1]/' "$work/$src" ;;
     delta) sed -i 's/s\[j\]\[e\] = pv \* (dp\[j\]\[e\] - dl\[e >> 1\]);/s[j][e] = pv * dp[j][e];/' "$work/$src" ;;
     dvp) sed -i 's/sT\[j\]\[e\] = pv; /sT[j][e] = pv * 0.9f; /' "$work/$src" ;;
+    erf) src=$ffn; sed -i 's/y\[e\] = hv \* gelu_tanh(gv);/y[e] = hv * gv * normcdff(gv);/' "$work/$src" ;;
+    residual) src=$ffn; sed -i 's/v = to_f32(static_cast<const T\*>(p.x)\[row \* p.x_s + col\]) + acc;/v = acc;/' "$work/$src" ;;
+    rowscale) src=$i8; sed -i 's/for (int k = lane; k < K; k += 32) amax/for (int k = lane; k < min(K, 64); k += 32) amax/' "$work/$src" ;;
   esac
   echo "== mutation: $mutation"
   if [ $mutation != none ] && cmp -s "$repo/$src" "$work/$src"; then
     echo "the mutation did not apply"; exit 1
   fi
   case $mutation in
-    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd")" ;;
+    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_geglu" && python3 -c "$check_int8")" ;;
     scale|stale) out="$(cd "$work" && python3 -c "$check_fwd")" ;;
+    erf|residual) out="$(cd "$work" && python3 -c "$check_geglu")" ;;
+    rowscale) out="$(cd "$work" && python3 -c "$check_int8")" ;;
     *) out="$(cd "$work" && python3 -c "$check_bwd")" ;;
   esac
   echo "$out"

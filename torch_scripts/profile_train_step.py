@@ -16,7 +16,10 @@ faces per sample, synthetic batches) and prints, for the GPU it runs on,
 * for the uncached step: the share of the wall time the device was busy and
   device time by kernel family (``torch.profiler``), with every flash kernel
   instantiation's launches per step and mean device time;
-* peak device memory of a step.
+* peak device memory of a step;
+* the uncached step (float32 storage) with the FF sub-blocks on the GEGLU
+  kernel route against the plain route: wall time in turns, device time by
+  family and peak memory of each.
 
 Needs a CUDA device; prints one JSON line at the end.
 """
@@ -35,7 +38,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke  # noqa: E402  (synthetic_batch)
-from profile_unet import device_ms_by_family, wall_ms  # noqa: E402
+from profile_unet import (device_ms_by_family, geglu_routes,  # noqa: E402
+                          wall_ms)
 
 from celebbasis_tpu_torch.loader import assemble, init_weights  # noqa: E402
 from celebbasis_tpu_torch.ops import attention as attn_ops  # noqa: E402
@@ -112,6 +116,8 @@ def main() -> int:
           f"{100 * max(0.0, 1 - busy / wall):.1f}%")
     result.update(device_ms_by_family=fams, device_busy_ms=busy,
                   flash_kernels=flash)
+
+    result.update(geglu_routes(step, args.steps, "step"))
 
     cache = tstep.precompute_cache(pipe, meta, batches, 2)
 

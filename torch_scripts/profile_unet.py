@@ -13,7 +13,10 @@ latents, 77x768 context) on the GPU, and prints
 * device time by kernel family: the hand-written flash attention, cuDNN /
   cuBLAS convolutions and matrix products, normalisations, elementwise;
 * the same forward with attention on the plain route, for the end-to-end
-  effect of the kernel.
+  effect of the kernel;
+* the same forward with the FF sub-blocks on the GEGLU kernel route against
+  the default plain route (attention on its kernel route on both sides): wall
+  time in turns, device time by family and peak memory of each.
 
 Needs a CUDA device; prints one JSON line at the end.
 """
@@ -35,10 +38,12 @@ from celebbasis_tpu_torch.diffusion.sampler import guided_eps  # noqa: E402
 from celebbasis_tpu_torch.loader import init_weights  # noqa: E402
 from celebbasis_tpu_torch.models.unet import UNetConfig, UNetModel  # noqa: E402
 from celebbasis_tpu_torch.ops import attention as attn_ops  # noqa: E402
+from celebbasis_tpu_torch.ops import geglu  # noqa: E402
 from celebbasis_tpu_torch.utils.precision import cast_float_params  # noqa: E402
 
 FAMILIES = (
     ("flash_attention", ("flash_fwd", "flash_bwd")),
+    ("geglu", ("geglu_",)),
     ("conv", ("conv", "cudnn", "implicit_gemm", "fprop", "xmma")),
     ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "splitk")),
     ("norm", ("norm", "RowwiseMoments", "welford")),
@@ -137,8 +142,38 @@ def main() -> int:
               f"{100 * max(0.0, 1 - busy / wall):.1f}%")
     result.update(device_ms_by_family=fams, device_busy_ms=busy,
                   flash_kernels=flash)
+    result.update(geglu_routes(step, args.steps, "forward"))
     print(json.dumps(result))
     return 0
+
+
+def geglu_routes(fn, iters, what):
+    """`fn` with the FF sub-blocks on the plain and on the kernel GEGLU
+    route: wall ms in turns, then device ms by family and peak memory of
+    one call on each route."""
+    out = {}
+    for route in ("xla", "cuda", "cuda", "xla"):     # in turns, one process
+        geglu.set_default_impl(route)
+        ms = wall_ms(fn, iters)
+        out.setdefault(f"geglu_{route}_ms", []).append(ms)
+        print(f"GEGLU route {route}: {ms:.2f} ms per {what}")
+    for route in ("xla", "cuda"):
+        geglu.set_default_impl(route)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[f"geglu_{route}_peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        fams, _ = device_ms_by_family(fn, iters)
+        out[f"geglu_{route}_device_ms_by_family"] = fams
+        busy = sum(fams.values())
+        print(f"GEGLU route {route}: device busy {busy:.2f} ms per {what}, "
+              f"peak {out[f'geglu_{route}_peak_gib']:.2f} GiB; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                  fams.items(), key=lambda kv: -kv[1])))
+    geglu.set_default_impl(None)
+    return out
 
 
 if __name__ == "__main__":
