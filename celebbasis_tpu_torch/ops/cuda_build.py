@@ -8,7 +8,8 @@ at import), from the sources in the package alone, into
 source, of the headers beside it and of the flags, so an edited source is
 rebuilt and a finished build is reused.  A failed build raises with the
 compiler's output; a finished one keeps ``ptxas``'s report (registers, shared
-memory and spills per kernel) in ``ptxas_report``.
+memory and spills per kernel) in ``ptxas_report`` and ``ptxas_kernels``;
+``sass_counts`` counts an instruction in each kernel of a built library.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 _ptxas: Dict[str, str] = {}
+_sms: Dict[object, int] = {}
 
 
 def build_dir() -> str:
@@ -122,6 +124,53 @@ def ptxas_report(name: str) -> Dict[str, int]:
             "spill_bytes": sum(spills)}
 
 
+def ptxas_kernels(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of ``csrc/<name>.cu``, what ``ptxas -v``
+    said when this process built it: registers a thread, static shared
+    bytes, and bytes of spill stores plus loads.  Empty if the library was
+    built by an earlier process."""
+    out: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in _ptxas.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            out[kernel] = {"registers": 0, "smem_bytes": 0, "spill_bytes": 0}
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[kernel]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[kernel]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[kernel]["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_counts(name: str, opcode: str) -> Dict[str, int]:
+    """Per kernel (mangled name) of the built library of ``csrc/<name>.cu``:
+    how many SASS instructions start with `opcode` (e.g. ``"HGMMA"``), read
+    with the toolkit's ``cuobjdump --dump-sass``."""
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", library_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+    out: Dict[str, int] = {}
+    kernel = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            kernel = m.group(1)
+            out[kernel] = 0
+        elif kernel is not None and re.search(
+                r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?" + opcode, line):
+            out[kernel] += 1
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if need be."""
     with _lock:
@@ -130,6 +179,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _loaded[name] = lib
         return lib
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached): what a wrapper
+    sizes its grid splits by."""
+    import torch
+
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
 
 
 class Entry:

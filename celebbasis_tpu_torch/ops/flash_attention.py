@@ -16,7 +16,11 @@ Which kernel a call launches on CUDA tensors:
   whose backward launches the kernels of ``csrc/flash_attention_bwd.cu``:
   ``dq`` when q needs a gradient, ``dkv`` when k or v does (counters ``dq``,
   ``dkv``), after the small ``delta = rowsum(dO * O)`` kernel of that source.
-  The backward uses no atomics: the same inputs give the same bits.
+  In bf16 both are TMA-fed ``wgmma`` kernels; where the key tiles alone leave
+  SMs idle, ``dkv`` splits each key tile's query stream over several blocks
+  (``dkv_split_plan``) whose fp32 partial sums a second small kernel adds in
+  a fixed order.  The backward uses no atomics: the same inputs give the same
+  bits.
 
 Each kernel has its plain PyTorch version beside it
 (``flash_attention_plain`` / ``flash_attention_nhd_plain``,
@@ -58,7 +62,7 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": ("flash_attention_bwd",
                                [_VP] * 7 + [_INT] * 6 + _TAIL),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
-                                [_VP] * 8 + [_INT] * 6 + _TAIL),
+                                [_VP] * 10 + [_INT] * 7 + _TAIL),
 }
 ENTRIES = {name: cuda_build.Entry(library, name, argtypes,
                                   "flash_attention_error_string")
@@ -292,6 +296,33 @@ def flash_attention_lse(q, k, v, num_heads: int | None = None):
     return _forward_cuda(q, k, v, num_heads, with_lse=True)
 
 
+def dkv_tiles(head_dim: int):
+    """(keys a block owns, query rows a streamed tile) of the bf16 dk/dv
+    kernel at a head dim (``DkvShape`` in csrc/flash_attention_bwd.cu, padded
+    head dims 48, 80, 160, 256): two warpgroups of 64 keys up to 80, 64 keys
+    shared by both (each half of the columns) above."""
+    if head_dim <= 48:
+        return 128, 128
+    if head_dim <= 80:
+        return 128, 64
+    return 64, (64 if head_dim <= 160 else 32)
+
+
+def dkv_split_plan(B: int, H: int, N: int, M: int, D: int, sm_count: int):
+    """How the bf16 dk/dv kernel spreads over the card: ``(splits,
+    scratch_shape)``.  One block per key tile and head gives
+    ``B * H * ceil(M / keys)`` blocks; where that leaves SMs idle, each key
+    tile's query stream is split over `splits` blocks -- as many as fill one
+    wave of `sm_count` SMs, at most one per query tile -- and each split
+    writes fp32 partial dk and dv of ``scratch_shape`` (splits, B, H, M, D),
+    which a second kernel adds in split order.  ``scratch_shape`` is None
+    without a split.  A pure function of its arguments."""
+    keys, rows = dkv_tiles(D)
+    blocks = B * H * -(-M // keys)
+    splits = max(1, min(-(-N // rows), sm_count // blocks))
+    return splits, ((splits, B, H, M, D) if splits > 1 else None)
+
+
 def _readable(t: torch.Tensor, num_heads) -> torch.Tensor:
     """A tensor autograd handed over (the incoming gradient), brought to rows
     the kernels can read: last dim contiguous, bf16 rows 16-byte aligned."""
@@ -362,9 +393,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, num_heads: int | None = None,
     if need_dkv:
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        splits, part_shape = (1, None)
+        if q.dtype == torch.bfloat16:
+            splits, part_shape = dkv_split_plan(B, H, N, M, D,
+                                                cuda_build.sm_count(q.device))
+        parts = [] if part_shape is None else [
+            torch.empty(part_shape, dtype=torch.float32, device=q.device)
+            for _ in range(2)]
+        part_ptrs = [t.data_ptr() for t in parts] or [None, None]
         ENTRIES["flash_attention_bwd_dkv"](
-            q.device, *common, dk.data_ptr(), dv.data_ptr(), code, B, H, N, M,
-            D, _stride_array((q, k, v, do, dk, dv), num_heads), D ** -0.5)
+            q.device, *common, dk.data_ptr(), dv.data_ptr(), *part_ptrs,
+            code, B, H, N, M, D, splits,
+            _stride_array((q, k, v, do, dk, dv), num_heads), D ** -0.5)
         _launches["dkv"] += 1
     return dq, dk, dv
 

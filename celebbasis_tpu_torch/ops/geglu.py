@@ -51,7 +51,6 @@ ENTRIES = {"geglu_fwd": cuda_build.Entry(
     [_VP] * 9 + [_INT] * 6 + [_LL] * 3 + [ctypes.c_float],
     "geglu_error_string")}
 LIBRARIES = ("geglu",)
-_sm_count = {}
 
 
 def set_default_impl(impl: str | None) -> None:
@@ -171,11 +170,8 @@ def rows_per_block(dtype: torch.dtype, C: int) -> int:
 def _splits(device, dtype, rows, C, inner) -> int:
     """Blocks over the inner dimension, so that row tiles x splits fill the
     card's SMs at least once where the row tiles alone do not."""
-    if device not in _sm_count:
-        _sm_count[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
     tiles = -(-rows // rows_per_block(dtype, C))
-    return max(1, min(-(-inner // 64), _sm_count[device] // tiles))
+    return max(1, min(-(-inner // 64), cuda_build.sm_count(device) // tiles))
 
 
 def _kernel_layout(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -10,7 +10,9 @@ hand-written kernel against its plain PyTorch version.  Phases:
 
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
 2. ``build``   builds the kernel libraries from ``celebbasis_tpu_torch/csrc``,
-               one ``nvcc`` per source, all started together;
+               one ``nvcc`` per source, all started together, and records
+               the bf16 backward's instantiation at each padded head dim
+               (tiles, registers, spills, HGMMA in the SASS);
 3. ``kernels`` the inference forward (both entry points) at the serving
                path's shapes, and the training forward (with logsumexp), dq
                and dk/dv kernels at the train step's shapes, against their
@@ -47,6 +49,7 @@ it is the ``{"kernels": [...]}`` record.
 from __future__ import annotations
 
 import base64
+import ctypes
 import json
 import os
 import shutil
@@ -106,6 +109,9 @@ TRAIN_KERNELS = {
     "dq": (BWD_SOURCE, "celebbasis_tpu/ops/flash_attention.py:282", 6),
     "dkv": (BWD_SOURCE, "celebbasis_tpu/ops/flash_attention.py:299", 8),
 }
+# the bf16 backward's padded head dims; at each, its dq and dk/dv kernels are
+# wgmma instantiations
+BWD_HEAD_DIMS = (48, 80, 160, 256)
 # fp32 gradients and lse differ from the plain version by summation order:
 # 1e-4 of the largest entry (sums over up to 4096 terms); bf16 outputs are
 # held to fa.bf16_error_ratio <= 1 and bf16 gradients to
@@ -171,7 +177,7 @@ def phase_env() -> str:
 
 # -- phase 2 ------------------------------------------------------------------
 
-def phase_build() -> None:
+def phase_build():
     t0 = time.perf_counter()
     paths = cuda_build.build_all(fa.LIBRARIES + geglu.LIBRARIES
                                  + quant.LIBRARIES)
@@ -183,6 +189,55 @@ def phase_build() -> None:
     for module in (fa, geglu, quant):
         for entry in module.ENTRIES.values():
             entry.bind()    # load, so a bad library fails here
+    return bwd_instantiations()
+
+
+def bwd_instantiations():
+    """What the bf16 dq and dk/dv kernels are at each padded head dim: tiles,
+    threads and shared bytes (as the library reports them), registers at
+    launch (the consumer warpgroups raise theirs where `consumer_registers`
+    is not 0) and spills (ptxas), and the HGMMA (wgmma) and HMMA (mma.sync)
+    instructions in the built library's SASS.  Fails unless every one holds
+    HGMMA and no HMMA, and the wrapper's split plan uses the kernel's
+    tiles."""
+    lib = cuda_build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_config
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+    ptxas = cuda_build.ptxas_kernels("flash_attention_bwd")
+    sass = {op: cuda_build.sass_counts("flash_attention_bwd", op)
+            for op in ("HGMMA", "HMMA")}
+    records = {"dq": [], "dkv": []}
+    for dp in BWD_HEAD_DIMS:
+        cfg = (ctypes.c_int * 11)()
+        if fn(dp, cfg) != 0 or cfg[0] != dp:
+            raise RuntimeError(f"flash_attention_bwd_config({dp}) failed")
+        tiles = {"dq": {"query_rows": cfg[1], "keys_per_tile": cfg[2],
+                        "threads": cfg[3], "smem_bytes": cfg[4],
+                        "consumer_registers": cfg[5]},
+                 "dkv": {"keys": cfg[6], "query_rows_per_tile": cfg[7],
+                         "threads": cfg[8], "smem_bytes": cfg[9],
+                         "consumer_registers": cfg[10]}}
+        if fa.dkv_tiles(dp) != (cfg[6], cfg[7]):
+            raise RuntimeError(f"dkv_tiles({dp}) = {fa.dkv_tiles(dp)}, the "
+                               f"kernel's are {(cfg[6], cfg[7])}")
+        for kernel in ("dq", "dkv"):
+            pattern = f"flash_bwd_{kernel}_wgmmaILi{dp}E"
+            names = [n for n in sass["HGMMA"] if pattern in n]
+            if len(names) != 1:
+                raise RuntimeError(f"no single kernel {pattern} in the "
+                                   f"library: {names}")
+            rec = {"head_dim_padded": dp, **tiles[kernel],
+                   "hgmma": sass["HGMMA"][names[0]],
+                   "hmma": sass["HMMA"][names[0]],
+                   "ptxas": ptxas.get(names[0], "not built by this process")}
+            rec["instantiation"] = "wgmma" if rec["hgmma"] else "no wgmma"
+            log("build", f"bwd {kernel} {json.dumps(rec)}")
+            if not rec["hgmma"] or rec["hmma"]:
+                raise RuntimeError(f"{pattern}: {rec['hgmma']} HGMMA and "
+                                   f"{rec['hmma']} HMMA instructions")
+            records[kernel].append(rec)
+    return records
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -428,6 +483,10 @@ def check_train_shape(layout, B, H, N, M, D, dtype, timed, q_scale=1.0):
                          # the library computes dq, dk and dv in one call
                          "library_ms": lib_fwd if name == "fwd_lse"
                          else lib_bwd}
+        if dtype == torch.bfloat16:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            rec["dq"]["instantiation"] = rec["dkv"]["instantiation"] = "wgmma"
+            rec["dkv"]["splits"] = fa.dkv_split_plan(B, H, N, M, D, sms)[0]
     log("kernels", f"train {json.dumps(rec)} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"a training kernel disagrees with its plain "
@@ -450,8 +509,11 @@ def phase_train_kernels():
     for layout in ("nhd", "bhnd"):
         # ragged query and key tiles, every padded width, both types
         for dtype in (torch.float32, torch.bfloat16):
+            # (2, 8, 1100, 77, 40): a dk/dv query split whose ranges differ
+            # in length (9 query tiles over 8 splits at D = 40)
             for B, H, N, M, D in ((2, 3, 100, 77, 40), (1, 2, 200, 300, 256),
-                                  (1, 2, 1100, 333, 40), (2, 3, 100, 77, 64)):
+                                  (1, 2, 1100, 333, 40), (2, 3, 100, 77, 64),
+                                  (2, 8, 1100, 77, 40)):
                 shapes.append(check_train_shape(layout, B, H, N, M, D, dtype,
                                                 timed=False))
     # peaked softmax: p and ds of unit scale through many tiles, and a delta
@@ -1311,7 +1373,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = phase_env()
-    phase_build()
+    bwd_kernels = phase_build()
     shapes = phase_kernels()
     train_shapes = phase_train_kernels()
     geglu_shapes = phase_geglu_kernels()
@@ -1352,6 +1414,9 @@ def main() -> int:
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"],
             "shape": {k: main_shape[k] for k in "BHNMD"},
+            # dq, dkv: the bf16 instantiation at each padded head dim
+            **({"per_head_dim": bwd_kernels[name]} if name in bwd_kernels
+               else {}),
             "shapes": [dict({k: s[k] for k in ("layout", "dtype", "q_scale",
                                                *"BHNMD")}, **s.get(name, {}))
                        for s in train_shapes]})

@@ -89,14 +89,25 @@ def test_lse_forward_on_card(dtype, packed):
         assert (lse - lse_ref).abs().max().item() <= LSE_TOL[dtype]
 
 
+# the 77-key training shapes, whose bf16 dk/dv splits each key tile's query
+# stream over several blocks, and one whose splits take query ranges of
+# different lengths
+SPLIT_SHAPES = [(2, 8, 4096, 77, 40), (2, 8, 1024, 77, 80),
+                (2, 8, 256, 77, 160), (2, 8, 1100, 77, 40)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain_on_card(dtype, packed):
     """dq, dk, dv of the kernels against the backward written out in plain
-    PyTorch, on the kernels' own o and lse."""
+    PyTorch, on the kernels' own o and lse; a second run gives the same
+    bits."""
     _need_card()
-    for B, H, N, M, D in BWD_SHAPES:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, H, N, M, D in BWD_SHAPES + SPLIT_SHAPES:
+        if (B, H, N, M, D) in SPLIT_SHAPES:
+            assert fa.dkv_split_plan(B, H, N, M, D, sms)[0] > 1
         q, k, v, do = _qkv(B, H, N, M, D, dtype, seed=1, packed=packed)
         heads = H if packed else None
         o, lse = fa.flash_attention_lse(q, k, v, heads)
@@ -105,6 +116,8 @@ def test_backward_kernels_match_plain_on_card(dtype, packed):
         after = fa.launch_counts()
         assert after["dq"] == before["dq"] + 1
         assert after["dkv"] == before["dkv"] + 1
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, heads)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
         to4 = (lambda x: fa._split(x, H)) if packed else (lambda x: x)
         ref = fa.flash_attention_bwd_plain(to4(q), to4(k), to4(v), to4(o),
                                            lse, to4(do))

@@ -12,6 +12,8 @@
 #   backward  dqscale the final scale of dq dropped;
 #             delta   delta = rowsum(dO * O) dropped from ds in the dq kernel;
 #             dvp     p^T taken 10 % too small in the dk/dv kernel;
+#             split   the first query split's partial sums left out of the
+#                     dk/dv reduction;
 #   geglu     erf     the exact (erf) GELU in place of the tanh form, in the
 #                     bf16 kernel only;
 #             residual  x dropped from x + GEGLU(LN(x));
@@ -19,7 +21,9 @@
 #                     64-value K tile instead of the whole row.
 # Each copy runs the bf16 check of chip_smoke.py at three shapes: the forward
 # check at the serving shapes, the training check (forward with logsumexp,
-# dq, dk/dv) at the train step's shapes with a peaked softmax, the GEGLU
+# dq, dk/dv) at the train step's shapes with a peaked softmax (for "split":
+# at the three 77-key training shapes, whose dk/dv splits the query stream
+# over 8, 8 and 4 blocks), the GEGLU
 # block check and the int8 check at the serving shapes of the 64^2, 32^2 and
 # 16^2 levels.  The unchanged copy must print no "CAUGHT", each broken copy
 # three; the script fails otherwise.  The repository itself is never
@@ -44,6 +48,13 @@ for a in [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80), (2, 8, 256, 256, 160)]
     except RuntimeError:
         print("CAUGHT", a)
 '
+check_split='import chip_smoke as c, torch
+for a in [(2, 8, 4096, 77, 40), (2, 8, 1024, 77, 80), (2, 8, 256, 77, 160)]:
+    try:
+        c.check_train_shape("nhd", *a, torch.bfloat16, False)
+    except RuntimeError:
+        print("CAUGHT", a)
+'
 check_geglu='import chip_smoke as c, torch
 for a in [(16384, 320), (4096, 640), (1024, 1280)]:
     try:
@@ -58,7 +69,7 @@ for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     except RuntimeError:
         print("CAUGHT", a)
 '
-cases="${*:-none scale stale dqscale delta dvp erf residual rowscale}"
+cases="${*:-none scale stale dqscale delta dvp split erf residual rowscale}"
 for mutation in $cases; do
   work="$(mktemp -d)"
   cp -r "$repo/." "$work"
@@ -67,9 +78,10 @@ for mutation in $cases; do
   case $mutation in
     scale) src=$fwd; sed -i 's/const float scale_log2 = p.scale \* kLog2e;/const float scale_log2 = p.scale * kLog2e * 0.9129f;/' "$work/$src" ;;
     stale) src=$fwd; sed -i 's/auto load_kv = \[&\](int t) {/auto load_kv = [\&](int t) { if (t == 3) return;/' "$work/$src" ;;
-    dqscale) sed -i 's/dq_acc\[j\]\[2 \* r\] \* p.scale/dq_acc[j][2 * r]/; s/dq_acc\[j\]\[2 \* r + 1\] \* p.scale/dq_acc[j][2 * r + 1]/' "$work/$src" ;;
-    delta) sed -i 's/s\[j\]\[e\] = pv \* (dp\[j\]\[e\] - dl\[e >> 1\]);/s[j][e] = pv * dp[j][e];/' "$work/$src" ;;
-    dvp) sed -i 's/sT\[j\]\[e\] = pv; /sT[j][e] = pv * 0.9f; /' "$work/$src" ;;
+    dqscale) sed -i 's/dq\[4 \* j + 2 \* r\] \* p.scale/dq[4 * j + 2 * r]/; s/dq\[4 \* j + 2 \* r + 1\] \* p.scale/dq[4 * j + 2 * r + 1]/' "$work/$src" ;;
+    delta) sed -i 's/sc\[4 \* j + e\] = pv \* (dp\[4 \* j + e\] - dl\[e >> 1\]);/sc[4 * j + e] = pv * dp[4 * j + e];/' "$work/$src" ;;
+    dvp) sed -i 's/sT\[4 \* j + e\] = pv; /sT[4 * j + e] = pv * 0.9f; /' "$work/$src" ;;
+    split) sed -i 's/for (int s = 0; s < splits; ++s) {/for (int s = 1; s < splits; ++s) {/' "$work/$src" ;;
     erf) src=$ffn; sed -i 's/y\[e\] = hv \* gelu_tanh(gv);/y[e] = hv * gv * normcdff(gv);/' "$work/$src" ;;
     residual) src=$ffn; sed -i 's/v = to_f32(static_cast<const T\*>(p.x)\[row \* p.x_s + col\]) + acc;/v = acc;/' "$work/$src" ;;
     rowscale) src=$i8; sed -i 's/for (int k = lane; k < K; k += 32) amax/for (int k = lane; k < min(K, 64); k += 32) amax/' "$work/$src" ;;
@@ -79,10 +91,11 @@ for mutation in $cases; do
     echo "the mutation did not apply"; exit 1
   fi
   case $mutation in
-    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_geglu" && python3 -c "$check_int8")" ;;
+    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_split" && python3 -c "$check_geglu" && python3 -c "$check_int8")" ;;
     scale|stale) out="$(cd "$work" && python3 -c "$check_fwd")" ;;
     erf|residual) out="$(cd "$work" && python3 -c "$check_geglu")" ;;
     rowscale) out="$(cd "$work" && python3 -c "$check_int8")" ;;
+    split) out="$(cd "$work" && python3 -c "$check_split")" ;;
     *) out="$(cd "$work" && python3 -c "$check_bwd")" ;;
   esac
   echo "$out"
