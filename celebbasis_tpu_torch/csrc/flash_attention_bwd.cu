@@ -76,8 +76,6 @@
 //        -Xcompiler -fPIC -o libflash_attention_bwd.so flash_attention_bwd.cu
 // Plain C interface at the bottom; no PyTorch headers.
 
-#include <cudaTypedefs.h>
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -93,10 +91,6 @@ constexpr int kThreads = 128;
 constexpr int kTurn = 1;
 
 constexpr float kRowAbsent = 1e30f;   // lse of a missing query row: p = 0
-
-struct Strides {
-  long long b, h, n;   // elements between batches, heads, rows
-};
 
 struct BwdParams {
   const void* q;
@@ -156,14 +150,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_delta(
 // bf16: TMA-fed wgmma kernels
 // ---------------------------------------------------------------------------
 
-// A 4-D tensor map of q, k, v or dO: coordinate 0 is the head dim, 1-3 the
-// head, row and batch dims ordered by stride; slot_* says which coordinate
-// each of them is.
-struct TileMap {
-  CUtensorMap map;
-  int slot_h, slot_n, slot_b;
-};
-
 struct Bf16Params {
   TileMap q, k, v, dout;
   BwdParams p;
@@ -172,32 +158,6 @@ struct Bf16Params {
   int splits;       // blocks over the query stream of one dk/dv key tile
   int panels;       // 16-column panels a box covers: ceil(D / 16)
 };
-
-// TMA loads of `panels` 16-column boxes of rows [row0, row0 + rows) of head
-// (b, h) into a panelled tile of `rows` rows
-__device__ __forceinline__ void load_panels(unsigned char* dst,
-                                            const TileMap& m, uint64_t* bar,
-                                            int rows, int row0, int h, int b,
-                                            int panels) {
-  auto coord = [&](int slot) {
-    return m.slot_h == slot ? h : (m.slot_n == slot ? row0 : b);
-  };
-  const int c1 = coord(1), c2 = coord(2), c3 = coord(3);
-  for (int pn = 0; pn < panels; ++pn)
-    tma_load_4d(dst + pn * rows * kPanelRowBytes, &m.map, bar, pn * kPanel,
-                c1, c2, c3);
-}
-
-// zero panels [panels, DP / 16) of a panelled tile: head-dim padding that no
-// box covers (D <= DP - 16)
-template <int DP>
-__device__ __forceinline__ void zero_padding(unsigned char* tile, int rows,
-                                             int panels, int tid, int nt) {
-  const int from = panels * rows * kPanelRowBytes;
-  const int to = DP / kPanel * rows * kPanelRowBytes;
-  for (int i = from + tid * 16; i < to; i += nt * 16)
-    *reinterpret_cast<uint4*>(tile + i) = make_uint4(0, 0, 0, 0);
-}
 
 // -- dq: a block owns BM query rows and streams K/V tiles ---------------------
 
@@ -624,64 +584,6 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_reduce(
 
 // -- host side ----------------------------------------------------------------
 
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }();
-  return fn;
-}
-
-// the map of a (B, H, rows, D) bf16 tensor of strides `s`, boxes of 16
-// columns by `box_rows` rows; false if the driver refuses it
-bool make_map(TileMap& m, const void* base, const Strides& s, int B, int H,
-              int rows, int D, int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (encode == nullptr) return false;
-  struct Dim {
-    long long stride;   // bytes
-    int extent, which;  // which: 0 head, 1 row, 2 batch
-  } d[3] = {{s.h * 2, H, 0}, {s.n * 2, rows, 1}, {s.b * 2, B, 2}};
-  // a dim of extent 1 is only ever at coordinate 0: any legal stride does
-  long long widest = 16;
-  for (const Dim& x : d)
-    if (x.extent > 1 && x.stride > widest) widest = x.stride;
-  for (Dim& x : d)
-    if (x.extent == 1) x.stride = widest;
-  // order by stride (stable), innermost first
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
-      const Dim t = d[j];
-      d[j] = d[j - 1];
-      d[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = (cuuint64_t)d[i].extent;
-    strides[i] = (cuuint64_t)d[i].stride;
-    if (d[i].which == 0) m.slot_h = i + 1;
-    if (d[i].which == 1) {
-      m.slot_n = i + 1;
-      box[i + 1] = (cuuint32_t)box_rows;
-    }
-    if (d[i].which == 2) m.slot_b = i + 1;
-  }
-  return encode(&m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kMapRefused = -2;
-
 // q and dO maps with boxes of `q_rows` rows, k and v with `k_rows`
 int make_maps(Bf16Params& P, int q_rows, int k_rows) {
   const BwdParams& p = P.p;
@@ -967,15 +869,6 @@ cudaError_t launch_dkv_f32(const BwdParams& p, cudaStream_t stream) {
   dim3 grid((p.M + 15) / 16, p.B * p.H);
   flash_bwd_dkv_f32<NREG><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-bool bad_dims(int B, int H, int N, int M, int D) {
-  return D <= 0 || D > 256 || D % 8 != 0 || B <= 0 || H <= 0 || N <= 0 ||
-         M <= 0 || (long long)B * H > 65535;
-}
-
-Strides strides_at(const long long* s, int i) {
-  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
 }  // namespace

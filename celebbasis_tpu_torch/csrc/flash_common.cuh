@@ -1,6 +1,6 @@
-// Device helpers shared by the flash-attention sources (forward and
-// backward): ldmatrix / mma.sync wrappers, cp.async tile loads, and the two
-// warp-level tile products every kernel is built from.
+// Device helpers shared by the hand-written kernels: the flash-attention
+// constants and exponential, the bf16 packing of an accumulator, and the
+// ldmatrix / mma.sync / cp.async wrappers of the GEGLU and int8 kernels.
 
 #pragma once
 
@@ -68,78 +68,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Queues the copy of ROWS x D bf16 values (16 bytes at a time) into a
-// ROWS x (DP + 8) shared tile; rows at or beyond `rows_total` and columns in
-// [D, DP) are zero-filled.
-template <int ROWS, int DP, int NT>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long row_stride, int row0,
-                                               int rows_total, int D,
-                                               int tid) {
-  constexpr int LD = DP + 8;
-  constexpr int CH = DP / 8;
-  for (int i = tid; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = i - r * CH;
-    const int gr = row0 + r;
-    const bool ok = gr < rows_total && c * 8 < D;
-    const __nv_bfloat16* from =
-        ok ? src + (long long)gr * row_stride + c * 8 : src;
-    cp_async16(dst + r * LD + c * 8, from, ok);
-  }
-}
-
-// acc (16 x NB, fp32, one warp) += A B^T over the padded head dim.  `sA`
-// points at the warp's 16 rows of a shared tile with row stride DP + 8, `sB`
-// at an NB-row tile of the same stride.
-template <int DP, int NB>
-__device__ __forceinline__ void warp_mma_abt(float (&acc)[NB / 8][4],
-                                             const __nv_bfloat16* sA,
-                                             const __nv_bfloat16* sB,
-                                             int lane) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, sA + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int nj = 0; nj < NB / 16; ++nj) {
-      uint32_t b[4];
-      ldmatrix_x4(b, sB + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * nj], a, b[0], b[1]);
-      mma_bf16(acc[2 * nj + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x DC, fp32, one warp) += P B[:, c0 : c0 + DC], where P (16 x NB)
-// lies in the accumulator layout of warp_mma_abt and is rounded to bf16 as
-// the MMA's A operand, and `sB` is an NB-row shared tile of row stride LD.
-template <int LD, int NB, int DC>
-__device__ __forceinline__ void warp_mma_pb(float (&acc)[DC / 8][4],
-                                            const float (&pm)[NB / 8][4],
-                                            const __nv_bfloat16* sB, int c0,
-                                            int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NB / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(pm[2 * kk][0], pm[2 * kk][1]);
-    a[1] = pack_bf16(pm[2 * kk][2], pm[2 * kk][3]);
-    a[2] = pack_bf16(pm[2 * kk + 1][0], pm[2 * kk + 1][1]);
-    a[3] = pack_bf16(pm[2 * kk + 1][2], pm[2 * kk + 1][3]);
-#pragma unroll
-    for (int dj = 0; dj < DC / 16; ++dj) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(
-          b, sB + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 +
-                 dj * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * dj], a, b[0], b[1]);
-      mma_bf16(acc[2 * dj + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 }  // namespace flash

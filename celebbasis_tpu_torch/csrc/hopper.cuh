@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward: mbarriers,
-// TMA tile loads, wgmma descriptors for the 32-byte-swizzled shared layout,
-// and the wgmma products (m64nNk16, bf16 operands, fp32 accumulators).
+// Hopper (sm_90a) building blocks of the flash-attention kernels (forward
+// and backward): mbarriers, TMA tile loads from 4-D tensor maps (and the host
+// code that encodes the maps), wgmma descriptors for the 32-byte-swizzled
+// shared layout, and the wgmma products (m64nNk16, bf16 operands, fp32
+// accumulators).
 //
 // The shared layout.  A tile of ROWS x DP bf16 values lies in DP / 16
 // "panels" of ROWS x 16 values (32 bytes a row); inside a panel, the 16-byte
@@ -9,9 +11,9 @@
 // same bytes serve two wgmma views:
 //   * K-major (the head dim is the reduction, as in q k^T): one 16-deep step
 //     is one panel; 8-row groups lie 256 bytes apart (SBO);
-//   * MN-major (the head dim is the product's N, as in ds k): N runs across
-//     the panels, LBO = the panel's bytes apart; one 16-deep step is 16 rows,
-//     512 bytes; 8-row groups lie 256 bytes apart (SBO).
+//   * MN-major (the head dim is the product's N, as in p v or ds k): N runs
+//     across the panels, LBO = the panel's bytes apart; one 16-deep step is
+//     16 rows, 512 bytes; 8-row groups lie 256 bytes apart (SBO).
 // Register fragments are those of mma.sync m16n8k16, one warp per 16 rows of
 // the warpgroup's 64: accumulator element 4j + e of an m64nN product is row
 // 16 w + lane / 4 + 8 (e >> 1), column 8 j + 2 (lane % 4) + (e & 1).
@@ -19,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "flash_common.cuh"
 
@@ -94,6 +97,127 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// elements between batches, heads and rows of a (B, H, rows, D) view; the
+// head dim is contiguous
+struct Strides {
+  long long b, h, n;
+};
+
+// the Strides of tensor i in a host array of (batch, head, row) triples
+inline Strides strides_at(const long long* s, int i) {
+  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
+
+// sizes the flash-attention kernels do not take: a head dim that is not a
+// multiple of 8 up to 256, an empty dim, or more (batch, head) pairs than a
+// grid dimension holds
+inline bool bad_dims(int B, int H, int N, int M, int D) {
+  return D <= 0 || D > 256 || D % 8 != 0 || B <= 0 || H <= 0 || N <= 0 ||
+         M <= 0 || (long long)B * H > 65535;
+}
+
+// A 4-D tensor map of a bf16 (B, H, rows, D) view: coordinate 0 is the head
+// dim, 1-3 the head, row and batch dims ordered by stride; slot_* says which
+// coordinate each of them is.
+struct TileMap {
+  CUtensorMap map;
+  int slot_h, slot_n, slot_b;
+};
+
+// TMA loads of `panels` 16-column boxes of rows [row0, row0 + rows) of head
+// (b, h) into a panelled tile of `rows` rows, completing on `bar`
+__device__ __forceinline__ void load_panels(unsigned char* dst,
+                                            const TileMap& m, uint64_t* bar,
+                                            int rows, int row0, int h, int b,
+                                            int panels) {
+  auto coord = [&](int slot) {
+    return m.slot_h == slot ? h : (m.slot_n == slot ? row0 : b);
+  };
+  const int c1 = coord(1), c2 = coord(2), c3 = coord(3);
+  for (int pn = 0; pn < panels; ++pn)
+    tma_load_4d(dst + pn * rows * kPanelRowBytes, &m.map, bar, pn * kPanel,
+                c1, c2, c3);
+}
+
+// zero panels [panels, DP / 16) of a panelled tile: head-dim padding that no
+// box covers (D <= DP - 16)
+template <int DP>
+__device__ __forceinline__ void zero_padding(unsigned char* tile, int rows,
+                                             int panels, int tid, int nt) {
+  const int from = panels * rows * kPanelRowBytes;
+  const int to = DP / kPanel * rows * kPanelRowBytes;
+  for (int i = from + tid * 16; i < to; i += nt * 16)
+    *reinterpret_cast<uint4*>(tile + i) = make_uint4(0, 0, 0, 0);
+}
+
+// the driver's cuTensorMapEncodeTiled, taken through the runtime (no -lcuda)
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }();
+  return fn;
+}
+
+// the map of a (B, H, rows, D) bf16 tensor of strides `s`, boxes of 16
+// columns by `box_rows` rows; a box reads zeros past D and past the last
+// row.  False if the driver refuses it.
+inline bool make_map(TileMap& m, const void* base, const Strides& s, int B,
+                     int H, int rows, int D, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  struct Dim {
+    long long stride;   // bytes
+    int extent, which;  // which: 0 head, 1 row, 2 batch
+  } d[3] = {{s.h * 2, H, 0}, {s.n * 2, rows, 1}, {s.b * 2, B, 2}};
+  // a dim of extent 1 is only ever at coordinate 0: any legal stride does
+  long long widest = 16;
+  for (const Dim& x : d)
+    if (x.extent > 1 && x.stride > widest) widest = x.stride;
+  for (Dim& x : d)
+    if (x.extent == 1) x.stride = widest;
+  // order by stride (stable), innermost first
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (cuuint64_t)d[i].extent;
+    strides[i] = (cuuint64_t)d[i].stride;
+    if (d[i].which == 0) m.slot_h = i + 1;
+    if (d[i].which == 1) {
+      m.slot_n = i + 1;
+      box[i + 1] = (cuuint32_t)box_rows;
+    }
+    if (d[i].which == 2) m.slot_b = i + 1;
+  }
+  return encode(&m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// what a C entry returns when the driver refused a tensor map
+constexpr int kMapRefused = -2;
+
+// fetches a tensor map (a __grid_constant__ parameter) ahead of its first use
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // -- wgmma --------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -115,6 +239,14 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
 // hands registers between warpgroups (all four warps of one execute it)

@@ -127,15 +127,22 @@ def ptxas_report(name: str) -> Dict[str, int]:
 def ptxas_kernels(name: str) -> Dict[str, Dict[str, int]]:
     """Per kernel (mangled name) of ``csrc/<name>.cu``, what ``ptxas -v``
     said when this process built it: registers a thread, static shared
-    bytes, and bytes of spill stores plus loads.  Empty if the library was
-    built by an earlier process."""
+    bytes, bytes of spill stores plus loads, and ``wgmma_serialized`` (1 if
+    ptxas made each wgmma wait for the one before it, its "Potential
+    Performance Loss" note).  Empty if the library was built by an earlier
+    process."""
     out: Dict[str, Dict[str, int]] = {}
     kernel = None
-    for line in _ptxas.get(name, "").splitlines():
+    text = _ptxas.get(name, "")
+    serialized = set(re.findall(
+        r"wgmma\.mma_async instructions are serialized.*?function '(\w+)'",
+        text))
+    for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             kernel = m.group(1)
-            out[kernel] = {"registers": 0, "smem_bytes": 0, "spill_bytes": 0}
+            out[kernel] = {"registers": 0, "smem_bytes": 0, "spill_bytes": 0,
+                           "wgmma_serialized": int(kernel in serialized)}
             continue
         if kernel is None:
             continue

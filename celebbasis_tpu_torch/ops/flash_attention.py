@@ -10,7 +10,10 @@ Which kernel a call launches on CUDA tensors:
 
 * nothing requires grad (or grad mode is off): the inference forward of
   ``csrc/flash_attention_fwd.cu`` (counters ``flash_attention_nhd`` /
-  ``flash_attention``);
+  ``flash_attention``).  In bf16 it is a TMA-fed ``wgmma`` kernel with a
+  producer warpgroup and two or three consumer warpgroups, on a persistent
+  grid of one block per SM over the query tiles (the library decides the
+  tiles and the grid; ``flash_attention_fwd_plan`` reports them);
 * q, k or v requires grad: one ``torch.autograd.Function`` whose forward is
   the logsumexp-saving forward of the same source (counter ``fwd_lse``) and
   whose backward launches the kernels of ``csrc/flash_attention_bwd.cu``:

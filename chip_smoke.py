@@ -11,15 +11,17 @@ hand-written kernel against its plain PyTorch version.  Phases:
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
 2. ``build``   builds the kernel libraries from ``celebbasis_tpu_torch/csrc``,
                one ``nvcc`` per source, all started together, and records
-               the bf16 backward's instantiation at each padded head dim
-               (tiles, registers, spills, HGMMA in the SASS);
+               the bf16 forward's and backward's instantiations at each
+               padded head dim (tiles, registers, spills, HGMMA and HMMA in
+               the SASS);
 3. ``kernels`` the inference forward (both entry points) at the serving
                path's shapes, and the training forward (with logsumexp), dq
                and dk/dv kernels at the train step's shapes, against their
                plain versions (the error limit scales with the values
                compared), with device times, bounds and a library yardstick
                (``F.scaled_dot_product_attention`` and autograd through it,
-               called here and nowhere in the port); the two GEGLU kernels
+               called here and nowhere in the port), and the forward's grid
+               (blocks and waves) at each timed shape; the two GEGLU kernels
                (FF sub-block with and without LN and residual) at the
                serving and training shapes in bf16 and fp32, and
                ``int8_matmul`` at the UNet's projection shapes, bit for bit;
@@ -109,9 +111,9 @@ TRAIN_KERNELS = {
     "dq": (BWD_SOURCE, "celebbasis_tpu/ops/flash_attention.py:282", 6),
     "dkv": (BWD_SOURCE, "celebbasis_tpu/ops/flash_attention.py:299", 8),
 }
-# the bf16 backward's padded head dims; at each, its dq and dk/dv kernels are
-# wgmma instantiations
-BWD_HEAD_DIMS = (48, 80, 160, 256)
+# the bf16 kernels' padded head dims; at each, the forward's (inference and
+# LSE) and the backward's dq and dk/dv kernels are wgmma instantiations
+HEAD_DIMS_PADDED = (48, 80, 160, 256)
 # fp32 gradients and lse differ from the plain version by summation order:
 # 1e-4 of the largest entry (sums over up to 4096 terms); bf16 outputs are
 # held to fa.bf16_error_ratio <= 1 and bf16 gradients to
@@ -189,7 +191,77 @@ def phase_build():
     for module in (fa, geglu, quant):
         for entry in module.ENTRIES.values():
             entry.bind()    # load, so a bad library fails here
-    return bwd_instantiations()
+    return {"fwd": fwd_instantiations(), **bwd_instantiations()}
+
+
+def _sass_and_ptxas(library):
+    """(HGMMA counts, HMMA counts, ptxas records) per kernel of a library."""
+    sass = {op: cuda_build.sass_counts(library, op)
+            for op in ("HGMMA", "HMMA")}
+    return sass["HGMMA"], sass["HMMA"], cuda_build.ptxas_kernels(library)
+
+
+def fwd_instantiations():
+    """What the bf16 forward kernels are at each padded head dim: for the
+    main key tile and the short one, the head dim's consumer warpgroups and
+    one, the inference and the LSE instantiation -- tiles, threads and
+    shared bytes (as the library reports them), registers at launch (blocks
+    of several warpgroups raise their consumers' to `consumer_registers`)
+    and spills (ptxas), and the HGMMA (wgmma) and HMMA (mma.sync)
+    instructions in the built library's SASS.  Fails unless every one holds
+    HGMMA and no HMMA, spills nothing and keeps its wgmma asynchronous (no
+    ptxas note that it serialised them), and no kernel of the library holds
+    HMMA.  Which of them a launch takes, and on how many blocks, the library
+    decides (``fwd_grid`` reads it)."""
+    lib = cuda_build.load("flash_attention_fwd")
+    fn = lib.flash_attention_fwd_config
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+    hgmma, hmma, ptxas = _sass_and_ptxas("flash_attention_fwd")
+    if any(hmma.values()):
+        raise RuntimeError(f"mma.sync (HMMA) in the forward library: "
+                           f"{ {k: v for k, v in hmma.items() if v} }")
+    records, seen = [], set()
+    for dp in HEAD_DIMS_PADDED:
+        cfg = (ctypes.c_int * 14)()
+        if fn(dp, cfg) != 0 or cfg[0] != dp:
+            raise RuntimeError(f"flash_attention_fwd_config({dp}) failed")
+        keys, short, wgs = cfg[1], cfg[2] or None, cfg[4]
+        for wg, (rows, threads, smem, smem_short) in ((wgs, cfg[6:10]),
+                                                      (1, cfg[10:14])):
+            for bn, nbytes in ((keys, smem), (short, smem_short)):
+                if bn is None:
+                    continue
+                for lse in (0, 1):
+                    pattern = f"flash_fwd_wgmmaILi{dp}ELi{bn}ELi{wg}ELb{lse}E"
+                    names = [n for n in hgmma if pattern in n]
+                    if len(names) != 1:
+                        raise RuntimeError(f"no single kernel {pattern} in "
+                                           f"the library: {names}")
+                    seen.add(names[0])
+                    rec = {"head_dim_padded": dp, "keys_per_tile": bn,
+                           "query_rows": rows, "consumer_warpgroups": wg,
+                           "lse": bool(lse), "threads": threads,
+                           "smem_bytes": nbytes, "stages": cfg[3],
+                           "consumer_registers": cfg[5] if wg > 1 else 0,
+                           "hgmma": hgmma[names[0]], "hmma": hmma[names[0]],
+                           "ptxas": ptxas.get(names[0],
+                                              "not built by this process")}
+                    log("build", f"fwd {json.dumps(rec)}")
+                    built = rec["ptxas"] if isinstance(rec["ptxas"],
+                                                       dict) else {}
+                    spills = built.get("spill_bytes", 0)
+                    serial = built.get("wgmma_serialized", 0)
+                    if not rec["hgmma"] or rec["hmma"] or spills or serial:
+                        raise RuntimeError(
+                            f"{pattern}: {rec['hgmma']} HGMMA, {rec['hmma']} "
+                            f"HMMA instructions, {spills} spilled bytes, "
+                            f"wgmma serialised: {bool(serial)}")
+                    records.append(rec)
+    stray = [n for n in hgmma if "flash_fwd_wgmma" in n and n not in seen]
+    if stray:
+        raise RuntimeError(f"forward kernels no configuration names: {stray}")
+    return records
 
 
 def bwd_instantiations():
@@ -204,11 +276,9 @@ def bwd_instantiations():
     fn = lib.flash_attention_bwd_config
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int,
                                              ctypes.POINTER(ctypes.c_int)]
-    ptxas = cuda_build.ptxas_kernels("flash_attention_bwd")
-    sass = {op: cuda_build.sass_counts("flash_attention_bwd", op)
-            for op in ("HGMMA", "HMMA")}
+    hgmma, hmma, ptxas = _sass_and_ptxas("flash_attention_bwd")
     records = {"dq": [], "dkv": []}
-    for dp in BWD_HEAD_DIMS:
+    for dp in HEAD_DIMS_PADDED:
         cfg = (ctypes.c_int * 11)()
         if fn(dp, cfg) != 0 or cfg[0] != dp:
             raise RuntimeError(f"flash_attention_bwd_config({dp}) failed")
@@ -223,13 +293,13 @@ def bwd_instantiations():
                                f"kernel's are {(cfg[6], cfg[7])}")
         for kernel in ("dq", "dkv"):
             pattern = f"flash_bwd_{kernel}_wgmmaILi{dp}E"
-            names = [n for n in sass["HGMMA"] if pattern in n]
+            names = [n for n in hgmma if pattern in n]
             if len(names) != 1:
                 raise RuntimeError(f"no single kernel {pattern} in the "
                                    f"library: {names}")
             rec = {"head_dim_padded": dp, **tiles[kernel],
-                   "hgmma": sass["HGMMA"][names[0]],
-                   "hmma": sass["HMMA"][names[0]],
+                   "hgmma": hgmma[names[0]],
+                   "hmma": hmma[names[0]],
                    "ptxas": ptxas.get(names[0], "not built by this process")}
             rec["instantiation"] = "wgmma" if rec["hgmma"] else "no wgmma"
             log("build", f"bwd {kernel} {json.dumps(rec)}")
@@ -329,11 +399,31 @@ def check_shape(entry, B, H, N, M, D, dtype, timed, q_scale=1.0):
         (rec["plain_ms"], rec["plain_ms_min"]) = time_ms(plain, 3)
         (rec["library_ms"], rec["library_ms_min"]) = time_ms(sdpa, iters)
         rec.update(bound_ms=bms, bound_by=bby)
+        if dtype == torch.bfloat16:
+            rec["grid"] = fwd_grid(B, H, N, M, D)
     log("kernels", f"{entry} {json.dumps(rec)} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{entry} disagrees with its plain version at "
                            f"{rec}")
     return rec
+
+
+def fwd_grid(B, H, N, M, D):
+    """The bf16 forward's grid at a shape, as the library's launch picks it
+    (``flash_attention_fwd_plan``, the function the launch itself calls):
+    query rows a block, keys a tile, query tiles of 64 rows, blocks, and
+    waves (the blocks' worth of query tiles over the SMs)."""
+    fn = cuda_build.load("flash_attention_fwd").flash_attention_fwd_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 7)()
+    if fn(B, H, N, M, D, out) != 0:
+        raise RuntimeError(f"flash_attention_fwd_plan{(B, H, N, M, D)} "
+                           f"failed")
+    _, keys, wgs, tiles, _, blocks, sms = out
+    return {"query_rows": 64 * wgs, "keys_per_tile": keys,
+            "query_tiles": tiles, "blocks": blocks,
+            "waves": tiles / wgs / sms}
 
 
 def phase_kernels():
@@ -351,9 +441,12 @@ def phase_kernels():
                                   timed=False))
         shapes.append(check_shape(entry, 1, 2, 200, 300, 256, torch.float32,
                                   timed=False))
-        # ragged tiles on the long-sequence (128-row) path
-        shapes.append(check_shape(entry, 1, 2, 1100, 333, 40, torch.bfloat16,
-                                  timed=False))
+        # ragged query rows and a ragged last key tile of 128: on blocks of
+        # one consumer warpgroup (2 heads fill few SMs), of three (D = 40)
+        # and of two (D = 80)
+        for B, H, D in ((1, 2, 40), (4, 8, 40), (4, 8, 80)):
+            shapes.append(check_shape(entry, B, H, 1100, 333, D,
+                                      torch.bfloat16, timed=False))
         # head dims that run at a wider padded width (64 in 80), and the limit
         shapes.append(check_shape(entry, 2, 3, 100, 77, 64, torch.bfloat16,
                                   timed=False))
@@ -485,6 +578,7 @@ def check_train_shape(layout, B, H, N, M, D, dtype, timed, q_scale=1.0):
                          else lib_bwd}
         if dtype == torch.bfloat16:
             sms = torch.cuda.get_device_properties(0).multi_processor_count
+            rec["fwd_lse"]["grid"] = fwd_grid(B, H, N, M, D)
             rec["dq"]["instantiation"] = rec["dkv"]["instantiation"] = "wgmma"
             rec["dkv"]["splits"] = fa.dkv_split_plan(B, H, N, M, D, sms)[0]
     log("kernels", f"train {json.dumps(rec)} {'ok' if ok else 'FAIL'}")
@@ -1373,7 +1467,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = phase_env()
-    bwd_kernels = phase_build()
+    instantiations = phase_build()
     shapes = phase_kernels()
     train_shapes = phase_train_kernels()
     geglu_shapes = phase_geglu_kernels()
@@ -1397,6 +1491,9 @@ def main() -> int:
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
             "shape": {k: main_shape[k] for k in "BHNMD"},
+            # the bf16 inference instantiations at each padded head dim
+            "per_head_dim": [r for r in instantiations["fwd"]
+                             if not r["lse"]],
             "shapes": shapes[entry]})
     main_shape = train_shapes[0]     # B = 2, N = M = 4096, D = 40, bf16, packed
     outputs = {"fwd_lse": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
@@ -1414,9 +1511,10 @@ def main() -> int:
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"],
             "shape": {k: main_shape[k] for k in "BHNMD"},
-            # dq, dkv: the bf16 instantiation at each padded head dim
-            **({"per_head_dim": bwd_kernels[name]} if name in bwd_kernels
-               else {}),
+            # the bf16 instantiations at each padded head dim (fwd_lse: the
+            # LSE ones of the forward's list)
+            "per_head_dim": instantiations[name] if name != "fwd_lse" else
+            [r for r in instantiations["fwd"] if r["lse"]],
             "shapes": [dict({k: s[k] for k in ("layout", "dtype", "q_scale",
                                                *"BHNMD")}, **s.get(name, {}))
                        for s in train_shapes]})

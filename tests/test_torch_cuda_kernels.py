@@ -46,21 +46,30 @@ def test_kernel_matches_plain_on_card():
     """Needs a CUDA device and nvcc: builds the kernel and holds it against
     the plain version (chip_smoke.py does the same at the serving shapes)."""
     _need_card()
-    cases = ((torch.float32, 100, 77), (torch.bfloat16, 100, 77),
-             (torch.bfloat16, 1100, 77),   # 64-row and 128-row tiles
-             (torch.bfloat16, 1100, 1000))  # many K/V tiles, flat softmax
-    for dtype, N, M in cases:
-        q, k, v, _ = _qkv(2, 3, N, M, 40, dtype)
+    # (dtype, B, H, N, M, D)
+    cases = ((torch.float32, 2, 3, 100, 77, 40),
+             (torch.bfloat16, 2, 3, 100, 77, 40),
+             (torch.bfloat16, 2, 3, 1100, 77, 40),   # ragged query tiles
+             (torch.bfloat16, 2, 3, 1100, 1000, 40),  # many K/V tiles
+             (torch.bfloat16, 1, 2, 1100, 333, 40),  # ragged both ways
+             # ragged both ways on blocks of three (D = 40) and two (D = 80)
+             # consumer warpgroups, the last 128-key tile part-filled
+             (torch.bfloat16, 4, 8, 1100, 333, 40),
+             (torch.bfloat16, 4, 8, 1100, 333, 80),
+             (torch.bfloat16, 1, 2, 200, 300, 256))  # the widest head dim
+    for dtype, B, H, N, M, D in cases:
+        q, k, v, _ = _qkv(B, H, N, M, D, dtype)
         before = fa.launch_count("flash_attention_nhd")
-        out = fa.flash_attention_nhd(q, k, v, 3)
+        out = fa.flash_attention_nhd(q, k, v, H)
         assert fa.launch_count("flash_attention_nhd") == before + 1
-        ref = fa.flash_attention_nhd_plain(q, k, v, 3)
+        ref = fa.flash_attention_nhd_plain(q, k, v, H)
         assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
         if dtype == torch.bfloat16:
             assert fa.bf16_error_ratio(out, ref) <= 1.0
 
 
-# (B, H, N, M, D): ragged tiles, M = 77, every padded width, many tiles
+# (B, H, N, M, D): ragged tiles (1100 x 333 both ways), M = 77, every
+# padded width (200 x 300 at the widest, 256), many tiles
 BWD_SHAPES = [(2, 3, 100, 77, 40), (1, 2, 200, 300, 256),
               (1, 2, 1100, 333, 40), (2, 2, 256, 256, 160),
               (2, 3, 130, 77, 80), (1, 2, 64, 64, 64)]

@@ -7,8 +7,11 @@
 # when none is named): unchanged ("none"), and with one kernel broken:
 #   forward   scale   the softmax scale taken for the padded head dim (48)
 #                     instead of the real one (40);
-#             stale   one K/V tile's copy skipped, so that its shared-memory
-#                     stage is stale;
+#             stale   the fourth K/V tile of every query tile's stream not
+#                     loaded (its stage's full barrier arrived at without
+#                     the TMA load), so that the stage is stale;
+#             rescale the running output's rescale by the new row max
+#                     dropped in consumer warpgroup 0;
 #   backward  dqscale the final scale of dq dropped;
 #             delta   delta = rowsum(dO * O) dropped from ds in the dq kernel;
 #             dvp     p^T taken 10 % too small in the dk/dv kernel;
@@ -69,7 +72,7 @@ for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     except RuntimeError:
         print("CAUGHT", a)
 '
-cases="${*:-none scale stale dqscale delta dvp split erf residual rowscale}"
+cases="${*:-none scale stale rescale dqscale delta dvp split erf residual rowscale}"
 for mutation in $cases; do
   work="$(mktemp -d)"
   cp -r "$repo/." "$work"
@@ -77,7 +80,8 @@ for mutation in $cases; do
   src=$bwd
   case $mutation in
     scale) src=$fwd; sed -i 's/const float scale_log2 = p.scale \* kLog2e;/const float scale_log2 = p.scale * kLog2e * 0.9129f;/' "$work/$src" ;;
-    stale) src=$fwd; sed -i 's/auto load_kv = \[&\](int t) {/auto load_kv = [\&](int t) { if (t == 3) return;/' "$work/$src" ;;
+    stale) src=$fwd; sed -i 's/mbar_arrive_tx(&full\[s\], 2 \* BN \* kPanelRowBytes \* P.panels);/if (t == 3) { mbar_arrive(\&full[s]); continue; } mbar_arrive_tx(\&full[s], 2 * BN * kPanelRowBytes * P.panels);/' "$work/$src" ;;
+    rescale) src=$fwd; sed -i 's/for (int i = 0; i < DP \/ 2; ++i) o\[i\] \*= alpha\[(i >> 1) \& 1\];/if (wg != 0) for (int i = 0; i < DP \/ 2; ++i) o[i] *= alpha[(i >> 1) \& 1];/' "$work/$src" ;;
     dqscale) sed -i 's/dq\[4 \* j + 2 \* r\] \* p.scale/dq[4 * j + 2 * r]/; s/dq\[4 \* j + 2 \* r + 1\] \* p.scale/dq[4 * j + 2 * r + 1]/' "$work/$src" ;;
     delta) sed -i 's/sc\[4 \* j + e\] = pv \* (dp\[4 \* j + e\] - dl\[e >> 1\]);/sc[4 * j + e] = pv * dp[4 * j + e];/' "$work/$src" ;;
     dvp) sed -i 's/sT\[4 \* j + e\] = pv; /sT[4 * j + e] = pv * 0.9f; /' "$work/$src" ;;
@@ -92,7 +96,7 @@ for mutation in $cases; do
   fi
   case $mutation in
     none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_split" && python3 -c "$check_geglu" && python3 -c "$check_int8")" ;;
-    scale|stale) out="$(cd "$work" && python3 -c "$check_fwd")" ;;
+    scale|stale|rescale) out="$(cd "$work" && python3 -c "$check_fwd")" ;;
     erf|residual) out="$(cd "$work" && python3 -c "$check_geglu")" ;;
     rowscale) out="$(cd "$work" && python3 -c "$check_int8")" ;;
     split) out="$(cd "$work" && python3 -c "$check_split")" ;;
