@@ -1,6 +1,6 @@
 // Device helpers shared by the hand-written kernels: the flash-attention
 // constants and exponential, the bf16 packing of an accumulator, and the
-// ldmatrix / mma.sync / cp.async wrappers of the GEGLU and int8 kernels.
+// ldmatrix / mma.sync / cp.async wrappers of the int8 kernel.
 
 #pragma once
 

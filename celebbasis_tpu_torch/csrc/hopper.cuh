@@ -1,8 +1,11 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels (forward
-// and backward): mbarriers, TMA tile loads from 4-D tensor maps (and the host
-// code that encodes the maps), wgmma descriptors for the 32-byte-swizzled
-// shared layout, and the wgmma products (m64nNk16, bf16 operands, fp32
-// accumulators).
+// Hopper (sm_90a) building blocks of the hand-written kernels (flash
+// attention forward and backward, fused GEGLU): mbarriers, TMA tile loads
+// from 4-D tensor maps (and the host code that encodes the maps), wgmma
+// descriptors for the 32-byte-swizzled shared layout, the wgmma products
+// (m64nNk16, bf16 operands, fp32 accumulators), and the thread-block-cluster
+// operations (distributed shared memory, remote mbarrier arrivals, the
+// cluster barrier).  No mma.sync: the helpers of the older kernels are in
+// flash_common.cuh.
 //
 // The shared layout.  A tile of ROWS x DP bf16 values lies in DP / 16
 // "panels" of ROWS x 16 values (32 bytes a row); inside a panel, the 16-byte
@@ -21,9 +24,10 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <cudaTypedefs.h>
-
-#include "flash_common.cuh"
+#include <stdint.h>
 
 namespace hopper {
 
@@ -32,6 +36,12 @@ constexpr int kPanelRowBytes = 32;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two fp32 values rounded to bf16, as the 32 bits of a register fragment
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 // byte offset of (row, col) in a panelled tile of `rows` rows
@@ -97,6 +107,43 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of global memory into shared memory,
+// completing on `bar` (16-byte aligned addresses)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory into another
+// block's (dst and bar: shared::cluster addresses, cluster_addr),
+// completing on that block's barrier
+__device__ __forceinline__ void bulk_copy_peer(uint32_t dst, const void* src,
+                                               uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// tma_load_4d, written into the shared memory of every block of the
+// cluster in `mask` (bit r: rank r), at this block's offsets, each completing
+// on its own barrier at this block's offset of `bar`
+__device__ __forceinline__ void tma_load_4d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+    int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
 // elements between batches, heads and rows of a (B, H, rows, D) view; the
 // head dim is contiguous
 struct Strides {
@@ -139,6 +186,20 @@ __device__ __forceinline__ void load_panels(unsigned char* dst,
                 c1, c2, c3);
 }
 
+// one box of the map (its columns from col0, its rows from row0 of head
+// (b, h)) into the shared memory of every block in `mask`
+__device__ __forceinline__ void load_box_multicast(unsigned char* dst,
+                                                   const TileMap& m,
+                                                   uint64_t* bar, int col0,
+                                                   int row0, int h, int b,
+                                                   uint16_t mask) {
+  auto coord = [&](int slot) {
+    return m.slot_h == slot ? h : (m.slot_n == slot ? row0 : b);
+  };
+  tma_load_4d_multicast(dst, &m.map, bar, col0, coord(1), coord(2), coord(3),
+                        mask);
+}
+
 // zero panels [panels, DP / 16) of a panelled tile: head-dim padding that no
 // box covers (D <= DP - 16)
 template <int DP>
@@ -164,11 +225,14 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// the map of a (B, H, rows, D) bf16 tensor of strides `s`, boxes of 16
-// columns by `box_rows` rows; a box reads zeros past D and past the last
-// row.  False if the driver refuses it.
+// the map of a (B, H, rows, D) bf16 tensor of strides `s`, boxes of
+// `box_cols` columns (16 under the 32-byte swizzle, 64 under the 128-byte
+// one) by `box_rows` rows; a box reads zeros past D and past the last row.
+// False if the driver refuses it.
 inline bool make_map(TileMap& m, const void* base, const Strides& s, int B,
-                     int H, int rows, int D, int box_rows) {
+                     int H, int rows, int D, int box_rows,
+                     int box_cols = kPanel,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_32B) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return false;
   struct Dim {
@@ -190,7 +254,8 @@ inline bool make_map(TileMap& m, const void* base, const Strides& s, int B,
     }
   cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, 1, 1},
+             elem[4] = {1, 1, 1, 1};
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = (cuuint64_t)d[i].extent;
     strides[i] = (cuuint64_t)d[i].stride;
@@ -203,7 +268,7 @@ inline bool make_map(TileMap& m, const void* base, const Strides& s, int B,
   }
   return encode(&m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -215,6 +280,41 @@ constexpr int kMapRefused = -2;
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// -- thread-block clusters ------------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// every thread of every block of the cluster: what each wrote before is seen
+// by all after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the shared::cluster address of shared address `addr` in block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// an arrival on an mbarrier given by its shared::cluster address, with
+// release at CTA scope only: for "done reading" signals, where no write of
+// this thread has to be seen by the block that waits
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
 
@@ -302,15 +402,39 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int rows,
                   rows * kPanelRowBytes, 8 * kPanelRowBytes);
 }
 
+// The 128-byte-swizzled layout (the GEGLU kernel's): a tile of ROWS x 64
+// bf16 values, rows 128 bytes apart, the 16-byte chunk c of row r at chunk
+// c ^ (r % 8) -- what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and a
+// 64-wide box writes; wider tiles are such blocks of 64 columns one after
+// the other.  Tiles start 1024-byte aligned.
+constexpr int kBlock128 = 64;             // bf16 columns of a block
+constexpr int kRow128 = 128;              // bytes a row
+
+// byte offset of (row, col) in a tile of `rows` rows of 64-column blocks
+__device__ __forceinline__ int swz128_offset(int row, int col, int rows) {
+  return (col / kBlock128) * rows * kRow128 + row * kRow128 +
+         ((((col % kBlock128) >> 3) ^ (row & 7)) << 4) + (col % 8) * 2;
+}
+
+// K-major view of 16-deep step `kstep` (of four) of a 64-column block that
+// starts at `tile` (its first row; 8-row groups 1024 bytes apart)
+__device__ __forceinline__ uint64_t desc_k128(const void* tile, int kstep) {
+  const uint32_t addr = smem_u32(tile) + kstep * 32;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(1) << 16 |
+         static_cast<uint64_t>((8 * kRow128) >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
 // A fragment of 16-deep step `kk` from an m64nN fp32 accumulator (the
 // accumulator's columns are the next product's reduction), rounded to bf16
 template <int R>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[R],
                                          int kk) {
-  a[0] = flash::pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
-  a[1] = flash::pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
-  a[2] = flash::pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
-  a[3] = flash::pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  a[0] = bf16x2(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
 }
 
 // A fragments of the 16 rows [row0, row0 + 16) of a panelled tile of `rows`
@@ -447,6 +571,32 @@ struct Mma<80> {
 template <>
 struct Mma<128> {
   template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+
+  template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int acc) {
@@ -477,6 +627,36 @@ struct Mma<128> {
 
 template <>
 struct Mma<160> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[80], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, %83;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[80],
                                             const uint32_t (&a)[4],

@@ -6,11 +6,15 @@ Counterpart of ``celebbasis_tpu/ops/basic.py``:
 * GroupNorm is 32 groups, eps 1e-6 (not torch's default 1e-5);
 * CLIP's activation is quick-GELU ``x * sigmoid(1.702 x)``.
 
-Normalisations compute in float32 whatever the storage or compute type and
-return the input's type.  For a bf16 input on a CUDA device they call ATen's
-kernels on the bf16 tensor directly: those accumulate statistics and apply
-the affine in float32 and round once at the end, which is the same
-arithmetic without two cast passes over the activation.
+Normalisations compute in float32 whatever the storage or compute type,
+apply float32 scale and bias, and round once to the input's type, as the
+JAX package's do.  A bf16 input on a CUDA device whose parameters are bf16
+too (bf16 serving stores them so) goes to ATen's kernels as it is: they
+accumulate statistics and apply the affine in float32 and round once, the
+same arithmetic without two cast passes over the activation.  With float32
+parameters and a bf16 input (the train step: fp32 storage, bf16 compute)
+the input is cast up instead: ATen's CUDA norms refuse that mix, and
+rounding the parameters to bf16 would change the result.
 
 Layout: public tensors of the port are channels-last ``(B, H, W, C)`` like the
 JAX package's.  Inside the conv stacks the same memory is viewed as
@@ -48,10 +52,23 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def _native_fp32_stats(x: torch.Tensor) -> bool:
-    """True where ATen's norm kernels already do float32 statistics on the
-    tensor as it is (CUDA, bf16): no up-cast copy is needed."""
-    return x.is_cuda and x.dtype == torch.bfloat16
+def _native_fp32_stats(x: torch.Tensor, *params: torch.Tensor) -> bool:
+    """True where ATen's norm kernels compute in float32 on the tensor and
+    parameters as they are (CUDA, bf16 input and parameters): no up-cast copy
+    is needed."""
+    return x.is_cuda and x.dtype == torch.bfloat16 and all(
+        p.dtype == torch.bfloat16 for p in params)
+
+
+def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``|out - ref|`` per element in units of the bf16 spacing at
+    ``max(|ref|, 1/64)``.  A result rounded once from the float32 formula is
+    at most one unit from another such result (the two sum the statistics in
+    different orders); parameters rounded to bf16 before the affine move
+    elements by more."""
+    out, ref = out.float(), ref.float()
+    _, e = torch.frexp(ref.abs().clamp_min(2.0 ** -6))
+    return (out - ref).abs() / torch.ldexp(torch.ones_like(ref), e - 8)
 
 
 class GroupNorm(nn.Module):
@@ -66,9 +83,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _native_fp32_stats(x):
-            return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
-                                self.bias.to(x.dtype), self.epsilon)
+        if _native_fp32_stats(x, self.weight, self.bias):
+            return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                                self.epsilon)
         y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
                          self.bias.float(), self.epsilon)
         return y.to(x.dtype)
@@ -84,9 +101,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _native_fp32_stats(x):
-            return F.layer_norm(x, (self.features,), self.weight.to(x.dtype),
-                                self.bias.to(x.dtype), self.epsilon)
+        if _native_fp32_stats(x, self.weight, self.bias):
+            return F.layer_norm(x, (self.features,), self.weight, self.bias,
+                                self.epsilon)
         y = F.layer_norm(x.float(), (self.features,), self.weight.float(),
                          self.bias.float(), self.epsilon)
         return y.to(x.dtype)

@@ -30,6 +30,7 @@ its ``nn.Linear`` weights, which the kernels read in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -40,7 +41,7 @@ from celebbasis_tpu_torch.ops import cuda_build
 _IMPLS = ("xla", "cuda")
 _DEFAULT_IMPL = os.environ.get("CELEBBASIS_GEGLU")
 
-MAX_WIDTH = 1280        # C: 8 warps x 80 fp32 accumulators a thread
+MAX_WIDTH = 1280        # C: clusters of up to four blocks of 320 columns
 LN_EPS = 1e-5
 
 _launches = {"geglu_block": 0, "geglu_ffn": 0}
@@ -51,6 +52,10 @@ ENTRIES = {"geglu_fwd": cuda_build.Entry(
     [_VP] * 9 + [_INT] * 6 + [_LL] * 3 + [ctypes.c_float],
     "geglu_error_string")}
 LIBRARIES = ("geglu",)
+# what the C entry geglu_plan reports, in its order
+PLAN_KEYS = ("variant", "cluster", "partners", "rows", "threads",
+             "smem_bytes", "stages", "splits", "chunk",
+             "capacity", "row_tiles", "workspace_bytes")
 
 
 def set_default_impl(impl: str | None) -> None:
@@ -158,20 +163,34 @@ def bf16_mean_error(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 # -- kernel launch ------------------------------------------------------------
 
-def rows_per_block(dtype: torch.dtype, C: int) -> int:
-    """The row tile of the kernel that a call of this type and width runs
-    (``dispatch`` in ``csrc/geglu.cu``); it sets only how the inner
-    dimension is split, never the result's bits."""
-    if dtype == torch.bfloat16:
-        return 64 if C <= 320 else 32 if C <= 640 else 16
-    return 16
+def plan(device, dtype: torch.dtype, rows: int, C: int, inner: int) -> dict:
+    """How the kernel runs a call of this type and shape on `device`, as
+    ``geglu_fwd`` itself decides it: the C entry ``geglu_plan`` (the one
+    place the tiling is chosen), keyed by ``PLAN_KEYS``.  ``splits`` (blocks
+    over the inner dimension) and ``workspace_bytes`` are what a launch
+    needs from it; the rest says what runs."""
+    return dict(zip(PLAN_KEYS, _plan(torch.device(device), dtype, rows, C,
+                                     inner)))
 
 
-def _splits(device, dtype, rows, C, inner) -> int:
-    """Blocks over the inner dimension, so that row tiles x splits fill the
-    card's SMs at least once where the row tiles alone do not."""
-    tiles = -(-rows // rows_per_block(dtype, C))
-    return max(1, min(-(-inner // 64), cuda_build.sm_count(device) // tiles))
+@functools.lru_cache(maxsize=None)
+def _plan_entry():
+    fn = cuda_build.load("geglu").geglu_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_INT] * 5 + [ctypes.POINTER(_LL)]
+    return fn
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(device, dtype, rows, C, inner) -> tuple:
+    """``geglu_plan``'s numbers, asked once a device and shape: a plan
+    depends on nothing else."""
+    out = (_LL * len(PLAN_KEYS))()
+    if _plan_entry()(_DTYPE_CODE[dtype], rows, C, inner,
+                     cuda_build.sm_count(device), out) != 0:
+        raise ValueError(f"geglu_plan refused dtype={dtype} rows={rows} "
+                         f"C={C} inner={inner}")
+    return tuple(out)
 
 
 def _kernel_layout(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -211,16 +230,19 @@ def _forward_cuda(x2d, ln_scale, ln_bias, w1, b1, w2, b2):
     with_ln = ln_scale is not None
     lns, lnb = (vec(ln_scale), vec(ln_bias)) if with_ln else (None, None)
     b1f, b2f = vec(b1), vec(b2)
+    if b1f.data_ptr() % 16:   # the kernel copies b1 in 16-byte units
+        b1f = b1f.clone()
     out = torch.empty((rows, C), dtype=dt, device=x2d.device)
-    splits = _splits(x2d.device, dt, rows, C, inner)
-    part = torch.empty((splits, rows, C), dtype=torch.float32,
-                       device=x2d.device) if splits > 1 else None
+    how = dict(zip(PLAN_KEYS, _plan(x2d.device, dt, rows, C, inner)))
+    # the split partial sums, then (bf16) the LN'd rows
+    work = torch.empty(how["workspace_bytes"], dtype=torch.uint8,
+                       device=x2d.device) if how["workspace_bytes"] else None
     ptr = lambda t: None if t is None else t.data_ptr()
     ENTRIES["geglu_fwd"](
         x2d.device, ptr(x2d), ptr(lns), ptr(lnb), ptr(w1c), ptr(b1f),
-        ptr(w2c), ptr(b2f), ptr(out), ptr(part), _DTYPE_CODE[dt],
-        int(with_ln), rows, C, inner, splits, x2d.stride(0), w1c.stride(1),
-        w2c.stride(1), LN_EPS)
+        ptr(w2c), ptr(b2f), ptr(out), ptr(work), _DTYPE_CODE[dt],
+        int(with_ln), rows, C, inner, how["splits"], x2d.stride(0),
+        w1c.stride(1), w2c.stride(1), LN_EPS)
     _launches["geglu_block" if with_ln else "geglu_ffn"] += 1
     return out
 

@@ -12,7 +12,8 @@ hand-written kernel against its plain PyTorch version.  Phases:
 2. ``build``   builds the kernel libraries from ``celebbasis_tpu_torch/csrc``,
                one ``nvcc`` per source, all started together, and records
                the bf16 forward's and backward's instantiations at each
-               padded head dim (tiles, registers, spills, HGMMA and HMMA in
+               padded head dim and the bf16 GEGLU kernel's at each SD v1
+               width (tiles or cluster, registers, spills, HGMMA and HMMA in
                the SASS);
 3. ``kernels`` the inference forward (both entry points) at the serving
                path's shapes, and the training forward (with logsumexp), dq
@@ -25,9 +26,11 @@ hand-written kernel against its plain PyTorch version.  Phases:
                (FF sub-block with and without LN and residual) at the
                serving and training shapes in bf16 and fp32, and
                ``int8_matmul`` at the UNet's projection shapes, bit for bit;
-4. ``parity``  the tiny pipeline in fp32 through the kernel route and through
-               the plain route (attention, then GEGLU): pixels agree within
-               one level;
+4. ``parity``  the norms' bf16 branch with float32 parameters against the
+               float32 formula rounded once (within one bf16 unit); the tiny
+               pipeline in fp32 through the kernel route and through the
+               plain route (attention, then GEGLU): pixels agree within one
+               level;
 5. ``train_parity`` the tiny train step in fp32: loss and MLP gradients with
                attention, then GEGLU, on the kernel route against the plain
                route;
@@ -132,6 +135,14 @@ GEGLU_PER_UNET = 16          # one FF sub-block per transformer block
 # 8^2 mid block; serving has 4 rows of batch (2 x guidance), training 2
 GEGLU_SERVE_SHAPES = ((16384, 320), (4096, 640), (1024, 1280), (256, 1280))
 GEGLU_TRAIN_SHAPES = ((8192, 320), (2048, 640), (512, 1280), (128, 1280))
+# (rows, C, inner or None for 4C): a padding row tile at every cluster width
+# (K = 1 to 4, K = 3 at C = 768 and 960), with inner splits at K = 4; inner
+# widths that end inside a block's share of the last chunk (C = 640) and
+# that leave two of its four blocks no columns at all (C = 1280)
+GEGLU_RAGGED_SHAPES = ((100, 320, None), (300, 640, None),
+                       (1100, 1280, None), (200, 960, None),
+                       (100, 768, None), (300, 640, 1000),
+                       (200, 1280, 4744))
 # fp32: summation order only, over up to 5120 terms
 GEGLU_F32_REL_TOL = 2e-5
 # bf16: geglu.bf16_mean_error of the outputs against the plain version; on
@@ -191,7 +202,8 @@ def phase_build():
     for module in (fa, geglu, quant):
         for entry in module.ENTRIES.values():
             entry.bind()    # load, so a bad library fails here
-    return {"fwd": fwd_instantiations(), **bwd_instantiations()}
+    return {"fwd": fwd_instantiations(), **bwd_instantiations(),
+            "geglu": geglu_instantiations()}
 
 
 def _sass_and_ptxas(library):
@@ -307,6 +319,49 @@ def bwd_instantiations():
                 raise RuntimeError(f"{pattern}: {rec['hgmma']} HGMMA and "
                                    f"{rec['hmma']} HMMA instructions")
             records[kernel].append(rec)
+    return records
+
+
+def geglu_instantiations():
+    """What the bf16 GEGLU kernels are at the SD v1 widths (320, 640, 1280),
+    as the library's plan picks them (``geglu.plan``): cluster, rows,
+    threads, shared bytes and ring stages; registers at launch (the consumer
+    warpgroups raise theirs to 224) and spills (ptxas); HGMMA (wgmma) and HMMA (mma.sync) in the
+    built library's SASS.  Fails on any HMMA in the library, a bf16 kernel
+    without HGMMA, a spill, ptxas's note that it serialised the wgmmas, or a
+    bf16 kernel that no width takes."""
+    hgmma, hmma, ptxas = _sass_and_ptxas("geglu")
+    if any(hmma.values()):
+        raise RuntimeError(f"mma.sync (HMMA) in the GEGLU library: "
+                           f"{ {k: v for k, v in hmma.items() if v} }")
+    records, seen = [], set()
+    for rows, C in GEGLU_SERVE_SHAPES[:3]:
+        how = geglu.plan(torch.device("cuda"), torch.bfloat16, rows, C,
+                         4 * C)
+        pattern = f"geglu_bf16ILi{how['variant']}EE"
+        names = [n for n in hgmma if pattern in n]
+        if len(names) != 1:
+            raise RuntimeError(f"no single kernel {pattern} in the library: "
+                               f"{names}")
+        seen.add(names[0])
+        built = ptxas.get(names[0], "not built by this process")
+        rec = {"C": C, **{k: how[k] for k in (
+                   "cluster", "partners", "rows", "threads", "smem_bytes",
+                   "stages")},
+               "hgmma": hgmma[names[0]], "hmma": hmma[names[0]],
+               "ptxas": built}
+        log("build", f"geglu {json.dumps(rec)}")
+        built = built if isinstance(built, dict) else {}
+        spills = built.get("spill_bytes", 0)
+        serial = built.get("wgmma_serialized", 0)
+        if not rec["hgmma"] or spills or serial:
+            raise RuntimeError(f"{pattern}: {rec['hgmma']} HGMMA, {spills} "
+                               f"spilled bytes, wgmma serialised: "
+                               f"{bool(serial)}")
+        records.append(rec)
+    stray = [n for n in hgmma if "geglu_bf16" in n and n not in seen]
+    if stray:
+        raise RuntimeError(f"GEGLU kernels no width takes: {stray}")
     return records
 
 
@@ -619,12 +674,13 @@ def phase_train_kernels():
     return shapes
 
 
-def geglu_inputs(rows, C, dtype, seed):
-    """x, LN scale and bias, W1, b1, W2, b2 of one FF sub-block, the weights
-    drawn like the UNet's nn.Linear ones and handed over as the module hands
-    them: transposed views of (out, in) buffers in `dtype`, biases fp32."""
+def geglu_inputs(rows, C, dtype, seed, inner=None):
+    """x, LN scale and bias, W1, b1, W2, b2 of one FF sub-block (inner = 4C
+    unless given), the weights drawn like the UNet's nn.Linear ones and
+    handed over as the module hands them: transposed views of (out, in)
+    buffers in `dtype`, biases fp32."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    inner = 4 * C
+    inner = inner or 4 * C
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
     x = rnd(rows, C).to(dtype)
     ln = (1 + 0.1 * rnd(C), 0.1 * rnd(C))
@@ -644,13 +700,14 @@ def geglu_bound(rows, C, dtype):
                                        else "bytes")
 
 
-def check_geglu(entry, rows, C, dtype, timed):
+def check_geglu(entry, rows, C, dtype, timed, inner=None):
     """One GEGLU kernel (`entry` "geglu_block" or "geglu_ffn") against its
-    plain version: fp32 within GEGLU_F32_REL_TOL of the largest output; bf16
-    by fa.bf16_error_ratio <= 1 and geglu.bf16_mean_error <=
-    GEGLU_BF16_MEAN_ERR."""
+    plain version (inner = 4C unless given): fp32 within GEGLU_F32_REL_TOL
+    of the largest output; bf16 by fa.bf16_error_ratio <= 1 and
+    geglu.bf16_mean_error <= GEGLU_BF16_MEAN_ERR."""
+    inner = inner or 4 * C
     x, (lns, lnb), w1, b1, w2, b2 = geglu_inputs(rows, C, dtype,
-                                                 rows * 7 + C)
+                                                 rows * 7 + C, inner)
     if entry == "geglu_block":
         run = lambda: geglu.geglu_block(x, lns, lnb, w1, b1, w2, b2,
                                         impl="cuda")
@@ -670,10 +727,12 @@ def check_geglu(entry, rows, C, dtype, timed):
         raise RuntimeError(f"{entry}: shape/dtype {out.shape} {out.dtype} "
                            f"vs plain {ref.shape} {ref.dtype}")
     err = (out.float() - ref.float()).abs().max().item()
-    rec = {"rows": rows, "C": C, "inner": 4 * C,
+    how = geglu.plan(x.device, dtype, rows, C, inner)
+    rec = {"rows": rows, "C": C, "inner": inner,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "ref_max": ref.float().abs().max().item(),
-           "splits": geglu._splits(x.device, dtype, rows, C, 4 * C)}
+           "splits": how["splits"], "cluster": how["cluster"],
+           "partners": how["partners"], "row_tiles": how["row_tiles"]}
     if dtype == torch.bfloat16:
         rec["err_ratio"] = fa.bf16_error_ratio(out, ref)
         rec["mean_err"] = geglu.bf16_mean_error(out, ref)
@@ -684,7 +743,7 @@ def check_geglu(entry, rows, C, dtype, timed):
     if timed:
         F = torch.nn.functional
         u = torch.randn(rows, C, device="cuda").to(dtype)
-        y = torch.randn(rows, 4 * C, device="cuda").to(dtype)
+        y = torch.randn(rows, inner, device="cuda").to(dtype)
         w1t, w2t = w1.t(), w2.t()
         iters = 10 if rows * C >= 1 << 22 else 50
         (rec["kernel_ms"], rec["kernel_ms_min"]) = time_ms(run, iters)
@@ -703,7 +762,8 @@ def check_geglu(entry, rows, C, dtype, timed):
 
 def phase_geglu_kernels():
     """Both GEGLU kernels at the serving and training shapes in bf16 and
-    fp32, and a ragged row count; the serving shapes in bf16 are timed."""
+    fp32, and at GEGLU_RAGGED_SHAPES; the serving shapes in bf16 are
+    timed."""
     records = {}
     for entry in GEGLU_KERNELS:
         shapes = []
@@ -711,7 +771,9 @@ def phase_geglu_kernels():
             for rows, C in GEGLU_SERVE_SHAPES + GEGLU_TRAIN_SHAPES:
                 shapes.append(check_geglu(entry, rows, C, dtype,
                                           timed=dtype == torch.bfloat16))
-            shapes.append(check_geglu(entry, 100, 320, dtype, timed=False))
+            for rows, C, inner in GEGLU_RAGGED_SHAPES:
+                shapes.append(check_geglu(entry, rows, C, dtype, False,
+                                          inner))
         records[entry] = shapes
     return records
 
@@ -775,6 +837,48 @@ def phase_int8_kernels():
 
 # -- phase 4 ------------------------------------------------------------------
 
+def check_norm_affine():
+    """The norms' bf16 branch with float32 parameters (the train step's
+    case: fp32 storage, bf16 compute), scale ~ N(1, 0.2) and bias ~ N(0, 0.1)
+    so that rounding them to bf16 would show, against the float32 formula
+    rounded once (the JAX norms' arithmetic): every element within one bf16
+    unit (``basic.bf16_ulps``).  GroupNorm on a channels_last (2, 320, 64, 64)
+    tensor, LayerNorm on (2, 4096, 320)."""
+    from celebbasis_tpu_torch.ops import basic
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(12)
+    C, res = 320, {}
+    for name in ("GroupNorm", "LayerNorm"):
+        if name == "GroupNorm":
+            x = torch.randn(2, C, 64, 64, device="cuda", generator=g).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            mod = basic.GroupNorm(C).cuda()
+            formula = lambda: F.group_norm(x.float(), mod.num_groups,
+                                           mod.weight, mod.bias, mod.epsilon)
+        else:
+            x = torch.randn(2, 4096, C, device="cuda", generator=g).to(
+                torch.bfloat16)
+            mod = basic.LayerNorm(C).cuda()
+            formula = lambda: F.layer_norm(x.float(), (C,), mod.weight,
+                                           mod.bias, mod.epsilon)
+        with torch.no_grad():
+            mod.weight.copy_(1 + 0.2 * torch.randn(C, device="cuda",
+                                                   generator=g))
+            mod.bias.copy_(0.1 * torch.randn(C, device="cuda", generator=g))
+            out = mod(x)
+            ref = formula().to(torch.bfloat16)
+        d = basic.bf16_ulps(out, ref)
+        res[name] = {"dtype": str(out.dtype).replace("torch.", ""),
+                     "max_ulps": d.max().item(),
+                     "beyond_one_ulp": (d > 1).float().mean().item()}
+    log("parity", f"norms, bf16 input and float32 parameters, against the "
+                  f"float32 formula rounded once: {json.dumps(res)}")
+    if any(r["max_ulps"] > 1 or r["dtype"] != "bfloat16"
+           for r in res.values()):
+        raise RuntimeError(f"parity: a norm is not the float32 formula "
+                           f"rounded once: {res}")
+
+
 def phase_parity():
     """Tiny pipeline, fp32, 4 DDIM steps, given x_T: kernel route vs plain
     route.  TF32 is switched off for both so that only the attention core
@@ -786,6 +890,7 @@ def phase_parity():
                                                PipelineConfig, finish_images)
     from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 
+    check_norm_affine()
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False

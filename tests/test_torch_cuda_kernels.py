@@ -11,6 +11,7 @@ devices).  Without a card every case skips, inside the test.
 import pytest
 import torch
 
+from celebbasis_tpu_torch.ops import basic
 from celebbasis_tpu_torch.ops import flash_attention as fa
 from celebbasis_tpu_torch.ops import geglu
 from celebbasis_tpu_torch.ops import quant
@@ -182,10 +183,10 @@ def test_autograd_route_on_card():
         assert torch.equal(a, b)
 
 
-def _geglu_args(rows, C, dtype, seed=0):
+def _geglu_args(rows, C, dtype, seed=0, inner=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
-    inner = 4 * C
+    inner = inner or 4 * C
     return (rnd(rows, C).to(dtype), 1 + 0.1 * rnd(C), 0.1 * rnd(C),
             (rnd(2 * inner, C) * C ** -0.5).to(dtype).t(),
             0.05 * rnd(2 * inner),
@@ -195,13 +196,22 @@ def _geglu_args(rows, C, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_geglu_kernels_match_plain_on_card(dtype):
-    """Both GEGLU kernels against their plain versions: a ragged row count,
-    every row-tile width (split and unsplit inner sweeps), and the tiny
-    UNet's widths (narrower than a tile)."""
+    """Both GEGLU kernels against their plain versions: ragged row counts
+    at every cluster width (one to four blocks, three at C = 768 and 960),
+    split and unsplit inner sweeps, inner widths that end inside a block's
+    share of the last chunk or before it (C = 640, 1280), a b1 that is not
+    16-byte aligned, and the tiny UNet's widths (narrower than a tile)."""
     _need_card()
-    for rows, C in ((100, 320), (300, 640), (128, 1280), (4096, 320),
-                    (77, 64), (40, 32)):
-        x, lns, lnb, w1, b1, w2, b2 = _geglu_args(rows, C, dtype, seed=rows)
+    for rows, C, inner in ((100, 320, None), (300, 640, None),
+                           (128, 1280, None), (4096, 320, None),
+                           (1100, 1280, None), (200, 960, None),
+                           (100, 768, None), (300, 640, 1000),
+                           (200, 1280, 4744), (77, 64, None),
+                           (40, 32, None)):
+        x, lns, lnb, w1, b1, w2, b2 = _geglu_args(rows, C, dtype, seed=rows,
+                                                  inner=inner)
+        if C == 768:   # b1 at an offset of 4 bytes
+            b1 = torch.cat([b1.new_zeros(1), b1])[1:]
         for entry in ("geglu_block", "geglu_ffn"):
             before = geglu.launch_counts()[entry]
             if entry == "geglu_block":
@@ -215,9 +225,13 @@ def test_geglu_kernels_match_plain_on_card(dtype):
             assert out.shape == ref.shape and out.dtype == ref.dtype
             err = (out.float() - ref.float()).abs().max().item()
             if dtype == torch.float32:
-                assert err <= 2e-5 * ref.abs().max().item(), (entry, rows, C)
+                assert err <= 2e-5 * ref.abs().max().item(), \
+                    (entry, rows, C, inner)
             else:
-                assert fa.bf16_error_ratio(out, ref) <= 1.0, (entry, rows, C)
+                assert fa.bf16_error_ratio(out, ref) <= 1.0, \
+                    (entry, rows, C, inner)
+                assert geglu.bf16_mean_error(out, ref) <= 0.05, \
+                    (entry, rows, C, inner)
 
 
 @pytest.mark.cuda
@@ -263,3 +277,35 @@ def test_int8_matmul_equals_plain_on_card(dtype):
         for w in (w_q, w_q.contiguous()):
             assert torch.equal(quant.int8_matmul(x, w, w_s), ref)
         assert quant.launch_counts()["int8_matmul"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["group", "layer"])
+def test_norms_bf16_input_fp32_affine_on_card(norm):
+    """The norms' bf16 branch on the card with float32 parameters drawn away
+    from 1 and 0: within one bf16 unit of the float32 formula rounded once
+    at every element (ATen's CUDA norms take no float32 parameters with a
+    bf16 input; rounding the parameters to bf16 moves elements further)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    C = 320
+    F = torch.nn.functional
+    if norm == "group":
+        x = torch.randn(2, C, 32, 32, device="cuda", generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        mod = basic.GroupNorm(C).cuda()
+        formula = lambda: F.group_norm(x.float(), 32, mod.weight, mod.bias,
+                                       mod.epsilon)
+    else:
+        x = torch.randn(2, 1024, C, device="cuda", generator=g).to(
+            torch.bfloat16)
+        mod = basic.LayerNorm(C).cuda()
+        formula = lambda: F.layer_norm(x.float(), (C,), mod.weight, mod.bias,
+                                       mod.epsilon)
+    with torch.no_grad():
+        mod.weight.copy_(1 + 0.2 * torch.randn(C, device="cuda", generator=g))
+        mod.bias.copy_(0.1 * torch.randn(C, device="cuda", generator=g))
+        out = mod(x)
+        ref = formula().to(torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert basic.bf16_ulps(out, ref).max().item() <= 1.0

@@ -79,6 +79,45 @@ def test_layer_norm():
     np.testing.assert_allclose(ln(t(x)).detach().numpy(), ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("norm", ["group", "layer"])
+def test_norms_bf16_input_fp32_affine_round_once(norm):
+    """bf16 activations with float32 scale and bias drawn away from 1 and 0
+    (what the train step feeds the frozen UNet's norms): the port's norm is
+    the JAX one -- float32 statistics and affine, one rounding to bf16 --
+    within one bf16 unit at every element.  Parameters rounded to bf16
+    before the affine move elements by more."""
+    r = rng(7)
+    x = r.standard_normal((2, 8, 8, 64)).astype(np.float32)
+    scale = (1 + 0.2 * r.standard_normal(64)).astype(np.float32)
+    bias = (0.1 * r.standard_normal(64)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    if norm == "group":
+        jmod, mod = jbasic.GroupNorm(), tbasic.GroupNorm(64)
+        run = lambda v: tbasic.to_nhwc(mod(tbasic.to_nchw(v)))
+    else:
+        jmod, mod = jbasic.LayerNorm(), tbasic.LayerNorm(64)
+        run = mod
+    name = type(jmod).__name__ + "_0"
+    ref = jmod.apply({"params": {name: {"scale": scale, "bias": bias}}}, xb)
+    mod.load_state_dict({"weight": t(scale), "bias": t(bias)})
+    xt = t(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+    with torch.no_grad():
+        got = run(xt)
+    assert got.dtype == torch.bfloat16
+    ref = t(np.asarray(ref.astype(jnp.float32)))
+    assert tbasic.bf16_ulps(got, ref).max().item() <= 1.0
+    # the check sees parameters rounded to bf16
+    f = torch.nn.functional
+    if norm == "group":
+        rounded = tbasic.to_nhwc(f.group_norm(
+            tbasic.to_nchw(xt.float()), 32, t(scale).bfloat16().float(),
+            t(bias).bfloat16().float(), 1e-6))
+    else:
+        rounded = f.layer_norm(xt.float(), (64,), t(scale).bfloat16().float(),
+                               t(bias).bfloat16().float(), 1e-5)
+    assert tbasic.bf16_ulps(rounded.bfloat16(), ref).max().item() > 1.0
+
+
 def test_l2_normalize():
     x = rng(4).standard_normal((3, 10)).astype(np.float32)
     x[1] = 0.0

@@ -20,15 +20,23 @@
 #   geglu     erf     the exact (erf) GELU in place of the tanh form, in the
 #                     bf16 kernel only;
 #             residual  x dropped from x + GEGLU(LN(x));
+#             peer    the y piece of the blocks of column slice 1 left out of
+#                     the cluster's exchange (they send another piece in its
+#                     place, so that no barrier waits forever);
+#             gsplit  the first inner split's partial sums left out of the
+#                     reduction (geglu_finish);
 #   int8      rowscale  the activation scale taken from the row's first
 #                     64-value K tile instead of the whole row.
 # Each copy runs the bf16 check of chip_smoke.py at three shapes: the forward
 # check at the serving shapes, the training check (forward with logsumexp,
 # dq, dk/dv) at the train step's shapes with a peaked softmax (for "split":
 # at the three 77-key training shapes, whose dk/dv splits the query stream
-# over 8, 8 and 4 blocks), the GEGLU
-# block check and the int8 check at the serving shapes of the 64^2, 32^2 and
-# 16^2 levels.  The unchanged copy must print no "CAUGHT", each broken copy
+# over 8, 8 and 4 blocks), the GEGLU block check at the serving shapes of
+# the 64^2, 32^2 and 16^2 levels (for "peer": the 32^2, 16^2 and mid levels,
+# whose clusters hold 2, 4 and 4 blocks over the output columns; for
+# "gsplit": the 16^2 and mid serving levels and the 16^2 training level,
+# whose inner dimension the plan splits), and the int8 check at the serving
+# shapes of the 64^2, 32^2 and 16^2 levels.  The unchanged copy must print no "CAUGHT", each broken copy
 # three; the script fails otherwise.  The repository itself is never
 # modified.
 set -euo pipefail
@@ -65,6 +73,22 @@ for a in [(16384, 320), (4096, 640), (1024, 1280)]:
     except RuntimeError:
         print("CAUGHT", a)
 '
+check_peer='import chip_smoke as c, torch
+for a in [(4096, 640), (1024, 1280), (256, 1280)]:
+    try:
+        c.check_geglu("geglu_block", *a, torch.bfloat16, False)
+    except RuntimeError:
+        print("CAUGHT", a)
+'
+check_gsplit='import chip_smoke as c, torch
+from celebbasis_tpu_torch.ops import geglu
+for a in [(1024, 1280), (256, 1280), (512, 1280)]:
+    assert geglu.plan(torch.device("cuda"), torch.bfloat16, *a, 4 * a[1])["splits"] > 1, a
+    try:
+        c.check_geglu("geglu_block", *a, torch.bfloat16, False)
+    except RuntimeError:
+        print("CAUGHT", a)
+'
 check_int8='import chip_smoke as c, torch
 for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     try:
@@ -72,7 +96,7 @@ for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     except RuntimeError:
         print("CAUGHT", a)
 '
-cases="${*:-none scale stale rescale dqscale delta dvp split erf residual rowscale}"
+cases="${*:-none scale stale rescale dqscale delta dvp split erf residual peer gsplit rowscale}"
 for mutation in $cases; do
   work="$(mktemp -d)"
   cp -r "$repo/." "$work"
@@ -86,8 +110,10 @@ for mutation in $cases; do
     delta) sed -i 's/sc\[4 \* j + e\] = pv \* (dp\[4 \* j + e\] - dl\[e >> 1\]);/sc[4 * j + e] = pv * dp[4 * j + e];/' "$work/$src" ;;
     dvp) sed -i 's/sT\[4 \* j + e\] = pv; /sT[4 * j + e] = pv * 0.9f; /' "$work/$src" ;;
     split) sed -i 's/for (int s = 0; s < splits; ++s) {/for (int s = 1; s < splits; ++s) {/' "$work/$src" ;;
-    erf) src=$ffn; sed -i 's/y\[e\] = hv \* gelu_tanh(gv);/y[e] = hv * gv * normcdff(gv);/' "$work/$src" ;;
+    erf) src=$ffn; sed -i 's/gelu_tanh_fast(\(g\[[01]\] + bg\.[xy]\))/(\1) * normcdff(\1)/g' "$work/$src" ;;
     residual) src=$ffn; sed -i 's/v = to_f32(static_cast<const T\*>(p.x)\[row \* p.x_s + col\]) + acc;/v = acc;/' "$work/$src" ;;
+    peer) src=$ffn; sed -i 's/sY + piece, kYPieceBytes,/sY + (kr == 1 ? 0 : piece), kYPieceBytes,/' "$work/$src" ;;
+    gsplit) src=$ffn; sed -i 's/float acc = p.part\[i\];/float acc = 0.f;/' "$work/$src" ;;
     rowscale) src=$i8; sed -i 's/for (int k = lane; k < K; k += 32) amax/for (int k = lane; k < min(K, 64); k += 32) amax/' "$work/$src" ;;
   esac
   echo "== mutation: $mutation"
@@ -95,9 +121,11 @@ for mutation in $cases; do
     echo "the mutation did not apply"; exit 1
   fi
   case $mutation in
-    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_split" && python3 -c "$check_geglu" && python3 -c "$check_int8")" ;;
+    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_split" && python3 -c "$check_geglu" && python3 -c "$check_peer" && python3 -c "$check_gsplit" && python3 -c "$check_int8")" ;;
     scale|stale|rescale) out="$(cd "$work" && python3 -c "$check_fwd")" ;;
     erf|residual) out="$(cd "$work" && python3 -c "$check_geglu")" ;;
+    peer) out="$(cd "$work" && python3 -c "$check_peer")" ;;
+    gsplit) out="$(cd "$work" && python3 -c "$check_gsplit")" ;;
     rowscale) out="$(cd "$work" && python3 -c "$check_int8")" ;;
     split) out="$(cd "$work" && python3 -c "$check_split")" ;;
     *) out="$(cd "$work" && python3 -c "$check_bwd")" ;;
