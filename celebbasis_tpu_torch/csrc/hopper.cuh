@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks of the hand-written kernels (flash
-// attention forward and backward, fused GEGLU): mbarriers, TMA tile loads
-// from 4-D tensor maps (and the host code that encodes the maps), wgmma
-// descriptors for the 32-byte-swizzled shared layout, the wgmma products
-// (m64nNk16, bf16 operands, fp32 accumulators), and the thread-block-cluster
-// operations (distributed shared memory, remote mbarrier arrivals, the
-// cluster barrier).  No mma.sync: the helpers of the older kernels are in
-// flash_common.cuh.
+// attention forward and backward, fused GEGLU, int8 matrix product):
+// mbarriers, TMA tile loads from 4-D and 2-D tensor maps and TMA stores (and
+// the host code that encodes the maps), wgmma descriptors for the 32- and
+// 128-byte-swizzled shared layouts, the wgmma products (m64nNk16, bf16
+// operands, fp32 accumulators; m64n128k32, s8 operands, s32 accumulators),
+// the thread-block-cluster operations (distributed shared memory, remote
+// mbarrier arrivals, the cluster barrier) and programmatic dependent launch.
+// No mma.sync anywhere.
 //
 // The shared layout.  A tile of ROWS x DP bf16 values lies in DP / 16
 // "panels" of ROWS x 16 values (32 bytes a row); inside a panel, the 16-byte
@@ -734,6 +735,121 @@ struct Mma<256> {
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
         "n"(TB));
+  }
+};
+
+// -- the int8 matrix product's: 2-D tensor maps, TMA stores, s8 wgmma --------
+
+// one box of a 2-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of shared memory into the tensor of a 2-D tensor map, its first
+// element at (c0, c1); the part of the box past the tensor's edges is not
+// written.  The store joins this thread's open bulk group (bulk_commit).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// returns once at most N of this thread's bulk groups still read shared
+// memory (their source buffers may be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// returns once every bulk group of this thread has finished its writes
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The map of a row-major (rows, cols) tensor of `type`, rows `row_bytes`
+// apart (a multiple of 16), in boxes of box_cols x box_rows under `swizzle`:
+// a load reads zeros past the edges, a store leaves them out.  False if the
+// driver refuses it.
+inline bool make_map_2d(CUtensorMap* map, const void* base,
+                        CUtensorMapDataType type, long long cols,
+                        long long rows, long long row_bytes, int box_cols,
+                        int box_rows, CUtensorMapSwizzle swizzle) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows},
+             elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// programmatic dependent launch: a kernel lets the next one on its stream
+// start (launch_dependents), which waits for it to finish and its writes
+// to be visible before it reads them (grid_dependency_wait; no wait for a
+// kernel launched without the attribute)
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// MmaS8<N>::ss(d, desc_a, desc_b, acc): d (m64 x N, s32) = A B (+ d if acc)
+// over one 32-deep step, s8 x s8 -> s32 (exact).  For 8-bit types wgmma takes
+// both operands K-major from shared memory only: 32 int8 values of K are the
+// 32 bytes a bf16 k16 step spans, so desc_k128 describes them.  The
+// accumulator's layout is the fp32 one (s32 values).
+template <int N>
+struct MmaS8;
+
+template <>
+struct MmaS8<128> {
+  static __device__ __forceinline__ void ss(uint32_t (&d)[64], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
   }
 };
 

@@ -4,10 +4,13 @@ an int8 x int8 -> int32 product and fp32 dequantisation.
 Counterpart of ``celebbasis_tpu/ops/quant.py``:
 
 * ``quantize_per_channel`` -- symmetric per-output-channel int8 weights;
-* ``int8_matmul`` -- ``x @ dequant(w_q)``: the kernels of
+* ``int8_matmul`` -- ``x @ dequant(w_q)``: the kernel of
   ``csrc/int8_matmul.cu`` (the Pallas ``_kernel``) on CUDA tensors, which
-  they launch or raise; ``int8_matmul_plain`` on CPU tensors.  Counter
-  ``int8_matmul`` in ``launch_counts()``;
+  it launches or raises; ``int8_matmul_plain`` on CPU tensors.  Counter
+  ``int8_matmul`` in ``launch_counts()``.  ``plan`` says how a call runs
+  (the C entry ``int8_matmul_plan``): "fused" (one launch that quantises
+  the rows itself) or "streamed" (a quantisation pass into a workspace,
+  then the product);
 * ``quantize_dense_tree`` -- rewrite the 2-D ``kernel`` leaves of a nested
   dict of tensors into ``kernel_q`` / ``kernel_scale`` pairs.
 
@@ -23,6 +26,7 @@ version agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Tuple
 
 import torch
@@ -34,9 +38,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRIES = {"int8_matmul_fwd": cuda_build.Entry(
     "int8_matmul", "int8_matmul_fwd",
-    [_VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT],
+    [_VP, _LL, _VP, _LL, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT],
     "int8_matmul_error_string")}
 LIBRARIES = ("int8_matmul",)
+# the kernel's two modes (the C entries' mode 0 and 1; -1 is the plan's
+# choice), as ``plan`` names them
+_MODES = ("fused", "streamed")
+PLAN_KEYS = ("mode", "splits", "row_tiles", "n_tiles", "k_chunks", "blocks",
+             "stages", "staging_tiles", "group", "threads", "smem_bytes",
+             "workspace_bytes")
 
 
 def launch_counts() -> dict:
@@ -45,6 +55,48 @@ def launch_counts() -> dict:
 
 def reset_launch_count() -> None:
     _launches["int8_matmul"] = 0
+
+
+def plan(device, dtype: torch.dtype, M: int, N: int, K: int) -> dict:
+    """How the kernel runs a call of this type and shape on `device`, as
+    ``int8_matmul_fwd`` itself decides it: the C entry ``int8_matmul_plan``
+    (the one place the mode and tiling are chosen), keyed by ``PLAN_KEYS``,
+    with ``variant`` the mode's name."""
+    return _plan_dict(device, dtype, M, N, K, -1)
+
+
+def _forced_plan(device, dtype: torch.dtype, M: int, N: int, K: int,
+                 variant: str) -> dict:
+    """``plan`` with the mode forced ("fused" or "streamed"), for the checks
+    and timings that hold each mode; ValueError where it cannot run the
+    shape."""
+    return _plan_dict(device, dtype, M, N, K, _MODES.index(variant))
+
+
+def _plan_dict(device, dtype, M, N, K, mode) -> dict:
+    out = dict(zip(PLAN_KEYS, _plan(torch.device(device), dtype, M, N, K,
+                                    mode)))
+    out["variant"] = _MODES[out["mode"]]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_entry():
+    fn = cuda_build.load("int8_matmul").int8_matmul_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_INT] * 6 + [ctypes.POINTER(_LL)]
+    return fn
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(device, dtype, M, N, K, mode) -> tuple:
+    """``int8_matmul_plan``'s numbers, asked once a device and shape."""
+    out = (_LL * len(PLAN_KEYS))()
+    if _plan_entry()(_DTYPE_CODE[dtype], M, N, K, mode,
+                     cuda_build.sm_count(device), out) != 0:
+        raise ValueError(f"int8_matmul_plan refused dtype={dtype} M={M} "
+                         f"N={N} K={K} mode={mode}")
+    return tuple(out)
 
 
 def quantize_per_channel(w: torch.Tensor, axis: int = 1
@@ -91,17 +143,31 @@ def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return ((acc.float() * xs) * w_scale.float()).to(x.dtype)
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
-                w_scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor
+                ) -> torch.Tensor:
     """x (M, K) float -> x @ dequant(w_q) (M, N) in x's type; w_q (K, N)
     int8, w_scale (N,).  The TPU tiling arguments of the JAX function have no
-    counterpart: the kernel masks ragged edges itself."""
+    counterpart: the kernel masks ragged edges itself; ``plan`` says how it
+    runs the shape."""
     if x.ndim != 2 or w_q.ndim != 2 or w_q.shape[0] != x.shape[1] \
             or w_scale.shape != (w_q.shape[1],) or w_q.dtype != torch.int8:
         raise ValueError(f"bad inputs x{tuple(x.shape)} w_q{tuple(w_q.shape)} "
                          f"{w_q.dtype} w_scale{tuple(w_scale.shape)}")
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_q, w_scale)
+    return _launch(x, w_q, w_scale, -1)
+
+
+def _int8_matmul_mode(x: torch.Tensor, w_q: torch.Tensor,
+                      w_scale: torch.Tensor, variant: str) -> torch.Tensor:
+    """``int8_matmul`` on CUDA tensors with the kernel's mode forced
+    ("fused" or "streamed"), for the checks and timings that hold each
+    mode."""
+    return _launch(x, w_q, w_scale, _MODES.index(variant))
+
+
+def _launch(x, w_q, w_scale, mode: int) -> torch.Tensor:
+    """The kernel on CUDA tensors, in C mode `mode` (-1: the plan's)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"int8_matmul takes float32 or bfloat16 x; got "
                         f"{x.dtype}")
@@ -109,23 +175,29 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError("x, w_q and w_scale must lie on one device")
     M, K = x.shape
     N = w_q.shape[1]
-    Kp = -(-K // 16) * 16
-    wt = w_q.t()        # (N, K): K contiguous for the kernel's B operand
-    if not (K == Kp and wt.stride(1) == 1 and wt.stride(0) % 16 == 0
+    wt = w_q.t()        # (N, K): K contiguous, the kernel's B operand
+    if not (wt.stride(1) == 1 and wt.stride(0) % 16 == 0
             and wt.data_ptr() % 16 == 0):
-        # another layout or a ragged K: one zero-padded copy per call
-        wt = torch.zeros((N, Kp), dtype=torch.int8, device=x.device)
+        # another layout: one copy per call, rows padded to 16 bytes
+        wt = torch.zeros((N, -(-K // 16) * 16), dtype=torch.int8,
+                         device=x.device)
         wt[:, :K] = w_q.t()
-    if x.stride(1) != 1:
-        x = x.contiguous()
+    if x.stride(1) != 1 or x.stride(0) != K or x.data_ptr() % 16:
+        # rows K apart from a 16-byte aligned start, the layout the kernel's
+        # TMA loads of x take (a copy only for another view)
+        x = torch.empty((M, K), dtype=x.dtype, device=x.device).copy_(x)
+    how = _plan(x.device, x.dtype, M, N, K, mode)
+    work = how[PLAN_KEYS.index("workspace_bytes")]
+    # scratch only where the plan quantises into a workspace (streamed)
+    workspace = torch.empty((work,), dtype=torch.uint8, device=x.device) \
+        if work else None
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
-    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
     ws = w_scale.float().contiguous()
     ENTRIES["int8_matmul_fwd"](
         x.device, x.data_ptr(), x.stride(0), wt.data_ptr(), wt.stride(0),
-        ws.data_ptr(), out.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-        _DTYPE_CODE[x.dtype], M, N, K)
+        ws.data_ptr(), out.data_ptr(),
+        workspace.data_ptr() if workspace is not None else None,
+        _DTYPE_CODE[x.dtype], M, N, K, mode)
     _launches["int8_matmul"] += 1
     return out
 

@@ -14,7 +14,8 @@ hand-written kernel against its plain PyTorch version.  Phases:
                the bf16 forward's and backward's instantiations at each
                padded head dim and the bf16 GEGLU kernel's at each SD v1
                width (tiles or cluster, registers, spills, HGMMA and HMMA in
-               the SASS);
+               the SASS), and the int8 library's kernels (IGMMA and IMMA,
+               registers, spills) with its plan at each timed shape;
 3. ``kernels`` the inference forward (both entry points) at the serving
                path's shapes, and the training forward (with logsumexp), dq
                and dk/dv kernels at the train step's shapes, against their
@@ -25,7 +26,9 @@ hand-written kernel against its plain PyTorch version.  Phases:
                (blocks and waves) at each timed shape; the two GEGLU kernels
                (FF sub-block with and without LN and residual) at the
                serving and training shapes in bf16 and fp32, and
-               ``int8_matmul`` at the UNet's projection shapes, bit for bit;
+               ``int8_matmul`` at the UNet's projection shapes and two ragged
+               ones, in every mode that can run each shape, bit for bit, and
+               on every bf16 value its quantisation tells apart;
 4. ``parity``  the norms' bf16 branch with float32 parameters against the
                float32 formula rounded once (within one bf16 unit); the tiny
                pipeline in fp32 through the kernel route and through the
@@ -150,9 +153,13 @@ GEGLU_F32_REL_TOL = 2e-5
 # GELU in place of the tanh form 0.117-0.121 (torch_scripts/mutation_check.sh)
 GEGLU_BF16_MEAN_ERR = 0.05
 # (M, K, N): the UNet's projections at batch 4 -- q/k/v/out at 64^2, FF in,
-# FF out, 32^2 and 16^2 levels -- and a ragged case
+# FF out at 64^2, q/k/v/out at 32^2 and 16^2, FF out at 32^2 and 16^2 (K
+# beyond a resident row tile) -- and two ragged cases (M, K and N off the
+# kernel's 128-wide tiles)
 INT8_SHAPES = ((16384, 320, 320), (16384, 320, 2560), (16384, 1280, 320),
-               (4096, 640, 640), (1024, 1280, 1280), (100, 300, 77))
+               (4096, 640, 640), (1024, 1280, 1280), (4096, 2560, 640),
+               (1024, 5120, 1280), (100, 300, 77), (1000, 1300, 200))
+INT8_TIMED = INT8_SHAPES[:7]
 PEAK_INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core rate
 
 
@@ -203,7 +210,7 @@ def phase_build():
         for entry in module.ENTRIES.values():
             entry.bind()    # load, so a bad library fails here
     return {"fwd": fwd_instantiations(), **bwd_instantiations(),
-            "geglu": geglu_instantiations()}
+            "geglu": geglu_instantiations(), "int8": int8_instantiations()}
 
 
 def _sass_and_ptxas(library):
@@ -363,6 +370,46 @@ def geglu_instantiations():
     if stray:
         raise RuntimeError(f"GEGLU kernels no width takes: {stray}")
     return records
+
+
+def int8_instantiations():
+    """What the int8 matmul library holds: per kernel, registers and spills
+    (ptxas), IGMMA (s8 wgmma) and IMMA (mma.sync) instructions in the
+    SASS, and the ptxas note that it serialised the wgmmas.  The product
+    kernels are int8_gemm<dtype, streamed>: two a dtype, fused and
+    streamed; quantize_rows is the streamed mode's first pass.  Fails on any
+    IMMA in the library, a product kernel without IGMMA or not four of
+    them, a spill, or serialised wgmmas; and records the plan
+    (``quant.plan``) at each timed shape."""
+    sass = {op: cuda_build.sass_counts("int8_matmul", op)
+            for op in ("IGMMA", "IMMA")}
+    ptxas = cuda_build.ptxas_kernels("int8_matmul")
+    if any(sass["IMMA"].values()):
+        raise RuntimeError(f"mma.sync (IMMA) in the int8 library: "
+                           f"{ {k: v for k, v in sass['IMMA'].items() if v} }")
+    records = []
+    for name in sass["IGMMA"]:
+        built = ptxas.get(name, "not built by this process")
+        rec = {"kernel": name, "igmma": sass["IGMMA"][name],
+               "imma": sass["IMMA"][name], "ptxas": built}
+        log("build", f"int8 {json.dumps(rec)}")
+        built = built if isinstance(built, dict) else {}
+        gemm = "int8_gemm" in name
+        if (gemm and not rec["igmma"]) or built.get("spill_bytes", 0) \
+                or built.get("wgmma_serialized", 0):
+            raise RuntimeError(f"{name}: {rec['igmma']} IGMMA, "
+                               f"{built.get('spill_bytes', 0)} spilled bytes, "
+                               f"wgmma serialised: "
+                               f"{bool(built.get('wgmma_serialized', 0))}")
+        records.append(rec)
+    if sum("int8_gemm" in r["kernel"] for r in records) != 4:
+        raise RuntimeError(f"the int8 library holds not four product "
+                           f"kernels: {[r['kernel'] for r in records]}")
+    plans = {f"{M}x{K}->{N}": quant.plan(torch.device("cuda"),
+                                          torch.bfloat16, M, N, K)
+             for M, K, N in INT8_TIMED}
+    log("build", f"int8 plans (bf16) {json.dumps(plans)}")
+    return {"kernels": records, "plans": plans}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -788,22 +835,42 @@ def int8_bound(M, K, N, dtype):
 
 
 def check_int8(M, K, N, dtype, timed):
-    """int8_matmul against its plain version: equal bit for bit."""
+    """int8_matmul against its plain version, equal bit for bit: the plan's
+    own choice of mode and every mode that can run the shape forced
+    (``quant._forced_plan``, ``quant._int8_matmul_mode``), each launched
+    once; ``launches`` is what the counter of ``quant.launch_counts()`` saw
+    of these launches."""
     g = torch.Generator(device="cuda").manual_seed(M + 3 * K + 7 * N)
     w = torch.randn(K, N, device="cuda", generator=g) * K ** -0.5
     w_q, w_s = quant.quantize_per_channel(w)
     x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
-    before = quant.launch_counts()["int8_matmul"]
-    out = quant.int8_matmul(x, w_q, w_s)
-    torch.cuda.synchronize()
-    if quant.launch_counts()["int8_matmul"] != before + 1:
-        raise RuntimeError("int8_matmul: the wrapper did not launch its "
-                           "kernels")
     ref = quant.int8_matmul_plain(x, w_q, w_s)
+    how = quant.plan(x.device, dtype, M, N, K)
     rec = {"M": M, "K": K, "N": N, "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
-           "equal": torch.equal(out, ref),
-           "ref_max": ref.float().abs().max().item()}
+           "plan": how, "ref_max": ref.float().abs().max().item(),
+           "max_abs_err": 0.0, "equal": True, "variants": {},
+           "launches": 0}
+    for variant in (None, "fused", "streamed"):
+        if variant is not None:
+            try:
+                quant._forced_plan(x.device, dtype, M, N, K, variant)
+            except ValueError:
+                continue        # a mode that cannot run the shape
+        before = quant.launch_counts()["int8_matmul"]
+        out = quant.int8_matmul(x, w_q, w_s) if variant is None \
+            else quant._int8_matmul_mode(x, w_q, w_s, variant)
+        torch.cuda.synchronize()
+        launched = quant.launch_counts()["int8_matmul"] - before
+        if launched != 1:
+            raise RuntimeError(f"int8_matmul: the wrapper counted {launched} "
+                               f"launches of its kernel, not 1")
+        rec["launches"] += launched
+        err = (out.float() - ref.float()).abs().max().item()
+        equal = out.shape == ref.shape and out.dtype == ref.dtype \
+            and torch.equal(out, ref)
+        rec["variants"][variant or "plan"] = equal
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["equal"] = rec["equal"] and equal
     if timed:
         iters = 10 if M * N >= 1 << 24 else 50
         (rec["kernel_ms"], rec["kernel_ms_min"]) = time_ms(
@@ -828,11 +895,69 @@ def check_int8(M, K, N, dtype, timed):
     return rec
 
 
+def quotient_rows():
+    """bf16 rows that hold, beside their absmax, every bf16 value the
+    quantisation can tell apart from 0: for each of the 128 bf16
+    significands of the absmax (at an exponent that moves from row group
+    to row group), every bf16 value of either sign down to 2^-13 of it; and
+    one group whose absmax is below the 1e-8 floor of the scale.  (K = 512
+    columns, which both modes of the kernel take; zeros where a group's
+    values run out.)"""
+    K = 512
+    bits = lambda e, m: np.uint32(((127 + e) << 23) | (m << 16))
+    rows = []
+    groups = [(m, (m * 7) % 41 - 20) for m in range(128)] + [(0, -30)]
+    for m_a, e_a in groups:
+        amax = np.array([bits(e_a, m_a)]).view(np.float32)[0]
+        vals = [np.array([bits(e, m)]).view(np.float32)[0]
+                for e in range(e_a - 13 if m_a else -45, e_a + 1)
+                for m in range(128)]
+        vals = [v for v in vals if v <= amax]
+        vals = np.array(vals + [-v for v in vals], np.float32)
+        for i in range(0, len(vals), K - 1):
+            row = np.zeros(K, np.float32)
+            row[0] = amax
+            row[1:1 + len(vals[i:i + K - 1])] = vals[i:i + K - 1]
+            rows.append(row)
+    return np.stack(rows)
+
+
+def check_int8_quotients():
+    """The bf16 quantisation divides by the row's scale through its
+    reciprocal and one exact residual step (csrc/int8_matmul.cu,
+    ``quotient``); here every mode of the kernel is held bit for bit to the
+    plain version (an IEEE division) on every bf16 value that matters
+    (``quotient_rows``), against the identity matrix, so that each
+    quantised value reaches the output on its own.  ``launches`` is what
+    the counter of ``quant.launch_counts()`` saw."""
+    x = torch.from_numpy(quotient_rows()).cuda().to(torch.bfloat16)
+    M, K = x.shape
+    w_q, w_s = quant.quantize_per_channel(torch.eye(K, device="cuda"))
+    ref = quant.int8_matmul_plain(x, w_q, w_s)
+    res = {"M": M, "K": K, "N": K, "launches": 0}
+    for variant in ("fused", "streamed"):
+        before = quant.launch_counts()["int8_matmul"]
+        out = quant._int8_matmul_mode(x, w_q, w_s, variant)
+        torch.cuda.synchronize()
+        launched = quant.launch_counts()["int8_matmul"] - before
+        if launched != 1:
+            raise RuntimeError(f"int8_matmul: the wrapper counted {launched} "
+                               f"launches of its kernel, not 1")
+        res["launches"] += launched
+        res[variant] = int((out != ref).sum().item())
+    log("kernels", f"int8_matmul bf16 quotients, elements that differ from "
+                   f"the plain version: {json.dumps(res)}")
+    if res["fused"] or res["streamed"]:
+        raise RuntimeError(f"int8_matmul: bf16 quotients differ {res}")
+    return res
+
+
 def phase_int8_kernels():
-    return [check_int8(M, K, N, dtype, timed=dtype == torch.bfloat16
-                       and M > 100)
+    recs = [check_int8(M, K, N, dtype, timed=dtype == torch.bfloat16
+                       and (M, K, N) in INT8_TIMED)
             for dtype in (torch.bfloat16, torch.float32)
             for M, K, N in INT8_SHAPES]
+    return recs, check_int8_quotients()
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -1576,7 +1701,7 @@ def main() -> int:
     shapes = phase_kernels()
     train_shapes = phase_train_kernels()
     geglu_shapes = phase_geglu_kernels()
-    int8_shapes = phase_int8_kernels()
+    int8_shapes, int8_quotients = phase_int8_kernels()
     phase_parity()
     phase_train_parity()
     launches, request_ms = phase_serve()
@@ -1652,7 +1777,9 @@ def main() -> int:
         "name": "int8_matmul", "route": "cuda", "source": INT8_SOURCE,
         "replaces": INT8_REPLACES,
         "launches": 0,                    # on no path: kernels phase only
-        "kernels_phase_launches": len(int8_shapes),
+        # the checked launches, as the counter saw them (not the timed ones)
+        "kernels_phase_launches": sum(r["launches"] for r in int8_shapes)
+        + int8_quotients["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in int8_shapes),
         "all_equal": all(r["equal"] for r in int8_shapes),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
@@ -1662,6 +1789,14 @@ def main() -> int:
         "library_call": "torch._int_mm on the quantised x, without the "
                         "quantisation and the dequantisation",
         "shape": {k: main_shape[k] for k in ("M", "K", "N", "dtype")},
+        "plan": main_shape["plan"],
+        "instantiations": instantiations["int8"]["kernels"],
+        # each timed shape: kernel, _int_mm, bound and plain ms, the plan
+        "timed": [{k: r[k] for k in ("M", "K", "N", "kernel_ms",
+                                     "library_int_mm_ms", "bound_ms",
+                                     "bound_by", "plain_ms")}
+                  | {"variant": r["plan"]["variant"]}
+                  for r in int8_shapes if "kernel_ms" in r],
         "shapes": int8_shapes})
     log("done", f"{time.perf_counter() - t_start:.0f} s in all; request ms "
                 f"({DDIM_STEPS} DDIM steps) {json.dumps(request_ms)}; train "

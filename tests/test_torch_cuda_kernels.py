@@ -280,6 +280,38 @@ def test_int8_matmul_equals_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_each_mode_equals_plain_on_card(dtype):
+    """Both instantiations of a dtype -- the fused one and the streamed one
+    (quantize_rows, then the product) -- bit for bit, forced at M, K and N
+    off the 128-wide tiles (both modes), N odd (plain stores) and K beyond a
+    resident row tile (the fused mode refuses those); the plan's own choice
+    as well."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for M, K, N in ((300, 320, 200), (1000, 512, 77), (136, 2600, 200)):
+        w_q, w_s = quant.quantize_per_channel(
+            torch.randn(K, N, device="cuda", generator=g))
+        x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+        ref = quant.int8_matmul_plain(x, w_q, w_s)
+        ran = []
+        for variant in (None, "fused", "streamed"):
+            if variant is not None:
+                try:
+                    quant._forced_plan(x.device, dtype, M, N, K, variant)
+                except ValueError:
+                    assert variant == "fused" and K > 320, (M, K, N, variant)
+                    continue
+            before = quant.launch_counts()["int8_matmul"]
+            out = quant.int8_matmul(x, w_q, w_s) if variant is None \
+                else quant._int8_matmul_mode(x, w_q, w_s, variant)
+            assert quant.launch_counts()["int8_matmul"] == before + 1
+            assert torch.equal(out, ref), (M, K, N, variant)
+            ran.append(variant)
+        assert "streamed" in ran and (K > 320 or "fused" in ran)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("norm", ["group", "layer"])
 def test_norms_bf16_input_fp32_affine_on_card(norm):
     """The norms' bf16 branch on the card with float32 parameters drawn away

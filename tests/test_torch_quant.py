@@ -42,7 +42,10 @@ def test_quantize_per_channel_equals_jax():
         np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("shape", [(128, 256, 128), (100, 300, 77)])
+# (136, 2600, 200): K beyond what the kernel keeps resident (its streamed
+# mode), M and N ragged at its 128-row and 128-column tiles
+@pytest.mark.parametrize("shape", [(128, 256, 128), (100, 300, 77),
+                                   (136, 2600, 200)])
 def test_int8_matmul_plain_equals_jax_kernel(shape):
     M, K, N = shape
     r = np.random.default_rng(1)
@@ -79,6 +82,21 @@ def test_int8_matmul_plain_bf16_input():
                                torch.bfloat16), q, s)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("bad", ["k_mismatch", "w_float", "scale_len",
+                                 "x_3d"])
+def test_int8_matmul_rejects_bad_inputs(bad):
+    """Shapes and types the function does not take are refused before any
+    device is touched, CPU included."""
+    x = torch.ones(2, 8)
+    q, s = tquant.quantize_per_channel(torch.ones(8, 4))
+    args = {"k_mismatch": (torch.ones(2, 6), q, s),
+            "w_float": (x, q.float(), s),
+            "scale_len": (x, q, s[:3]),
+            "x_3d": (x[None], q, s)}[bad]
+    with pytest.raises(ValueError, match="bad inputs"):
+        tquant.int8_matmul(*args)
 
 
 def test_quantize_dense_tree_equals_jax():

@@ -25,8 +25,12 @@
 #                     place, so that no barrier waits forever);
 #             gsplit  the first inner split's partial sums left out of the
 #                     reduction (geglu_finish);
-#   int8      rowscale  the activation scale taken from the row's first
-#                     64-value K tile instead of the whole row.
+#   int8      rowscale  the activation scale taken from the row's first 64
+#                     values instead of the whole row (both quantisers);
+#             i8order the dequantisation taken as acc * (xs * ws) instead of
+#                     (acc * xs) * ws;
+#             i8stage the second ring stage of every block read from the
+#                     stage after it, whose full barrier was not waited on.
 # Each copy runs the bf16 check of chip_smoke.py at three shapes: the forward
 # check at the serving shapes, the training check (forward with logsumexp,
 # dq, dk/dv) at the train step's shapes with a peaked softmax (for "split":
@@ -35,8 +39,9 @@
 # the 64^2, 32^2 and 16^2 levels (for "peer": the 32^2, 16^2 and mid levels,
 # whose clusters hold 2, 4 and 4 blocks over the output columns; for
 # "gsplit": the 16^2 and mid serving levels and the 16^2 training level,
-# whose inner dimension the plan splits), and the int8 check at the serving
-# shapes of the 64^2, 32^2 and 16^2 levels.  The unchanged copy must print no "CAUGHT", each broken copy
+# whose inner dimension the plan splits), and the int8 check (every mode
+# that can run the shape) at the serving shapes of the 64^2 FF-in
+# projection and the 32^2 and 16^2 q/k/v/out ones.  The unchanged copy must print no "CAUGHT", each broken copy
 # three; the script fails otherwise.  The repository itself is never
 # modified.
 set -euo pipefail
@@ -96,7 +101,7 @@ for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     except RuntimeError:
         print("CAUGHT", a)
 '
-cases="${*:-none scale stale rescale dqscale delta dvp split erf residual peer gsplit rowscale}"
+cases="${*:-none scale stale rescale dqscale delta dvp split erf residual peer gsplit rowscale i8order i8stage}"
 for mutation in $cases; do
   work="$(mktemp -d)"
   cp -r "$repo/." "$work"
@@ -114,7 +119,9 @@ for mutation in $cases; do
     residual) src=$ffn; sed -i 's/v = to_f32(static_cast<const T\*>(p.x)\[row \* p.x_s + col\]) + acc;/v = acc;/' "$work/$src" ;;
     peer) src=$ffn; sed -i 's/sY + piece, kYPieceBytes,/sY + (kr == 1 ? 0 : piece), kYPieceBytes,/' "$work/$src" ;;
     gsplit) src=$ffn; sed -i 's/float acc = p.part\[i\];/float acc = 0.f;/' "$work/$src" ;;
-    rowscale) src=$i8; sed -i 's/for (int k = lane; k < K; k += 32) amax/for (int k = lane; k < min(K, 64); k += 32) amax/' "$work/$src" ;;
+    rowscale) src=$i8; sed -i 's/if (vi < vend) amax = fmaxf(amax, absmax_vec<T>(v\[j\]));/if (vi < vend \&\& vi * (16 \/ (int)sizeof(T)) < 64) amax = fmaxf(amax, absmax_vec<T>(v[j]));/' "$work/$src" ;;
+    i8order) src=$i8; sed -i 's/((float)(int)(acc\[0\]\[e\] + acc\[1\]\[e\]) \* sx\[h\]) \* ws\[j\]\.x/(float)(int)(acc[0][e] + acc[1][e]) * (sx[h] * ws[j].x)/' "$work/$src" ;;
+    i8stage) src=$i8; sed -i 's/const unsigned char\* st = ring + s \* p.stage_bytes;/const unsigned char* st = ring + (it == 1 ? (s + 1) % S : s) * p.stage_bytes;/' "$work/$src" ;;
   esac
   echo "== mutation: $mutation"
   if [ $mutation != none ] && cmp -s "$repo/$src" "$work/$src"; then
@@ -126,7 +133,7 @@ for mutation in $cases; do
     erf|residual) out="$(cd "$work" && python3 -c "$check_geglu")" ;;
     peer) out="$(cd "$work" && python3 -c "$check_peer")" ;;
     gsplit) out="$(cd "$work" && python3 -c "$check_gsplit")" ;;
-    rowscale) out="$(cd "$work" && python3 -c "$check_int8")" ;;
+    rowscale|i8order|i8stage) out="$(cd "$work" && python3 -c "$check_int8")" ;;
     split) out="$(cd "$work" && python3 -c "$check_split")" ;;
     *) out="$(cd "$work" && python3 -c "$check_bwd")" ;;
   esac
