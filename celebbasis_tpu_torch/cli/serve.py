@@ -8,8 +8,12 @@ then serves requests over plain HTTP (``http.server`` from the stdlib):
     POST /txt2img  {"prompt": "...", "seed": 1, "ids": [0,1],
                     "n_samples": 2}
                              -> {"images": [<base64 PNG>...], "ms": ...}
-    POST /faces2img          -> 501: live-face personalisation needs the
-                                MetaIdNet, which is not ported yet
+    POST /faces2img {"prompt": "...", "faces": [<base64 image>...],
+                     "seed": 1, "n_samples": 1}
+                             -> {"images": [...], "ms": ...}
+                     live-face personalisation: the identity embeddings come
+                     from a MetaIdNet forward on the uploaded aligned crops
+                     (``test_mode='image'``), one face per placeholder slot
 
 **Continuous batching**: concurrent /txt2img requests are coalesced into one
 device call.  A batcher thread drains the queue into up to ``--batch`` rows
@@ -19,8 +23,11 @@ from ``(seed, sample_idx)``, so a request's pixels are identical whatever it
 is batched with and wherever it lands in the batch.  Requests larger than
 ``--batch`` are rejected with 400.
 
-The batcher thread owns the device: HTTP threads only enqueue jobs and wait,
-they never touch a CUDA tensor.
+The batcher thread runs the /txt2img device calls; HTTP threads only
+enqueue those jobs and wait.  A /faces2img request runs in its own HTTP
+thread, outside the batcher; the service's lock, which the batcher holds
+around its device call too, keeps one device call at a time.  ``--plms``
+selects the PLMS sampler for both routes.
 
 Usage:
     python -m celebbasis_tpu_torch.cli.serve --config configs/aigc_id.yaml \
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import io
 import json
 import queue
 import struct
@@ -42,6 +50,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from celebbasis_tpu_torch.diffusion.sampler import sample_seed
 from celebbasis_tpu_torch.ops import geglu
 from celebbasis_tpu_torch.ops.attention import resolved_impl
 
@@ -56,11 +65,6 @@ class _Job:
         self.error = None
 
 
-def sample_seed(seed: int, sample_idx: int) -> int:
-    """The generator seed of sample ``sample_idx`` of a request."""
-    return ((int(seed) & 0xFFFFFFFF) << 20) ^ int(sample_idx)
-
-
 class TxtToImgService:
     """Owns the assembly; a single batcher thread owns the device."""
 
@@ -68,8 +72,6 @@ class TxtToImgService:
         from celebbasis_tpu_torch.loader import assemble
         from celebbasis_tpu_torch.utils.config import load_run_spec
 
-        if args.plms:
-            raise NotImplementedError("--plms: only DDIM is ported so far")
         if spec is None:
             spec = load_run_spec(args.config)
         self.asm = assemble(
@@ -78,16 +80,21 @@ class TxtToImgService:
             seed=args.seed, device=args.device,
             param_dtype=torch.bfloat16 if args.precision == "bf16" else None)
         self.device = self.asm.device
-        self.fn = self.asm.pipeline.make_txt2img_fn(
+        self.sampler = "plms" if args.plms else "ddim"
+        sampler_args = dict(
             num_steps=args.ddim_steps, guidance_scale=args.scale,
-            eta=args.ddim_eta, image_size=args.H, sampler="ddim",
+            eta=args.ddim_eta, image_size=args.H, sampler=self.sampler,
             output="uint8")
+        self.fn = self.asm.pipeline.make_txt2img_fn(**sampler_args)
+        self.faces_fn = self.asm.pipeline.make_txt2img_faces_fn(
+            self.asm.meta_net, **sampler_args)
         self.batch = args.batch
         self.k = len(self.asm.pipeline.manager_cfg.placeholder_token_ids)
         self.default_ids = list(args.ids)
         self.image_size = args.H
         self.steps = args.ddim_steps
         self.window = args.batch_window_ms / 1e3
+        self._lock = threading.Lock()    # one device call at a time
         self._queue: "queue.Queue[_Job|None]" = queue.Queue()
         self._carry: _Job | None = None  # job that didn't fit the last batch
         self._uncond = None              # cached "" token batch
@@ -161,16 +168,18 @@ class TxtToImgService:
             if self._uncond is None:
                 self._uncond = as_dev(self.asm.tokenizer([""] * self.batch))
             gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
-            imgs = self.fn(self.asm.manager_state, self.asm.basis, tokens,
-                           self._uncond, as_dev(ids_rows), as_dev(nids), gens)
-            imgs = imgs.cpu().numpy()            # waits for the device
-            self.batched_calls += 1
-            self.batched_rows += self.batch - pad
+            with self._lock:
+                imgs = self.fn(self.asm.manager_state, self.asm.basis, tokens,
+                               self._uncond, as_dev(ids_rows), as_dev(nids),
+                               gens)
+                imgs = imgs.cpu().numpy()        # waits for the device
+                self.batched_calls += 1
+                self.batched_rows += self.batch - pad
+                self.requests += len(jobs)
             at = 0
             for job in jobs:
                 job.result = imgs[at:at + job.n]
                 at += job.n
-                self.requests += 1
                 job.event.set()
         except Exception as e:               # noqa: BLE001 -- report to caller
             for job in jobs:
@@ -194,6 +203,60 @@ class TxtToImgService:
         if job.error is not None:
             raise job.error
         return job.result
+
+    def generate_faces(self, prompt: str, faces_u8, seed: int = 42,
+                       n_samples: int = 1) -> np.ndarray:
+        """Live-face personalisation: ``faces_u8``, k (H, W, 3) uint8 aligned
+        crops of any size, one per placeholder slot (``ids = arange(k)``).
+        They are resized to the service's image size and normalised to
+        [-1, 1] on the device.  -> (n_samples, H, W, 3) uint8; sample j draws
+        from a generator seeded from ``(seed, j)``, as on /txt2img."""
+        from torch.nn import functional as F
+
+        if not (1 <= n_samples <= self.batch):
+            raise ValueError(f"n_samples must be in [1, {self.batch}]; got "
+                             f"{n_samples}")
+        k = len(faces_u8)
+        if not 1 <= k <= self.k:
+            raise ValueError(f"faces: 1 to {self.k} crops (one per "
+                             f"placeholder slot); got {k}")
+        dev, size, B = self.device, self.image_size, n_samples
+        as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+        tokens = as_dev(self.asm.tokenizer([prompt] * B))
+        uncond = as_dev(self.asm.tokenizer([""] * B))
+        ids = as_dev(np.tile(np.arange(k), (B, 1)))
+        num_ids = as_dev([k] * B)
+        gens = [torch.Generator(device=dev).manual_seed(sample_seed(seed, j))
+                for j in range(B)]
+        with self._lock:
+            crops = []
+            for face in faces_u8:
+                x = torch.from_numpy(np.ascontiguousarray(face)).to(dev)
+                x = x.permute(2, 0, 1)[None].float()
+                if x.shape[-2:] != (size, size):
+                    x = F.interpolate(x, size=(size, size), mode="bilinear",
+                                      antialias=True, align_corners=False)
+                crops.append(x[0].permute(1, 2, 0) / 127.5 - 1.0)
+            faces = torch.stack(crops)[None].expand(B, k, size, size, 3)
+            imgs = self.faces_fn(self.asm.basis, tokens, uncond, faces, ids,
+                                 num_ids, gens)
+            imgs = imgs.cpu().numpy()
+            self.requests += 1
+        return imgs
+
+
+def decode_faces(b64_list) -> list:
+    """Base64 images (PNG, JPEG, ... as PIL reads them) -> a list of
+    (H, W, 3) uint8 arrays."""
+    from PIL import Image
+
+    if not isinstance(b64_list, list) or not b64_list:
+        raise ValueError("faces must be a non-empty list of base64 images")
+    try:
+        return [np.array(Image.open(io.BytesIO(base64.b64decode(b)))
+                         .convert("RGB"), np.uint8) for b in b64_list]
+    except OSError as e:         # PIL's "cannot identify image file"
+        raise ValueError(f"faces: {e}") from e
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -238,6 +301,7 @@ def make_handler(service: TxtToImgService):
                     "batch": service.batch, "steps": service.steps,
                     "image_size": service.image_size,
                     "device": str(service.device),
+                    "sampler": service.sampler,
                     "attention": resolved_impl(service.device),
                     "geglu": geglu.resolved_impl(service.device),
                     "requests": service.requests,
@@ -250,20 +314,22 @@ def make_handler(service: TxtToImgService):
         def do_POST(self):
             n = int(self.headers.get("Content-Length", "0"))
             body = self.rfile.read(n)
-            if self.path == "/faces2img":
-                return self._reply(501, {
-                    "error": "/faces2img needs the MetaIdNet, which is not "
-                             "ported yet"})
-            if self.path != "/txt2img":
+            if self.path not in ("/txt2img", "/faces2img"):
                 return self._reply(404, {"error": "unknown path"})
             try:
                 req = json.loads(body or b"{}")
                 prompt = req["prompt"]
                 t0 = time.perf_counter()
-                imgs = service.generate(
-                    prompt, seed=int(req.get("seed", 42)),
-                    ids=req.get("ids"),
-                    n_samples=int(req.get("n_samples", 1)))
+                if self.path == "/faces2img":
+                    imgs = service.generate_faces(
+                        prompt, decode_faces(req["faces"]),
+                        seed=int(req.get("seed", 42)),
+                        n_samples=int(req.get("n_samples", 1)))
+                else:
+                    imgs = service.generate(
+                        prompt, seed=int(req.get("seed", 42)),
+                        ids=req.get("ids"),
+                        n_samples=int(req.get("n_samples", 1)))
                 ms = (time.perf_counter() - t0) * 1e3
             except (KeyError, ValueError, TypeError) as e:
                 return self._reply(400, {"error": str(e)})
@@ -319,7 +385,8 @@ def main(argv=None):
     httpd = ThreadingHTTPServer((args.host, args.port),
                                 make_handler(service))
     print(f"[serve] listening on http://{args.host}:{httpd.server_address[1]}"
-          f" (batch={args.batch}, {args.ddim_steps} steps, "
+          f" (batch={args.batch}, {args.ddim_steps} {service.sampler} "
+          f"steps, "
           f"{service.device}, attention route "
           f"{resolved_impl(service.device)}, GEGLU route "
           f"{geglu.resolved_impl(service.device)})")

@@ -22,7 +22,7 @@ port imports nothing of the JAX package).  Behaviour of the reference:
 By design the SVD sign convention is canonicalised (largest-|v| element
 positive) so the basis is deterministic across linalg backends, and the
 result is cached on disk keyed by a content hash.  ``.pt`` io goes through
-torch.
+``utils.pt_io``.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import List, Sequence
 import numpy as np
 
 from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
+from celebbasis_tpu_torch.utils.pt_io import load_pt, save_pt
 
 
 @dataclass(frozen=True)
@@ -180,15 +181,11 @@ def build_celeb_basis_cached(names_path: str, tokenizer: CLIPTokenizer,
 
 def save_basis_pt(basis: np.ndarray, path: str) -> None:
     """Reference-compatible celeb_basis.pt (a bare float32 tensor)."""
-    import torch
-    torch.save(torch.from_numpy(np.ascontiguousarray(basis, np.float32)),
-               path)
+    save_pt(np.asarray(basis, np.float32), path)
 
 
 def load_basis_pt(path: str) -> np.ndarray:
-    import torch
-    basis = torch.load(path, map_location="cpu", weights_only=True)
-    return np.asarray(torch.as_tensor(basis).float().numpy(), np.float32)
+    return load_pt(path).float().numpy()
 
 
 def reconstruct(coefficients: np.ndarray, basis: np.ndarray) -> np.ndarray:

@@ -23,6 +23,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from celebbasis_tpu_torch.core.injection import inject_batch
+from celebbasis_tpu_torch.utils.pt_io import load_pt, save_pt
 
 
 @dataclass(frozen=True)
@@ -258,7 +259,7 @@ def save_checkpoint(cfg: ManagerConfig, state: ManagerState, path: str,
                                      in meta_net.state_dict().items()}}
     else:
         raise ValueError(f"unknown test_mode {cfg.test_mode!r}")
-    torch.save(save_dict, path)
+    save_pt(save_dict, path)
 
 
 def load_checkpoint(cfg: ManagerConfig, path: str,
@@ -266,7 +267,7 @@ def load_checkpoint(cfg: ManagerConfig, path: str,
                     device: torch.device | str = "cpu") -> ManagerState:
     """Reads a reference- or self-produced ``.pt`` (lists of per-id tensors
     under ``id_coefficients`` and/or ``id_embeddings``)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = load_pt(path)
     if state is None:
         state = ManagerState(
             torch.zeros((cfg.max_ids, cfg.reps, cfg.token_dim)),

@@ -1,21 +1,24 @@
 """End-to-end CelebBasis pipeline: models + basis + manager glued together.
 
-Counterpart of ``celebbasis_tpu/pipeline.py`` for the txt2img path:
+Counterpart of ``celebbasis_tpu/pipeline.py``:
 
     tokens -> CLIP token table -> identity injection -> CLIP encoder
-           -> (context) -> UNet eps -> DDIM loop -> VAE decode
+           -> (context) -> UNet eps -> DDIM / PLMS loop -> VAE decode
 
 The pipeline is an ``nn.Module`` that owns the three models (``unet``,
 ``vae``, ``clip``), so one ``state_dict`` carries what the JAX package keeps
 in its ``{"unet", "vae", "clip"}`` params tree, and ``.to(device)`` moves it.
-``make_txt2img_fn`` returns a function from prompt tokens to finished images
-that runs under ``torch.inference_mode()``.
+``make_txt2img_fn`` (identities from saved coefficients) and
+``make_txt2img_faces_fn`` (identities from a live MetaIdNet forward on face
+crops) return functions from prompt tokens to finished images that run under
+``torch.inference_mode()``.
 
-The live-face and textual-inversion variants (``make_txt2img_faces_fn``,
-``make_txt2img_ti_fn``) are not ported yet.
+The textual-inversion variant (``make_txt2img_ti_fn``) waits for
+``core/textual_inversion.py`` (ROADMAP A5).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -24,7 +27,8 @@ import torch.nn as nn
 
 from celebbasis_tpu_torch.core import manager as mgr
 from celebbasis_tpu_torch.core.basis import BasisConfig
-from celebbasis_tpu_torch.diffusion.sampler import SamplerConfig, ddim_sample
+from celebbasis_tpu_torch.diffusion.sampler import (SamplerConfig,
+                                                    ddim_sample, plms_sample)
 from celebbasis_tpu_torch.diffusion.schedules import (NoiseSchedule,
                                                       make_ddim_schedule,
                                                       make_schedule)
@@ -137,7 +141,31 @@ class CelebBasisPipeline(nn.Module):
     def eps_model(self):
         return self.unet
 
-    # -- end-to-end sampler -------------------------------------------------
+    # -- end-to-end samplers ------------------------------------------------
+    def _sample_and_decode(self, sampler: str, num_steps: int,
+                           guidance_scale: float, eta: float,
+                           image_size: int, output: str):
+        """-> run(cond, uncond, generators, x_T) -> finished images: the
+        sampler named ``sampler`` ("ddim" or "plms") over a fixed DDIM
+        schedule, then the VAE decode and :func:`finish_images`."""
+        samplers = {"ddim": ddim_sample, "plms": plms_sample}
+        if sampler not in samplers:
+            raise ValueError(f"unknown sampler {sampler!r}; expected one of "
+                             f"{sorted(samplers)}")
+        sample_fn = samplers[sampler]
+        ddim = make_ddim_schedule(self.schedule, num_steps, eta)
+        lat = image_size // self.latent_factor
+        scfg = SamplerConfig(guidance_scale=guidance_scale, eta=eta)
+
+        def run(cond, uncond, generators, x_T):
+            x = sample_fn(self.eps_model(), ddim, generators=generators,
+                          shape=(cond.shape[0], lat, lat, 4), cond=cond,
+                          uncond=uncond, cfg=scfg, x_T=x_T)
+            img = self.vae.decode(x / self.cfg.scale_factor)
+            return finish_images(img, output)
+
+        return run
+
     def make_txt2img_fn(self, num_steps: int = 50,
                         guidance_scale: float = 10.0, eta: float = 0.0,
                         image_size: int = 512, sampler: str = "ddim",
@@ -148,26 +176,46 @@ class CelebBasisPipeline(nn.Module):
 
         ``generators``: one ``torch.Generator`` per row (see
         ``diffusion.sampler``); ``x_T``: optional explicit start latents
-        (B, lat, lat, 4).  Default recipe: DDIM 50 / scale 10 / eta 0.
+        (B, lat, lat, 4).  ``sampler``: "ddim" or "plms".  Default recipe:
+        DDIM 50 / scale 10 / eta 0.
         """
-        if sampler != "ddim":
-            raise NotImplementedError(
-                f"sampler {sampler!r}: only 'ddim' is ported so far")
-        ddim = make_ddim_schedule(self.schedule, num_steps, eta)
-        lat = image_size // self.latent_factor
-        scfg = SamplerConfig(guidance_scale=guidance_scale, eta=eta)
+        run = self._sample_and_decode(sampler, num_steps, guidance_scale,
+                                      eta, image_size, output)
 
         @torch.inference_mode()
         def fn(manager_state, basis, tokens, uncond_tokens, ids, num_ids,
                generators: Optional[Sequence[torch.Generator]], x_T=None):
-            B = tokens.shape[0]
             cond = self.conditioning(tokens, manager_state, basis, ids,
                                      num_ids)
-            uncond = self.conditioning(uncond_tokens)
-            x = ddim_sample(self.eps_model(), ddim, generators=generators,
-                            shape=(B, lat, lat, 4), cond=cond, uncond=uncond,
-                            cfg=scfg, x_T=x_T)
-            img = self.vae.decode(x / self.cfg.scale_factor)
-            return finish_images(img, output)
+            return run(cond, self.conditioning(uncond_tokens), generators,
+                       x_T)
+
+        return fn
+
+    def make_txt2img_faces_fn(self, meta_net, num_steps: int = 50,
+                              guidance_scale: float = 10.0, eta: float = 0.0,
+                              image_size: int = 512, sampler: str = "ddim",
+                              output: str = "float"):
+        """Live-face personalisation at inference (``test_mode='image'``):
+        the identity embeddings come from a MetaIdNet forward on face crops
+        instead of saved coefficients.
+
+        Returns fn(basis, tokens, uncond_tokens, faces, ids, num_ids,
+        generators, x_T=None) -> images; faces (B, k, Hf, Wf, 3) aligned
+        crops in [-1, 1], ids (B, k) the face slots' identity indices.
+        """
+        run = self._sample_and_decode(sampler, num_steps, guidance_scale,
+                                      eta, image_size, output)
+        m_cfg = dataclasses.replace(self.manager_cfg, test_mode="image")
+
+        @torch.inference_mode()
+        def fn(basis, tokens, uncond_tokens, faces, ids, num_ids,
+               generators: Optional[Sequence[torch.Generator]], x_T=None):
+            pred_z, _ = meta_net.multi_faces(faces, ids, basis)
+            embeds = self.clip.token_embed(tokens)
+            embeds = mgr.test_inject(m_cfg, None, basis, tokens, embeds, ids,
+                                     num_ids, pred_z=pred_z)
+            return run(self.clip.encode(embeds),
+                       self.conditioning(uncond_tokens), generators, x_T)
 
         return fn

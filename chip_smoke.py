@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths once each at full Stable Diffusion v1 width
-on random weights -- serving (``celebbasis_tpu_torch.cli.serve``) and
-personalisation training (``celebbasis_tpu_torch.train``) -- and holds every
-hand-written kernel against its plain PyTorch version.  Phases:
+Drives the port's main paths once each at full Stable Diffusion v1 width on
+random weights -- serving (``celebbasis_tpu_torch.cli.serve``, txt2img and
+live faces), personalisation training (``celebbasis_tpu_torch.train``) and
+generation through the CLIs (``cli/{txt2img,img2img,build_basis,extract}``,
+and the DDPM chain) -- and holds every hand-written kernel against its plain
+PyTorch version.  Phases:
 
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
 2. ``build``   builds the kernel libraries from ``celebbasis_tpu_torch/csrc``,
@@ -33,22 +35,34 @@ hand-written kernel against its plain PyTorch version.  Phases:
                float32 formula rounded once (within one bf16 unit); the tiny
                pipeline in fp32 through the kernel route and through the
                plain route (attention, then GEGLU): pixels agree within one
-               level;
+               level; the tiny PLMS chain (5 steps, every order) and the
+               tiny live-face function on both attention routes: float
+               images within 1e-3, pixels within one level;
 5. ``train_parity`` the tiny train step in fp32: loss and MLP gradients with
                attention, then GEGLU, on the kernel route against the plain
                route;
 6. ``serve``   ``TxtToImgService`` on ``configs/aigc_id.yaml`` (bf16, 512x512,
                batch 2) behind the real ``ThreadingHTTPServer``: requests
                alone, co-batched, repeated, in both attention layouts, and
-               with the GEGLU kernel route; the kernels' launch counters must
-               account for every UNet call;
+               with the GEGLU kernel route, and two ``/faces2img`` requests
+               (two 512x512 crops, two images, the same bytes for the same
+               seed); the kernels' launch counters must account for every
+               UNet call;
 7. ``train``   ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
                512x512 images, batch 2, two 512x512 faces per sample,
                synthetic batches): a few uncached steps and two cached ones;
                losses, what moved and what stayed frozen, launch counters,
                the checkpoint, and one step's MLP gradient against the plain
                attention route; then the same gradient and a few uncached
-               and cached steps with the GEGLU kernel route.
+               and cached steps with the GEGLU kernel route;
+8. ``generate`` the generation CLIs in process on ``configs/aigc_id.yaml``
+               (bf16, 512x512, two samples, the output convs drawn): a
+               20-step PLMS txt2img (21 UNet calls), txt2img on two face
+               crops, a masked img2img at strength 0.5; ``ddpm_sample`` over
+               the full 1000-step schedule with guidance; ``build_basis`` and
+               ``extract`` on the train phase's checkpoint (the files' shapes
+               as the JAX package writes them).  Each with its wall time,
+               peak memory, UNet calls and flash launches.
 
 Exits non-zero if any phase fails or if there is no CUDA device.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
@@ -57,6 +71,7 @@ it is the ``{"kernels": [...]}`` record.
 from __future__ import annotations
 
 import base64
+import contextlib
 import ctypes
 import json
 import os
@@ -1016,49 +1031,30 @@ def phase_parity():
     from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 
     check_norm_affine()
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     log("parity", "cudnn.allow_tf32 = matmul.allow_tf32 = False")
-    try:
-        cfg = PipelineConfig.tiny()
-        tok = CLIPTokenizer.synthetic(cfg.clip.vocab_size)
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        with torch.device("cuda"):
-            pipe = CelebBasisPipeline(cfg, tok)
-        pipe.requires_grad_(False).eval()
-        init_weights(pipe, gen, zero_convs=False)
-        basis = torch.from_numpy(build_celeb_basis(
-            _FALLBACK_NAMES, tok, pipe.token_table(), cfg.basis)).cuda()
-        state = mgr.init_state(pipe.manager_cfg, gen, device="cuda")
-        size, B = 64, 2
-        fn = pipe.make_txt2img_fn(num_steps=4, guidance_scale=10.0,
-                                  image_size=size, output="float")
-        dev = lambda a: torch.from_numpy(np.asarray(a, np.int64)).cuda()
-        tokens = dev(tok(["a photo of a sks person", "a ks person and a dog"]))
-        uncond = dev(tok([""] * B))
-        k = len(pipe.manager_cfg.placeholder_token_ids)
-        ids = dev([[0, 1] + [0] * (k - 2), [1, 0] + [0] * (k - 2)])
-        num_ids = dev([2, 2])
-        lat = size // pipe.latent_factor
-        x_T = torch.randn(B, lat, lat, 4, device="cuda", generator=gen)
-
-        fa.reset_launch_count()
-        img_k = fn(state, basis, tokens, uncond, ids, num_ids, None, x_T=x_T)
-        n_kernel = fa.launch_count()
-        attn_ops.set_default_impl("xla")
-        try:
-            fa.reset_launch_count()
-            img_p = fn(state, basis, tokens, uncond, ids, num_ids, None,
-                       x_T=x_T)
-            n_plain = fa.launch_count()
-        finally:
-            attn_ops.set_default_impl(None)
-        torch.cuda.synchronize()
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
+    cfg = PipelineConfig.tiny()
+    tok = CLIPTokenizer.synthetic(cfg.clip.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.device("cuda"):
+        pipe = CelebBasisPipeline(cfg, tok)
+    pipe.requires_grad_(False).eval()
+    init_weights(pipe, gen, zero_convs=False)
+    basis = torch.from_numpy(build_celeb_basis(
+        _FALLBACK_NAMES, tok, pipe.token_table(), cfg.basis)).cuda()
+    state = mgr.init_state(pipe.manager_cfg, gen, device="cuda")
+    size, B = 64, 2
+    fn = pipe.make_txt2img_fn(num_steps=4, guidance_scale=10.0,
+                              image_size=size, output="float")
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.int64)).cuda()
+    tokens = dev(tok(["a photo of a sks person", "a ks person and a dog"]))
+    uncond = dev(tok([""] * B))
+    k = len(pipe.manager_cfg.placeholder_token_ids)
+    ids = dev([[0, 1] + [0] * (k - 2), [1, 0] + [0] * (k - 2)])
+    num_ids = dev([2, 2])
+    lat = size // pipe.latent_factor
+    x_T = torch.randn(B, lat, lat, 4, device="cuda", generator=gen)
+    img_k, n_kernel, img_p, n_plain = kernel_vs_plain(
+        lambda: fn(state, basis, tokens, uncond, ids, num_ids, None, x_T=x_T))
     u8_k = finish_images(img_k, "uint8").int()
     u8_p = finish_images(img_p, "uint8").int()
     dfloat = (img_k - img_p).abs().max().item()
@@ -1074,18 +1070,16 @@ def phase_parity():
     if dpix > 1:
         raise RuntimeError(f"parity: pixels differ by {dpix} levels (> 1)")
     # the same with the FF sub-blocks on the GEGLU kernel route
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     geglu.set_default_impl("cuda")
     try:
-        geglu.reset_launch_count()
-        img_g = fn(state, basis, tokens, uncond, ids, num_ids, None, x_T=x_T)
-        torch.cuda.synchronize()
-        n_geglu = geglu.launch_counts()
+        with no_tf32():
+            geglu.reset_launch_count()
+            img_g = fn(state, basis, tokens, uncond, ids, num_ids, None,
+                       x_T=x_T)
+            torch.cuda.synchronize()
+            n_geglu = geglu.launch_counts()
     finally:
         geglu.set_default_impl(None)
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
     n_ff = ff_blocks(pipe.unet)
     dpix = (finish_images(img_g, "uint8").int() - u8_k).abs().max().item()
     log("parity", f"GEGLU kernel route vs plain route: launches {n_geglu} "
@@ -1099,6 +1093,107 @@ def phase_parity():
     if not torch.isfinite(img_g).all() or dpix > 1:
         raise RuntimeError(f"parity: the GEGLU routes differ by {dpix} "
                            f"levels (> 1)")
+    check_generation_parity(pipe, basis, state, tokens, uncond, ids, num_ids,
+                            x_T, gen, size, n_kernel)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for convolutions and matrix products, so that only the route
+    under test differs between two runs."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def kernel_vs_plain(run):
+    """``run()`` with TF32 off, on the attention kernel route and then on the
+    plain route -> (kernel image, its flash launches, plain image, its flash
+    launches)."""
+    with no_tf32():
+        fa.reset_launch_count()
+        img_k = run()
+        n_k = fa.launch_count()
+        attn_ops.set_default_impl("xla")
+        try:
+            fa.reset_launch_count()
+            img_p = run()
+            n_p = fa.launch_count()
+        finally:
+            attn_ops.set_default_impl(None)
+        torch.cuda.synchronize()
+    return img_k, n_k, img_p, n_p
+
+
+def check_generation_parity(pipe, basis, state, tokens, uncond, ids, num_ids,
+                            x_T, gen, size, n_txt2img):
+    """The tiny fp32 PLMS chain (5 steps: first to fourth order, 6 UNet
+    calls) and the tiny live-face function (a tiny MetaIdNet on two crops a
+    row, 4 DDIM steps), kernel route against plain route: float images
+    within 1e-3, pixels within one level (the pipeline tests' limits).
+    ``n_txt2img``: the kernel launches of the 4-step txt2img run, 4 UNet
+    calls and the tiny VAE decode's one attention."""
+    import dataclasses
+
+    from celebbasis_tpu_torch.core.meta_net import MetaIdNet, MetaNetConfig
+    from celebbasis_tpu_torch.loader import init_weights
+    from celebbasis_tpu_torch.pipeline import finish_images
+
+    cfg, B = pipe.cfg, tokens.shape[0]
+    with torch.inference_mode():              # one guided UNet call
+        fa.reset_launch_count()
+        pipe.unet(torch.cat([x_T, x_T]),
+                  torch.full((2 * B,), 500, device="cuda"),
+                  torch.zeros(2 * B, cfg.clip.max_length, cfg.clip.width,
+                              device="cuda"))
+        per_call = fa.launch_count()
+    plms = pipe.make_txt2img_fn(num_steps=5, guidance_scale=10.0,
+                                image_size=size, sampler="plms",
+                                output="float")
+    m_cfg = dataclasses.replace(MetaNetConfig.tiny(),
+                                inner_dim=cfg.basis.n_components,
+                                token_dim=cfg.clip.width)
+    with torch.device("cuda"):
+        meta = MetaIdNet(m_cfg, dtype=torch.float32)
+    init_weights(meta.requires_grad_(False).eval(), gen)
+    faces = torch.rand(B, 2, size, size, 3, device="cuda",
+                       generator=gen) * 2 - 1
+    faces_fn = pipe.make_txt2img_faces_fn(meta, num_steps=4,
+                                          guidance_scale=10.0,
+                                          image_size=size, output="float")
+    face_ids = torch.arange(2, device="cuda").expand(B, 2)
+    face_num = torch.tensor([2, 1], device="cuda")
+    cases = {
+        "plms": (6, lambda: plms(state, basis, tokens, uncond, ids, num_ids,
+                                 None, x_T=x_T)),
+        "faces": (4, lambda: faces_fn(basis, tokens, uncond, faces, face_ids,
+                                      face_num, None, x_T=x_T)),
+    }
+    for name, (calls, run) in cases.items():
+        img_k, n_k, img_p, n_p = kernel_vs_plain(run)
+        dfloat = (img_k - img_p).abs().max().item()
+        dpix = (finish_images(img_k, "uint8").int()
+                - finish_images(img_p, "uint8").int()).abs().max().item()
+        log("parity", f"tiny fp32 {name} {size}x{size}: kernel launches "
+                      f"{n_k} ({calls} UNet calls; plain route {n_p}), max "
+                      f"|float diff| {dfloat:.3e}, max pixel diff {dpix} "
+                      f"levels, image std {img_k.std().item():.3f}")
+        if not torch.isfinite(img_k).all() or img_k.std().item() < 1e-3:
+            raise RuntimeError(f"parity: the {name} image is not finite or "
+                               f"is constant")
+        want = n_txt2img + (calls - 4) * per_call
+        if n_k != want or n_p != 0:
+            raise RuntimeError(f"parity: {name} launched {n_k} / {n_p}; "
+                               f"expected {want} / 0")
+        if dfloat > 1e-3 or dpix > 1:
+            raise RuntimeError(f"parity: {name} routes differ by {dfloat:.3e}"
+                               f" (> 1e-3) or {dpix} levels (> 1)")
 
 
 def ff_blocks(unet) -> int:
@@ -1259,9 +1354,9 @@ def decode_png(data: bytes) -> np.ndarray:
     return rows[:, 1:].reshape(h, w, 3).copy()
 
 
-def post(url, obj):
+def post(url, obj, path="/txt2img"):
     req = urllib.request.Request(
-        url + "/txt2img", data=json.dumps(obj).encode(),
+        url + path, data=json.dumps(obj).encode(),
         headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=600) as r:
@@ -1275,11 +1370,19 @@ def healthz(url):
         return json.loads(r.read())
 
 
+def face_crops(size, seed, k=2):
+    """k random-pixel (size, size, 3) uint8 crops from a numpy seed."""
+    r = np.random.default_rng(seed)
+    return [r.integers(0, 256, (size, size, 3), dtype=np.uint8)
+            for _ in range(k)]
+
+
 def phase_serve():
     from http.server import ThreadingHTTPServer
 
     from celebbasis_tpu_torch.cli.serve import (TxtToImgService,
-                                                build_argparser, make_handler)
+                                                build_argparser, encode_png,
+                                                make_handler)
     from celebbasis_tpu_torch.loader import init_weights
     from celebbasis_tpu_torch.utils.config import RunSpec, load_run_spec
     from celebbasis_tpu_torch.utils.precision import cast_float_params
@@ -1367,6 +1470,27 @@ def phase_serve():
         n_per_head = fa.launch_count("flash_attention")
         h = healthz(url)
 
+        # live faces: two 512x512 crops, two samples, outside the batcher
+        faces_req = {"prompt": "a photo of a sks person and a ks person",
+                     "seed": 41, "n_samples": 2,
+                     "faces": [base64.b64encode(encode_png(c)).decode()
+                               for c in face_crops(512, 31)]}
+        face_bodies = []
+        fa.reset_launch_count()
+        for name in ("faces", "faces_repeat"):
+            code, body = post(url, faces_req, path="/faces2img")
+            if code != 200:
+                raise RuntimeError(f"request {name}: HTTP {code} {body}")
+            results[name] = ([decode_png(base64.b64decode(b))
+                              for b in body["images"]], body["ms"])
+            face_bodies.append(body["images"])
+            log("serve", f"request {name}: {body['ms']:.1f} ms, 2 crops, 2 "
+                         f"images, {DDIM_STEPS} steps")
+        n_faces = {n: c for n, c in fa.launch_counts().items() if c}
+        code, body = post(url, dict(faces_req, faces=[]), path="/faces2img")
+        if code != 400:
+            raise RuntimeError(f"/faces2img without faces answered {code}")
+
         # the FF sub-blocks on the GEGLU kernel route
         geglu.set_default_impl("cuda")
         h_geglu = healthz(url)
@@ -1393,6 +1517,16 @@ def phase_serve():
     if calls_pair != 1:
         raise RuntimeError(f"the two concurrent requests took {calls_pair} "
                            f"device calls, not 1")
+    log("serve", f"/faces2img: launches {json.dumps(n_faces)} over two "
+                 f"requests; sampler {h['sampler']!r}")
+    if n_faces != {"flash_attention_nhd": 2 * ATTN_PER_UNET * DDIM_STEPS}:
+        raise RuntimeError(f"/faces2img launched {n_faces}; expected "
+                           f"{ATTN_PER_UNET * DDIM_STEPS} packed a request")
+    if len(results["faces"][0]) != 2 or face_bodies[0] != face_bodies[1]:
+        raise RuntimeError("/faces2img: not two images, or not the same "
+                           "bytes for the same seed")
+    if h["sampler"] != "ddim":
+        raise RuntimeError(f"/healthz names the sampler {h['sampler']!r}")
     want = ATTN_PER_UNET * DDIM_STEPS
     if n_packed != want * calls_packed or n_other != 0:
         raise RuntimeError(
@@ -1442,7 +1576,9 @@ def phase_serve():
                            f"UNet call")
     if not np.array_equal(results["geglu_cuda_repeat"][0][0], img_g):
         raise RuntimeError("the GEGLU route does not repeat its pixels")
-    return ({"flash_attention_nhd": n_packed, "flash_attention": n_per_head,
+    return ({"flash_attention_nhd": n_packed
+             + n_faces["flash_attention_nhd"],
+             "flash_attention": n_per_head,
              "geglu_block": n_geglu["geglu_block"]},
             {name: ms for name, (_, ms) in results.items()})
 
@@ -1460,7 +1596,9 @@ def checksum(module) -> int:
     return total
 
 
-def phase_train():
+def phase_train(keep_dir):
+    """``Trainer.fit`` at full width (module docstring, phase 7); copies the
+    run's last checkpoint into ``keep_dir`` for the generate phase."""
     from celebbasis_tpu_torch.core import manager as mgr
     from celebbasis_tpu_torch.loader import assemble, init_weights
     from celebbasis_tpu_torch.train import step as tstep
@@ -1557,6 +1695,8 @@ def phase_train():
             device="cuda")
         if not torch.equal(back.id_coefficients, new.id_coefficients):
             raise RuntimeError("train: the checkpoint does not read back")
+        shutil.copy(os.path.join(trainer.run_dir, "checkpoints", want[-1]),
+                    keep_dir)
         log("train", f"checkpoints {ckpts} read back; MLP moved by "
                      f"{(meta.mlp.layer_0.weight - w0).abs().max().item():.4f}"
                      f"; dictionaries moved at ids "
@@ -1688,6 +1828,203 @@ def phase_train():
              "peak_gib": peak / 2 ** 30, **geglu_ms})
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+class DrawnAssemblies:
+    """While entered, every ``loader.assemble`` (the one the CLIs call) draws
+    its UNet's zero-initialised output convs, as the serve phase does, and
+    counts the UNet's calls; ``calls`` and ``assemble_s`` add up over all
+    assemblies made inside."""
+
+    def __enter__(self):
+        from celebbasis_tpu_torch import loader
+        from celebbasis_tpu_torch.utils.precision import cast_float_params
+
+        self.calls, self.assemble_s = 0, 0.0
+        self._loader, self._real = loader, loader.assemble
+
+        def assemble(*args, **kw):
+            t0 = time.perf_counter()
+            asm = self._real(*args, **kw)
+            loader.init_weights(asm.pipeline.unet,
+                                torch.Generator(device="cuda").manual_seed(5),
+                                zero_convs=False)
+            if kw.get("param_dtype") is not None:
+                cast_float_params(asm.pipeline, kw["param_dtype"])
+            asm.pipeline.unet.register_forward_pre_hook(self._count)
+            self.assemble_s += time.perf_counter() - t0
+            return asm
+
+        loader.assemble = assemble
+        return self
+
+    def _count(self, module, args):
+        self.calls += 1
+
+    def __exit__(self, *exc):
+        self._loader.assemble = self._real
+
+
+def measured(name, ctx, fn):
+    """Runs ``fn()`` with the flash counters at 0 and the peak memory reset;
+    -> (its result, a record of wall and assembly ms, UNet calls, launches,
+    peak GiB), logged."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    calls0, asm0 = ctx.calls, ctx.assemble_s
+    fa.reset_launch_count()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+           "assemble_ms": (ctx.assemble_s - asm0) * 1e3,
+           "unet_calls": ctx.calls - calls0,
+           "launches": {n: c for n, c in fa.launch_counts().items() if c},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("generate", f"{name}: wall {rec['wall_ms']:.1f} ms (assembly "
+                    f"{rec['assemble_ms']:.1f}), UNet calls "
+                    f"{rec['unet_calls']}, flash launches "
+                    f"{json.dumps(rec['launches'])}, peak memory "
+                    f"{rec['peak_gib']:.2f} GiB")
+    return out, rec
+
+
+def check_images(name, imgs, n, size):
+    if imgs.shape != (n, size, size, 3) or imgs.dtype != np.uint8:
+        raise RuntimeError(f"generate: {name} gave {imgs.shape} {imgs.dtype}")
+    if min(im.std() for im in imgs) < 1.0:
+        raise RuntimeError(f"generate: {name} gave a constant image")
+
+
+def phase_generate(work, ckpt):
+    """The generation CLIs at full width (``configs/aigc_id.yaml``, bf16,
+    512x512, batch 2, the output convs drawn) and the full DDPM chain."""
+    from celebbasis_tpu_torch.cli import (build_basis, extract, img2img,
+                                          txt2img)
+    from celebbasis_tpu_torch.cli.serve import encode_png
+    from celebbasis_tpu_torch import loader
+    from celebbasis_tpu_torch.diffusion.sampler import (SamplerConfig,
+                                                        ddpm_sample,
+                                                        sample_seed)
+    from celebbasis_tpu_torch.pipeline import finish_images
+    from celebbasis_tpu_torch.utils.config import load_run_spec
+
+    config = os.path.join(REPO, "configs", "aigc_id.yaml")
+    pictures = {}
+    for name, img in zip(("face0", "face1", "init"),
+                         face_crops(512, 51, k=3)):
+        pictures[name] = os.path.join(work, f"{name}.png")
+        with open(pictures[name], "wb") as f:
+            f.write(encode_png(img))
+    mask = np.zeros((512, 512, 3), np.uint8)
+    mask[:, 256:] = 255                     # regenerate the right half
+    pictures["mask"] = os.path.join(work, "mask.png")
+    with open(pictures["mask"], "wb") as f:
+        f.write(encode_png(mask))
+    common = ["--config", config, "--n_samples", "2", "--precision", "bf16"]
+    want = {}                               # name -> UNet calls
+    recs = {}
+    cwd = os.getcwd()
+    os.chdir(REPO)                          # the config's relative paths
+    try:
+        with DrawnAssemblies() as ctx:
+            runs = {
+                "txt2img_plms": (DDIM_STEPS + 1, lambda: txt2img.main(
+                    common + ["--plms", "--ddim_steps", str(DDIM_STEPS),
+                              "--outdir", os.path.join(work, "plms")])),
+                "txt2img_faces": (DDIM_STEPS, lambda: txt2img.main(
+                    common + ["--ddim_steps", str(DDIM_STEPS), "--prompt",
+                              "a photo of a sks person and a ks person",
+                              "--outdir", os.path.join(work, "faces"),
+                              "--faces", pictures["face0"],
+                              pictures["face1"]])),
+                "img2img_mask": (DDIM_STEPS // 2, lambda: img2img.main(
+                    common + ["--ddim_steps", str(DDIM_STEPS), "--strength",
+                              "0.5", "--init-img", pictures["init"],
+                              "--mask", pictures["mask"], "--outdir",
+                              os.path.join(work, "img2img")])),
+            }
+            for name, (calls, run) in runs.items():
+                imgs, recs[name] = measured(name, ctx, run)
+                check_images(name, imgs, 2, 512)
+                want[name] = calls
+            plms_files = sorted(os.listdir(os.path.join(
+                work, "plms", os.listdir(os.path.join(work, "plms"))[0])))
+            if plms_files != ["00000.jpg", "00001.jpg", "grid.jpg"]:
+                raise RuntimeError(f"generate: txt2img wrote {plms_files}")
+
+            # the ancestral chain over the full 1000-step schedule, CFG
+            spec = load_run_spec([config])
+            asm = loader.assemble(spec, image_size=512, seed=7,
+                                  param_dtype=torch.bfloat16)
+            pipe = asm.pipeline
+            T = pipe.schedule.num_timesteps
+            as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int64)).cuda()
+            k = len(pipe.manager_cfg.placeholder_token_ids)
+
+            def ddpm():
+                with torch.inference_mode():
+                    cond = pipe.conditioning(
+                        as_dev(asm.tokenizer(["a photo of a sks person"] * 2)),
+                        asm.manager_state, asm.basis,
+                        as_dev([[0, 1] + [0] * (k - 2)] * 2), as_dev([2, 2]))
+                    uncond = pipe.conditioning(as_dev(asm.tokenizer([""] * 2)))
+                    gens = [torch.Generator(device="cuda").manual_seed(
+                        sample_seed(13, j)) for j in range(2)]
+                    x = ddpm_sample(pipe.eps_model(), pipe.schedule,
+                                    generators=gens, shape=(2, 64, 64, 4),
+                                    cond=cond, uncond=uncond,
+                                    cfg=SamplerConfig(guidance_scale=10.0))
+                    img = pipe.vae.decode(x / pipe.cfg.scale_factor)
+                    return finish_images(img, "uint8").cpu().numpy()
+
+            imgs, recs["ddpm_full_chain"] = measured("ddpm_full_chain", ctx,
+                                                     ddpm)
+            check_images("ddpm_full_chain", imgs, 2, 512)
+            want["ddpm_full_chain"] = T
+            del asm, pipe
+
+            basis_path = os.path.join(work, "weights", "celeb_basis.pt")
+            _, recs["build_basis"] = measured(
+                "build_basis", ctx,
+                lambda: build_basis.main(["--config", config, "--out",
+                                          basis_path]))
+            _, recs["extract"] = measured(
+                "extract", ctx,
+                lambda: extract.main(["--config", config, "--embedding_path",
+                                      ckpt, "--outdir",
+                                      os.path.join(work, "ti")]))
+    finally:
+        os.chdir(cwd)
+    for name, calls in want.items():
+        got = recs[name]
+        if got["unet_calls"] != calls or got["launches"] != {
+                "flash_attention_nhd": ATTN_PER_UNET * calls}:
+            raise RuntimeError(f"generate: {name} made {got['unet_calls']} "
+                               f"UNet calls and launched {got['launches']}; "
+                               f"expected {calls} calls, "
+                               f"{ATTN_PER_UNET * calls} packed launches")
+
+    load = lambda *p: torch.load(os.path.join(work, *p), weights_only=True)
+    saved = torch.load(ckpt, weights_only=True)["id_coefficients"]
+    basis = load("weights", "celeb_basis.pt")
+    shapes = {"celeb_basis": tuple(basis.shape)}
+    for i in range(len(saved)):
+        emb, coeff = (load("ti", f"id_embedding_{i}.pt"),
+                      load("ti", f"id_coefficient_{i}.pt"))
+        shapes[f"id_{i}"] = (tuple(emb.shape), tuple(coeff.shape))
+        if emb.shape != (2, 768) or not torch.equal(coeff,
+                                                    saved[i].float()):
+            raise RuntimeError(f"extract: identity {i}: {emb.shape}, "
+                               f"coefficients {coeff.shape}")
+    if not torch.equal(load("ti", "celeb_basis.pt"), basis) \
+            or basis.shape != (2, 513, 768) or not basis.isfinite().all():
+        raise RuntimeError(f"build_basis / extract: basis {basis.shape}")
+    log("generate", f"build_basis and extract: {json.dumps(shapes)}")
+    return recs
+
+
 # -----------------------------------------------------------------------------
 
 def main() -> int:
@@ -1705,14 +2042,25 @@ def main() -> int:
     phase_parity()
     phase_train_parity()
     launches, request_ms = phase_serve()
-    train_launches, train_ms = phase_train()
+    work = tempfile.mkdtemp(prefix="chip_smoke_generate_")
+    try:
+        train_launches, train_ms = phase_train(work)
+        generate = phase_generate(work, os.path.join(
+            work, f"embeddings_gs-{TRAIN_STEPS}.pt"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
     for entry, replaces in KERNELS.items():
         main_shape = shapes[entry][0]          # N = M = 4096, D = 40, bf16
+        by_path = {"serve": launches[entry]}
+        if entry == "flash_attention_nhd":
+            by_path.update({name: r["launches"].get(entry, 0)
+                            for name, r in generate.items()})
         kernels.append({
             "name": entry, "route": "cuda", "source": FWD_SOURCE,
-            "replaces": replaces, "launches": launches[entry],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(s["max_abs_err"] for s in shapes[entry]),
             "max_err_ratio": max(s.get("err_ratio", 0.0)
                                  for s in shapes[entry]),
@@ -1798,9 +2146,11 @@ def main() -> int:
                   | {"variant": r["plan"]["variant"]}
                   for r in int8_shapes if "kernel_ms" in r],
         "shapes": int8_shapes})
+    generate_ms = {n: round(r["wall_ms"], 1) for n, r in generate.items()}
     log("done", f"{time.perf_counter() - t_start:.0f} s in all; request ms "
                 f"({DDIM_STEPS} DDIM steps) {json.dumps(request_ms)}; train "
-                f"step {json.dumps(train_ms)}")
+                f"step {json.dumps(train_ms)}; generate wall ms "
+                f"{json.dumps(generate_ms)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,3 +99,41 @@ def manifest_shapes(manifest_keys, prefixes, skip_suffixes=("position_ids",)):
 
 def module_shapes(module):
     return sorted(tuple(p.shape) for p in module.state_dict().values())
+
+
+def tiny_pipelines(image_size, names, seed=5):
+    """The tiny pipeline on both sides with one set of random weights (made
+    on the JAX side and carried over), a celeb basis built from ``names``
+    and a manager state: a dict with the JAX pipeline ``jp``, its
+    ``params``, ``jbasis`` and ``jstate``, and the port's ``tp``, ``tbasis``
+    and ``tstate``; ``tok`` is the port's synthetic tokenizer."""
+    from celebbasis_tpu import pipeline as jpipe
+    from celebbasis_tpu.core import manager as jmgr
+    from celebbasis_tpu.core.basis import build_celeb_basis
+    from celebbasis_tpu.text.tokenizer import CLIPTokenizer as JTokenizer
+    from celebbasis_tpu_torch import pipeline as tpipe
+    from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
+    from celebbasis_tpu_torch.utils import bridge
+
+    jtok = JTokenizer.synthetic(1024)
+    jp = jpipe.CelebBasisPipeline(jpipe.PipelineConfig.tiny(), jtok)
+    params = random_params(
+        lambda key: jp.init_params(key, image_size=image_size),
+        jax.random.key(0), seed=seed)
+    jbasis = build_celeb_basis(names, jtok, jp.token_table(params),
+                               jp.cfg.basis)
+    cfg, rng = jp.manager_cfg, np.random.default_rng(seed)
+    jstate = jmgr.ManagerState(      # drawn in numpy: no JAX compile
+        jax.numpy.asarray(rng.uniform(
+            size=(cfg.max_ids, cfg.reps, cfg.token_dim)).astype(np.float32)),
+        jax.numpy.asarray(rng.standard_normal(
+            (cfg.max_ids, cfg.num_es, cfg.heads, cfg.inner_dim)).astype(
+                np.float32)))
+    tok = CLIPTokenizer.synthetic(1024)
+    tp = tpipe.CelebBasisPipeline(tpipe.PipelineConfig.tiny(), tok)
+    tp.load_state_dict(bridge.from_jax_params(np_tree(params)), strict=True)
+    tp.requires_grad_(False).eval()
+    return dict(jp=jp, params=params, jbasis=jax.numpy.asarray(jbasis),
+                jstate=jstate, tp=tp, tok=tok,
+                tbasis=bridge.basis_from_jax(jbasis),
+                tstate=bridge.manager_state_from_jax(jstate))

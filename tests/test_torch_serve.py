@@ -3,8 +3,8 @@ port, asked for the CPU (``--device cpu``).
 
 Drives the real ThreadingHTTPServer end to end on the tiny config: health
 check, PNG round trip (decoded with PIL; the port encodes with zlib+struct),
-seed determinism, co-batching independence, 400 above ``--batch``, 501 on
-``/faces2img``.
+seed determinism, co-batching independence, 400 above ``--batch``, and
+``/faces2img`` (live faces through the MetaIdNet) with its bad inputs.
 """
 import base64
 import io
@@ -16,6 +16,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_port_helpers  # noqa: F401  (one PyTorch thread per worker)
 
@@ -28,6 +29,7 @@ def server():
 
     from celebbasis_tpu_torch.cli.serve import (TxtToImgService,
                                                 build_argparser, make_handler)
+    from celebbasis_tpu_torch.loader import init_weights
 
     cfg = os.path.join(REPO, "configs", "tiny.yaml")
     args = build_argparser().parse_args([
@@ -35,6 +37,10 @@ def server():
         "--precision", "fp32", "--ids", "0", "--device", "cpu",
     ])
     service = TxtToImgService(args)
+    # draw the zero-initialised output convs, so that the conditioning (the
+    # prompt, the faces) shows in the pixels of this random-weight run
+    init_weights(service.asm.pipeline.unet, torch.Generator().manual_seed(5),
+                 zero_convs=False)
     service.warmup()
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -68,6 +74,7 @@ def test_healthz(server):
     assert h["ok"] and h["warm"] and h["batch"] == 2 and h["device"] == "cpu"
     assert h["attention"] == "xla"      # the CPU's route is the plain core
     assert h["geglu"] == "xla"          # the kernel route is opt-in
+    assert h["sampler"] == "ddim"
 
 
 def test_txt2img_roundtrip_and_determinism(server):
@@ -103,11 +110,38 @@ def test_bad_requests(server):
         assert json.loads(r.read())["ok"]    # the server survived them
 
 
-def test_faces2img_answers_501(server):
-    url, _ = server
-    code, e = _post(url, {"prompt": "a photo of a sks person", "faces": []},
+def _png_face(seed, size=24):
+    from celebbasis_tpu_torch.cli.serve import encode_png
+    img = np.random.default_rng(seed).integers(0, 256, (size, size, 3))
+    return base64.b64encode(encode_png(img.astype(np.uint8))).decode()
+
+
+def test_faces2img_roundtrip(server):
+    """Two 24x24 crops (resized to 32 on the device): a 32x32 PNG, the same
+    bytes for the same seed, another image for other faces; 400 on an empty
+    list, on more faces than placeholder slots and above --batch."""
+    url, service = server
+    req = {"prompt": "a photo of a sks person and a ks person",
+           "faces": [_png_face(1), _png_face(2)], "seed": 5}
+    code, a = _post(url, req, path="/faces2img")
+    assert code == 200 and len(a["images"]) == 1 and a["ms"] > 0
+    img = _decode(a["images"][0])
+    assert img.shape == (32, 32, 3) and img.dtype == np.uint8
+    assert img.std() > 1
+    code, b = _post(url, req, path="/faces2img")
+    assert code == 200 and b["images"] == a["images"]
+    code, c = _post(url, dict(req, faces=[_png_face(3), _png_face(4)]),
                     path="/faces2img")
-    assert code == 501 and "MetaIdNet" in e["error"]
+    assert code == 200 and c["images"] != a["images"]
+
+    for bad in ([], [_png_face(1)] * (service.k + 1)):
+        code, e = _post(url, dict(req, faces=bad), path="/faces2img")
+        assert code == 400 and "faces" in e["error"]
+    code, e = _post(url, dict(req, n_samples=3), path="/faces2img")
+    assert code == 400 and "n_samples" in e["error"]
+    code, e = _post(url, dict(req, faces=["bm90IGFuIGltYWdl"]),
+                    path="/faces2img")
+    assert code == 400
 
 
 def test_concurrent_requests_both_served(server):
