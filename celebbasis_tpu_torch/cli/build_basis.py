@@ -25,8 +25,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--celeb_txt", type=str, default=None,
                    help="override the config's names file")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="sd checkpoint for the real token table (not "
-                        "readable yet: ROADMAP A3)")
+                   help="sd-v1-4 checkpoint for the real token table")
     p.add_argument("--out", type=str, default="weights/celeb_basis.pt")
     p.add_argument("--vocab", type=str, default=None)
     p.add_argument("--device", type=str, default=None,

@@ -91,7 +91,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=str, nargs="+",
                    default=["configs/aigc_id.yaml"])
     p.add_argument("--ckpt", default=None,
-                   help="sd-v1-4 checkpoint (not readable yet: ROADMAP A3)")
+                   help="sd-v1-4 checkpoint (CompVis .ckpt)")
     p.add_argument("--embedding_path", default=None)
     p.add_argument("--outdir", default="outputs/img2img")
     p.add_argument("--strength", type=float, default=0.75)

@@ -74,7 +74,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=str, nargs="+",
                    default=["configs/aigc_id.yaml"])
     p.add_argument("--ckpt", type=str, default=None,
-                   help="sd-v1-4 checkpoint (not readable yet: ROADMAP A3)")
+                   help="sd-v1-4 checkpoint (CompVis .ckpt)")
     p.add_argument("--embedding_path", type=str, default=None,
                    help="embeddings_gs-*.pt with trained id coefficients")
     p.add_argument("--ti_embedding", type=str, default=None,
@@ -97,8 +97,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "embeddings come from a MetaIdNet forward instead "
                         "of saved coefficients")
     p.add_argument("--fr_ckpt", type=str, default=None,
-                   help="CosFace IResNet-100 backbone.pth for --faces (not "
-                        "readable yet: ROADMAP A3)")
+                   help="CosFace IResNet-100 backbone.pth for --faces")
     p.add_argument("--no-grid", action="store_true")
     p.add_argument("--precision", choices=["bf16", "fp32"], default="bf16",
                    help="frozen-weight storage; bf16 for inference, fp32 "

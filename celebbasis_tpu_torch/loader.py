@@ -2,9 +2,11 @@
 state.
 
 Counterpart of ``celebbasis_tpu/loader.py``: builds the model bundle and the
-MetaIdNet on the asked device (random-init from a seed; the pretrained
-weights are not vendored), constructs/caches the celeb basis from the float32
-token table before any storage cast, and sets up the manager state.
+MetaIdNet on the asked device (random-init from a seed, then the pretrained
+weights where checkpoints are given: ``sd_ckpt`` an ``sd-v1-4.ckpt``,
+``fr_ckpt`` a CosFace ``backbone.pth``, read by ``utils.bridge``),
+constructs/caches the celeb basis from the float32 token table before any
+storage cast, and sets up the manager state.
 Everything comes back frozen (``requires_grad`` False); what trains is chosen
 by ``train.step.build_trainable``.
 
@@ -14,8 +16,8 @@ by ``train.step.build_trainable``.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -29,6 +31,7 @@ from celebbasis_tpu_torch.models.iresnet import IResNetConfig, PReLU
 from celebbasis_tpu_torch.pipeline import CelebBasisPipeline, PipelineConfig
 from celebbasis_tpu_torch.text.tokenizer import (CLIPTokenizer,
                                                  default_tokenizer)
+from celebbasis_tpu_torch.utils import bridge
 from celebbasis_tpu_torch.utils.config import RunSpec
 from celebbasis_tpu_torch.utils.precision import cast_float_params
 
@@ -64,6 +67,8 @@ class Assembled:
     meta_net: MetaIdNet
     manager_state: mgr.ManagerState
     device: torch.device
+    # checkpoint keys that were read and not used, by file ("sd", "fr")
+    unused_keys: Dict[str, List[str]] = field(default_factory=dict)
 
 
 def pipeline_config_from_spec(spec: RunSpec, dtype=torch.bfloat16
@@ -133,16 +138,6 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
     *storage* (inference only).  The celeb basis is always built from the
     float32 token table before that cast."""
     dev = resolve_device(device)
-    if sd_ckpt:
-        raise NotImplementedError(
-            "loading CompVis/HF checkpoints is not ported yet; the port "
-            "runs on random-init weights or on weights carried over with "
-            "utils.bridge.load_jax_params")
-    if fr_ckpt:
-        raise NotImplementedError(
-            "loading the CosFace backbone checkpoint is not ported yet; the "
-            "face net runs on random-init weights or on weights carried "
-            "over with utils.bridge.load_jax_params")
     tokenizer = default_tokenizer(vocab_path)
     if tokenizer.vocab_size != spec.clip.vocab_size:
         # offline synthetic fallback must match the model's embedding table
@@ -154,6 +149,14 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
     pipe.manager_cfg = manager_config_from_spec(spec, pipe)
     gen = torch.Generator(device=dev).manual_seed(seed)
     init_weights(pipe, gen)
+    unused = {}
+    if sd_ckpt:
+        parts, unused["sd"] = bridge.load_sd_checkpoint(
+            sd_ckpt, spec.unet, spec.vae, spec.clip)
+        for name, part in parts.items():
+            getattr(pipe, name).load_state_dict(part, strict=True)
+        print(f"[loader] loaded SD checkpoint {sd_ckpt} "
+              f"({len(unused['sd'])} keys not used)")
 
     # celeb basis (cached), from the float32 table
     table = pipe.token_table()
@@ -175,6 +178,12 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
         meta = MetaIdNet(meta_cfg, dtype=dtype)
     meta.requires_grad_(False).eval()
     init_weights(meta, gen)
+    if fr_ckpt:
+        fr, unused["fr"] = bridge.load_iresnet_checkpoint(
+            fr_ckpt, meta_cfg.iresnet.layers)
+        meta.fr_net.load_state_dict(fr, strict=True)
+        print(f"[loader] loaded CosFace backbone {fr_ckpt} "
+              f"({len(unused['fr'])} keys not used)")
 
     # manager state, optionally from a trained embeddings_gs-*.pt
     m_cfg = pipe.manager_cfg
@@ -191,7 +200,8 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
         cast_float_params(pipe, param_dtype)
 
     return Assembled(spec, tokenizer, pipe,
-                     torch.from_numpy(basis).to(dev), meta, state, dev)
+                     torch.from_numpy(basis).to(dev), meta, state, dev,
+                     unused)
 
 
 def manager_config_from_spec(spec: RunSpec, pipe: CelebBasisPipeline

@@ -8,26 +8,40 @@ Counterpart of ``celebbasis_tpu/train/trainer.py``:
 * LR recipe: ``lr = accumulate x n_shards x batch x base_lr`` when
   ``scale_lr`` (2 x 5e-3 = 1e-2 by default);
 * ``embeddings_gs-{step}.pt`` checkpoints every ``ckpt_every`` optimizer
-  steps, and at the end, in the reference schema;
-* per-step jsonl metrics (``metrics.jsonl``) every ``log_every`` steps;
+  steps, and at the end, in the reference schema; SIGUSR1 ("melk") writes
+  ``embeddings_last.pt`` and ends the run at the next step boundary (the
+  handler is installed while ``fit`` runs, from the main thread only);
+* per-step jsonl metrics (``metrics.jsonl``) every ``log_every`` steps,
+  with the host seconds the step waited for its batch (``data_wait_s``: the
+  loader, and the copy of the batch to the device),
+  and the same scalars in a TensorBoard event file when ``cfg.tensorboard``
+  (``<run>/tensorboard``);
+* validation (``validate``): the loss-only eval step over ``val_batches``
+  batches every ``val_every`` steps, from ``val_loader``, or in cached mode
+  without one from held-out cached batches;
+* callbacks (``train.callbacks``) after every optimizer step; one may hand
+  back a new state (``ModeSwap`` -> ``unfreeze_unet``);
 * ``frozen_bf16`` stores the frozen nets' weights in bf16; ``cache_latents``
   precomputes the frozen VAE posteriors and face features of that many
   batches and cycles over them.
 
 The loader is any iterable of batch dicts (numpy arrays or tensors, layouts
-as in ``train.step``).  Not ported yet: the mid-run optimizer swap
-(``unfreeze_unet``), validation, signal handlers, callbacks, TensorBoard, and
-the mesh / FSDP options (their config fields exist and raise when set).
+as in ``train.step``), such as ``data.face_id.PrefetchLoader``.  Not ported
+yet: the mesh / FSDP options (``fsdp``, ``n_data_shards != 1``; ROADMAP A10),
+which raise when set.
 """
 from __future__ import annotations
 
 import datetime
 import json
 import os
+import signal
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from celebbasis_tpu_torch.core import manager as mgr
@@ -55,8 +69,8 @@ class TrainerConfig:
     fsdp: bool = False       # not ported: raises when set
     log_every: int = 10
     seed: int = 23
-    n_data_shards: int = 1
-    tensorboard: bool = False  # not ported: raises when set
+    n_data_shards: int = 1   # not ported: raises unless 1
+    tensorboard: bool = False  # also write a TensorBoard event file
 
 
 def make_run_dir(cfg: TrainerConfig, now: Optional[str] = None) -> str:
@@ -81,24 +95,34 @@ class Trainer:
     lie on one device; the trainer marks what trains."""
 
     def __init__(self, pipeline, meta_net: MetaIdNet, basis: torch.Tensor,
-                 loader, cfg: TrainerConfig, run_dir: Optional[str] = None):
-        for name in ("fsdp", "tensorboard"):
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"TrainerConfig.{name} is not ported yet")
+                 loader, cfg: TrainerConfig, run_dir: Optional[str] = None,
+                 callbacks=(), val_loader=None, val_every: int = 200,
+                 val_batches: int = 4):
+        if cfg.fsdp:
+            raise NotImplementedError("TrainerConfig.fsdp is not ported yet "
+                                      "(ROADMAP A10)")
         if cfg.n_data_shards != 1:
             raise NotImplementedError("data-parallel training is not ported "
-                                      "yet (n_data_shards must be 1)")
+                                      "yet (n_data_shards must be 1; ROADMAP "
+                                      "A10)")
         if cfg.cache_latents > 0 and cfg.unfreeze_model:
             raise ValueError("cache_latents requires the frozen-UNet path")
         self.pipeline = pipeline
         self.meta_net = meta_net
         self.cfg = cfg
         self.loader = loader
+        self.callbacks = list(callbacks)
+        self.val_loader = val_loader
+        self.val_every = val_every
+        self.val_batches = val_batches
         self.device = pipeline.device
         self.basis = torch.as_tensor(basis).to(self.device)
         self.run_dir = run_dir or make_run_dir(cfg)
         self.metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
+        self.tb = None
+        if cfg.tensorboard:
+            from celebbasis_tpu_torch.utils.tb import TBWriter
+            self.tb = TBWriter(os.path.join(self.run_dir, "tensorboard"))
 
         if cfg.frozen_bf16:
             # the frozen nets are read-only: bf16 storage halves the bytes
@@ -125,7 +149,17 @@ class Trainer:
             self.step_fn = tstep.make_train_step(
                 pipeline, meta_net, self.optimizer, loss_type=cfg.loss_type,
                 train_unet=cfg.unfreeze_model, gnet=self.gnet)
+        # validation in cached mode without a val loader runs over held-out
+        # cached batches, so it takes the cached eval step
+        self._eval_cached = cfg.cache_latents > 0 and val_loader is None
+        self.eval_fn = tstep.make_eval_step(
+            pipeline, meta_net, loss_type=cfg.loss_type,
+            train_unet=cfg.unfreeze_model, cached=self._eval_cached,
+            gnet=self.gnet)
         self._cache = None
+        self._val_cache = None
+        self._state = None           # the live state while fit runs
+        self._interrupted = False
 
     def init_state(self, manager_state: mgr.ManagerState,
                    generator: Optional[torch.Generator] = None
@@ -139,7 +173,33 @@ class Trainer:
                                       self.optimizer,
                                       manager_state.to(self.device))
 
-    # -- checkpointing -------------------------------------------------------
+    # -- mid-run optimizer swap -----------------------------------------------
+    def unfreeze_unet(self, state: tstep.TrainState,
+                      model_lr: float) -> tstep.TrainState:
+        """From here on the UNet trains too, at ``model_lr``: a fresh
+        two-group AdamW (the reference builds a new optimizer) and the
+        rebuilt train and eval steps.  The step count, the generator and the
+        manager state carry over.  Refused in cached mode, where the UNet's
+        inputs are not recomputed."""
+        cfg = self.cfg
+        if cfg.cache_latents > 0:
+            raise ValueError("the mode swap needs the uncached path")
+        cfg.unfreeze_model, cfg.model_lr = True, model_lr
+        self.trainable = tstep.build_trainable(
+            self.meta_net, unet=self.pipeline.unet, gnet=self.gnet)
+        self.optimizer = tstep.make_optimizer(
+            self.trainable, effective_lr(cfg), model_lr,
+            accumulate=cfg.accumulate)
+        self.step_fn = tstep.make_train_step(
+            self.pipeline, self.meta_net, self.optimizer,
+            loss_type=cfg.loss_type, train_unet=True, gnet=self.gnet)
+        self.eval_fn = tstep.make_eval_step(
+            self.pipeline, self.meta_net, loss_type=cfg.loss_type,
+            train_unet=True, gnet=self.gnet)
+        return tstep.TrainState(state.step, self.trainable, self.optimizer,
+                                state.manager_state, state.generator)
+
+    # -- checkpointing --------------------------------------------------------
     def save(self, state: tstep.TrainState, tag: Optional[str] = None) -> str:
         # state.step counts micro-batches; checkpoints are named by optimizer
         # steps like the reference's global_step
@@ -150,27 +210,86 @@ class Trainer:
                             path, meta_net=self.meta_net)
         return path
 
-    # -- frozen-feature cache (fast-personalisation mode) --------------------
-    def _build_cache(self) -> None:
-        print(f"[trainer] caching {self.cfg.cache_latents} augmented batches "
-              f"of frozen features")
-        self._cache = tstep.precompute_cache(
-            self.pipeline, self.meta_net, self.loader, self.cfg.cache_latents)
+    def melk(self, signum=None, frame=None) -> None:
+        """The SIGUSR1 handler: checkpoint the live state to
+        ``embeddings_last.pt``; ``fit`` then stops at the next step
+        boundary."""
+        print(f"[trainer] signal {signum}: checkpointing to "
+              f"embeddings_last.pt")
+        self.save(self._state, tag="embeddings_last.pt")
+        self._interrupted = True
 
-    def _batches(self):
-        if self._cache is not None:
-            i = 0
-            while True:
-                yield self._cache[i % len(self._cache)]
-                i += 1
-        else:
-            keys = ("image", "tokens", "faces", "ids", "num_ids")
-            for batch in self.loader:
+    # -- frozen-feature cache (fast-personalisation mode) ---------------------
+    def _build_cache(self) -> None:
+        """The training cache, plus ``val_batches`` held-out batches when
+        validation runs over cached batches."""
+        cfg = self.cfg
+        n_val = self.val_batches if self._eval_cached else 0
+        print(f"[trainer] caching {cfg.cache_latents}+{n_val} augmented "
+              f"batches of frozen features")
+        cache = tstep.precompute_cache(self.pipeline, self.meta_net,
+                                       self.loader, cfg.cache_latents + n_val)
+        self._cache = cache[: cfg.cache_latents]
+        self._val_cache = cache[cfg.cache_latents:]
+
+    def _device_batches(self, loader):
+        keys = ("image", "tokens", "faces", "ids", "num_ids")
+        it = iter(loader)
+        try:
+            for batch in it:
                 yield {k: torch.as_tensor(v).to(self.device)
                        for k, v in batch.items()
                        if k in keys or k.startswith("override_")}
+        finally:
+            if hasattr(it, "close"):
+                it.close()           # stops a prefetching loader's thread
 
-    # -- main loop -----------------------------------------------------------
+    def _batches(self):
+        if self._cache is None:
+            yield from self._device_batches(self.loader)
+            return
+        i = 0
+        while True:
+            yield self._cache[i % len(self._cache)]
+            i += 1
+
+    # -- validation -----------------------------------------------------------
+    def validate(self, state: tstep.TrainState) -> float:
+        """Mean ``loss_simple`` of the loss-only eval step over up to
+        ``val_batches`` batches, each with a generator seeded 0; nothing is
+        updated.  Without a ``val_loader`` it reads the training loader (the
+        reference's val split is the train dataset), or in cached mode the
+        held-out cached batches (made here if need be)."""
+        if self._eval_cached:
+            if self._cache is None:
+                self._build_cache()
+            source = iter(self._val_cache or self._cache[: self.val_batches])
+        else:
+            source = self._device_batches(self.val_loader
+                                          if self.val_loader is not None
+                                          else self.loader)
+        losses = []
+        try:
+            for batch in source:
+                if len(losses) >= self.val_batches:
+                    break
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                logs = self.eval_fn(state, self.basis, batch, gen)
+                losses.append(float(logs["loss_simple"]))
+        finally:
+            if hasattr(source, "close"):
+                source.close()
+        return float(np.mean(losses)) if losses else float("nan")
+
+    # -- main loop ------------------------------------------------------------
+    def _log(self, log_f, rec: dict, scalars: dict) -> None:
+        log_f.write(json.dumps(rec) + "\n")
+        log_f.flush()
+        if self.tb is not None:
+            for tag, value in scalars.items():
+                self.tb.add_scalar(tag, value, rec["step"])
+            self.tb.flush()
+
     def fit(self, state: tstep.TrainState) -> tstep.TrainState:
         cfg = self.cfg
         accum = max(cfg.accumulate, 1)
@@ -178,34 +297,68 @@ class Trainer:
         t_start = time.perf_counter()
         if cfg.cache_latents > 0 and self._cache is None:
             self._build_cache()
-        with open(self.metrics_path, "a") as log_f:
-            try:
-                while step < cfg.max_steps:
-                    seen = False
-                    for batch in self._batches():
-                        seen = True
-                        if step >= cfg.max_steps:
-                            break
-                        t0 = time.perf_counter()
-                        state, logs = self.step_fn(state, self.basis, batch)
-                        if state.step % accum != 0:
-                            continue
-                        step += 1
-                        if step % cfg.log_every == 0 or step == 1:
-                            # reading the loss waits for the device
-                            rec = {"step": step, "loss": float(logs["loss"]),
-                                   "loss_simple": float(logs["loss_simple"]),
-                                   "step_time_s": time.perf_counter() - t0,
-                                   "wall_s": time.perf_counter() - t_start}
-                            log_f.write(json.dumps(rec) + "\n")
-                            log_f.flush()
-                        if step % cfg.ckpt_every == 0:
-                            self.save(state)
+        validating = self.val_loader is not None or self._eval_cached
+        self._state, self._interrupted = state, False
+        main = threading.current_thread() is threading.main_thread()
+        previous = signal.signal(signal.SIGUSR1, self.melk) if main else None
+        try:
+            with open(self.metrics_path, "a") as log_f:
+                while step < cfg.max_steps and not self._interrupted:
+                    batches, seen = self._batches(), False
+                    try:
+                        while step < cfg.max_steps and not self._interrupted:
+                            t_wait = time.perf_counter()
+                            batch = next(batches, None)
+                            if batch is None:
+                                break
+                            seen = True
+                            t0 = time.perf_counter()
+                            state, logs = self.step_fn(state, self.basis,
+                                                       batch)
+                            self._state = state
+                            if state.step % accum != 0:
+                                continue
+                            step += 1
+                            if step % cfg.log_every == 0 or step == 1:
+                                # reading the loss waits for the device
+                                loss = float(logs["loss"])
+                                simple = float(logs["loss_simple"])
+                                self._log(log_f, {
+                                    "step": step, "loss": loss,
+                                    "loss_simple": simple,
+                                    "step_time_s": time.perf_counter() - t0,
+                                    "data_wait_s": t0 - t_wait,
+                                    "wall_s": time.perf_counter() - t_start},
+                                    {"train/loss": loss,
+                                     "train/loss_simple": simple})
+                            if step % cfg.ckpt_every == 0:
+                                self.save(state)
+                            if validating and step % self.val_every == 0:
+                                val = self.validate(state)
+                                self._log(log_f, {"step": step,
+                                                  "val_loss_simple": val},
+                                          {"val/loss_simple": val})
+                            for cb in self.callbacks:
+                                new_state = cb.on_step(step, self, state)
+                                if new_state is not None:
+                                    state = self._state = new_state
+                    finally:
+                        batches.close()
                     if not seen:
                         raise ValueError("the loader yielded no batch")
-            except KeyboardInterrupt:
-                print("[trainer] interrupted -- saving last checkpoint")
-                self.save(state, tag="embeddings_last.pt")
-                raise
+        except KeyboardInterrupt:
+            print("[trainer] interrupted -- saving last checkpoint")
+            self.save(state, tag="embeddings_last.pt")
+            raise
+        finally:
+            if main:     # a handler not set from Python reads back as None
+                signal.signal(signal.SIGUSR1, previous if previous is not None
+                              else signal.SIG_DFL)
         self.save(state)
         return state
+
+    def close(self) -> None:
+        """Closes the TensorBoard event file."""
+        if self.tb is not None:
+            self.tb.close()
+            self.tb = None

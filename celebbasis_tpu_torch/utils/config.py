@@ -8,8 +8,8 @@ that a caller without it can still take the typed defaults:
 ``RunSpec.sd_v1()`` is pinned (by a test) equal to what
 ``configs/aigc_id.yaml`` loads to.
 
-The trainer section is a ``train.trainer.TrainerConfig``; the dataset
-sections stay plain dictionaries until the dataset is ported.
+The trainer section is a ``train.trainer.TrainerConfig`` and the dataset
+sections are ``data.face_id.FaceIdDatasetConfig``s.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence
 
 from celebbasis_tpu_torch.core.basis import BasisConfig
+from celebbasis_tpu_torch.data.face_id import FaceIdDatasetConfig
 from celebbasis_tpu_torch.models.clip_text import CLIPTextConfig
 from celebbasis_tpu_torch.models.unet import UNetConfig
 from celebbasis_tpu_torch.models.vae import VAEConfig
@@ -98,8 +99,8 @@ class RunSpec:
     unfreeze_model: bool
     model_lr: float
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
-    train_data: Optional[Dict] = None
-    val_data: Optional[Dict] = None
+    train_data: Optional[FaceIdDatasetConfig] = None
+    val_data: Optional[FaceIdDatasetConfig] = None
     raw: Dict = field(repr=False, compare=False, default_factory=dict)
 
     @staticmethod
@@ -119,10 +120,10 @@ class RunSpec:
             trainer=TrainerConfig(max_steps=800, ckpt_every=200,
                                   batch_size=2, base_lr=5.0e-3,
                                   loss_type="none", tensorboard=False),
-            train_data=dict(pickle_path="./data/ffhq.pickle", image_size=512,
-                            num_ids=2, specific_ids=[1, 2], images_per_id=1,
-                            repeats=1000, split="train", diff_cnt=0,
-                            reg_ids=0, reg_repeats=0),
+            train_data=FaceIdDatasetConfig(
+                pickle_path="./data/ffhq.pickle", image_size=512, num_ids=2,
+                specific_ids=[1, 2], images_per_id=1, repeats=1000,
+                split="train", diff_cnt=0, reg_ids=0, reg_repeats=0),
             val_data=None).validate()
 
     def validate(self) -> "RunSpec":
@@ -148,11 +149,11 @@ class RunSpec:
         return self
 
 
-def _dataset_cfg(node: Optional[Dict]) -> Optional[Dict]:
+def _dataset_cfg(node: Optional[Dict]) -> Optional[FaceIdDatasetConfig]:
     if not node:
         return None
     p = node.get("params", {})
-    return dict(
+    return FaceIdDatasetConfig(
         pickle_path=p.get("pickle_path", ""),
         image_size=p.get("image_size", 512),
         num_ids=p.get("num_ids", 10),
@@ -223,6 +224,7 @@ def run_spec_from_config(cfg: Dict) -> RunSpec:
         # reference YAMLs; it also selects the train step's auxiliary loss
         loss_type=pp.get("loss_type", "none"),
         tensorboard=get(cfg, "lightning.tensorboard", False),
+        log_every=get(cfg, "lightning.trainer.log_every_n_steps", 10),
     )
     spec = RunSpec(
         unet=unet, vae=vae, clip=clip, basis=basis,

@@ -5,7 +5,8 @@
 
 Drives the port's main paths once each at full Stable Diffusion v1 width on
 random weights -- serving (``celebbasis_tpu_torch.cli.serve``, txt2img and
-live faces), personalisation training (``celebbasis_tpu_torch.train``) and
+live faces), personalisation training (``celebbasis_tpu_torch.train``, and
+``cli/train.py`` from synthetic checkpoints in the real files' formats) and
 generation through the CLIs (``cli/{txt2img,img2img,build_basis,extract}``,
 and the DDPM chain) -- and holds every hand-written kernel against its plain
 PyTorch version.  Phases:
@@ -48,21 +49,35 @@ PyTorch version.  Phases:
                (two 512x512 crops, two images, the same bytes for the same
                seed); the kernels' launch counters must account for every
                UNet call;
-7. ``train``   ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
+7. ``checkpoint`` a synthetic ``sd-v1-4.ckpt`` (every key and shape of
+               ``manifests/sd-v1-4.json``, fp32 from a seed, DDPM buffers,
+               LitEma keys, Lightning callback objects of a class that cannot
+               be imported when the file is read) and a synthetic fp16
+               CosFace ``backbone.pth`` (``manifests/cosface_r100.json``),
+               written, read (``utils/pt_io``), converted
+               (``utils/bridge``) and loaded through ``loader.assemble``:
+               every manifest key used, the extras reported, parameters read
+               back equal to what was written; sizes, seconds, peak memory;
+8. ``train``   ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
                512x512 images, batch 2, two 512x512 faces per sample,
                synthetic batches): a few uncached steps and two cached ones;
                losses, what moved and what stayed frozen, launch counters,
                the checkpoint, and one step's MLP gradient against the plain
                attention route; then the same gradient and a few uncached
-               and cached steps with the GEGLU kernel route;
-8. ``generate`` the generation CLIs in process on ``configs/aigc_id.yaml``
+               and cached steps with the GEGLU kernel route; then
+               ``cli/train.py`` from the checkpoint phase's files on a
+               synthetic aligned-face pickle of 512x512 PNGs: six uncached
+               steps (validation, TensorBoard, ``DeviceMonitor``, a sample
+               grid) and six cached ones, with ms per step, ms each step
+               waits on the loader, launches and peak memory;
+9. ``generate`` the generation CLIs in process on ``configs/aigc_id.yaml``
                (bf16, 512x512, two samples, the output convs drawn): a
                20-step PLMS txt2img (21 UNet calls), txt2img on two face
                crops, a masked img2img at strength 0.5; ``ddpm_sample`` over
                the full 1000-step schedule with guidance; ``build_basis`` and
-               ``extract`` on the train phase's checkpoint (the files' shapes
-               as the JAX package writes them).  Each with its wall time,
-               peak memory, UNet calls and flash launches.
+               ``extract`` on the CLI training run's checkpoint (the
+               files' shapes as the JAX package writes them).  Each with
+               its wall time, peak memory, UNet calls and flash launches.
 
 Exits non-zero if any phase fails or if there is no CUDA device.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
@@ -75,6 +90,8 @@ import contextlib
 import ctypes
 import json
 import os
+import pickle
+import resource
 import shutil
 import struct
 import subprocess
@@ -82,6 +99,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 import zlib
@@ -176,6 +194,25 @@ INT8_SHAPES = ((16384, 320, 320), (16384, 320, 2560), (16384, 1280, 320),
                (1024, 5120, 1280), (100, 300, 77), (1000, 1300, 200))
 INT8_TIMED = INT8_SHAPES[:7]
 PEAK_INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core rate
+
+# the synthetic sd-v1-4.ckpt: every key of the manifest, and what the real
+# file holds beside them -- the DDPM schedule buffers, LitEma copies (keys
+# with the dots taken out) and Lightning callback state
+SD_MANIFEST = os.path.join(REPO, "manifests", "sd-v1-4.json")
+FR_MANIFEST = os.path.join(REPO, "manifests", "cosface_r100.json")
+DDPM_BUFFERS = ("betas", "alphas_cumprod", "alphas_cumprod_prev",
+                "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+                "log_one_minus_alphas_cumprod", "sqrt_recip_alphas_cumprod",
+                "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+                "posterior_log_variance_clipped", "posterior_mean_coef1",
+                "posterior_mean_coef2", "logvar")
+EMA_KEYS = {"model_ema.decay": (), "model_ema.num_updates": (),
+            "model_ema.diffusion_modeltime_embed0weight": (1280, 320),
+            "model_ema.diffusion_modelout2bias": (4,)}
+# the CLI runs of the train phase: steps, validation every VAL_EVERY steps
+# over VAL_BATCHES batches, a sample grid (ImageLogger, 20 DDIM steps) at the
+# last uncached step, and the cached run's cache
+CLI_STEPS, CLI_VAL_EVERY, CLI_VAL_BATCHES, CLI_CACHE = 6, 3, 2, 3
 
 
 def log(phase: str, msg: str) -> None:
@@ -1585,6 +1622,299 @@ def phase_serve():
 
 # -- phase 7 ------------------------------------------------------------------
 
+def synthetic_value(key, shape, gen):
+    """A seeded value for a checkpoint key, drawn on the card: fan-in-scaled
+    normal weights, small biases, norm scales near 1, positive BatchNorm
+    variances, PReLU slopes of 0.25, a step counter for
+    ``num_batches_tracked``."""
+    if key.endswith("num_batches_tracked"):
+        return torch.tensor(40000, dtype=torch.int64)
+    draw = lambda: torch.randn(shape, generator=gen, device="cuda")
+    if key.endswith("running_var"):
+        value = 0.5 + torch.rand(shape, generator=gen, device="cuda")
+    elif key.endswith("prelu.weight"):
+        value = torch.full(shape, 0.25, device="cuda")
+    elif len(shape) >= 2:
+        value = draw() * float(np.prod(shape[1:])) ** -0.5
+    elif key.endswith((".bias", "running_mean")):
+        value = draw() * 0.02
+    else:
+        value = 1.0 + draw() * 0.02
+    return value.cpu()
+
+
+def phase_checkpoint(work):
+    """A synthetic ``sd-v1-4.ckpt`` (fp32, every key and shape of
+    ``manifests/sd-v1-4.json``, DDPM buffers, LitEma keys and Lightning
+    callback objects of a class that cannot be imported when it is read)
+    and a synthetic fp16 CosFace ``backbone.pth`` (every key of
+    ``manifests/cosface_r100.json``), written to ``work`` and loaded through
+    ``loader.assemble(sd_ckpt=..., fr_ckpt=...)`` at full width.  Every
+    manifest key must land on a parameter or buffer, the extras must be
+    reported, and parameters read back must equal what was written.
+    -> ({"sd": path, "fr": path}, record)."""
+    from celebbasis_tpu_torch.loader import assemble
+    from celebbasis_tpu_torch.utils import bridge, pt_io
+    from celebbasis_tpu_torch.utils.config import load_run_spec
+
+    with open(SD_MANIFEST) as f:
+        sd_keys = json.load(f)["keys"]
+    with open(FR_MANIFEST) as f:
+        fr_keys = json.load(f)["keys"]
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    t0 = time.perf_counter()
+    state = {k: synthetic_value(k, tuple(shape), gen)
+             for k, shape in sd_keys.items()}
+    steps = torch.arange(1000, dtype=torch.float32)
+    for i, name in enumerate(DDPM_BUFFERS):
+        state[name] = (steps + i) * 1e-3
+    for name, shape in EMA_KEYS.items():
+        state[name] = torch.full(shape, 0.5)
+    backbone = {k: synthetic_value(k, tuple(shape), gen).half()
+                if not k.endswith("num_batches_tracked")
+                else synthetic_value(k, (), gen)
+                for k, shape in fr_keys.items()}
+    make_s = time.perf_counter() - t0
+    # Lightning pickles callback objects beside the weights; this class is
+    # importable while the file is written and not when it is read
+    lightning = types.ModuleType("chip_smoke_lightning")
+    lightning.ModelCheckpoint = type("ModelCheckpoint", (), {
+        "__module__": lightning.__name__})
+    sys.modules[lightning.__name__] = lightning
+    paths = {"sd": os.path.join(work, "sd-v1-4.ckpt"),
+             "fr": os.path.join(work, "backbone.pth")}
+    t0 = time.perf_counter()
+    try:
+        torch.save({"state_dict": state, "epoch": 6, "global_step": 470000,
+                    "pytorch-lightning_version": "1.4.2",
+                    "callbacks": {lightning.ModelCheckpoint: {
+                        "best_model_score": None}},
+                    "hyper_parameters": lightning.ModelCheckpoint()},
+                   paths["sd"])
+    finally:
+        del sys.modules[lightning.__name__]
+    torch.save(backbone, paths["fr"])
+    write_s = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    written = {"unet": state["model.diffusion_model.input_blocks.0.0.weight"],
+               "vae": state["first_stage_model.decoder.conv_out.weight"],
+               "clip": state["cond_stage_model.transformer.text_model."
+                             "embeddings.token_embedding.weight"],
+               "fr_stem": backbone["conv1.weight"],
+               "fr_fc": backbone["fc.weight"]}
+    extras = sorted(list(DDPM_BUFFERS) + list(EMA_KEYS))
+    del state, backbone
+
+    # read, then convert, timed apart (the readers' own entry points)
+    t0 = time.perf_counter()
+    raw = pt_io.load_pt(paths["sd"])
+    fr_raw = pt_io.load_pt(paths["fr"])
+    read_s = time.perf_counter() - t0
+    if raw["global_step"] != 470000 or not isinstance(
+            raw["hyper_parameters"], pt_io.Stub) \
+            or lightning.__name__ in sys.modules:
+        raise RuntimeError("checkpoint: the Lightning objects were not "
+                           "stubbed")
+    t0 = time.perf_counter()
+    spec = load_run_spec([os.path.join(REPO, "configs", "aigc_id.yaml")])
+    used, fr_used = set(), set()
+    state = raw["state_dict"]
+    for convert in (lambda: bridge.convert_unet(state, spec.unet, used=used),
+                    lambda: bridge.convert_vae(state, spec.vae, used=used),
+                    lambda: bridge.convert_clip_text(state, spec.clip.layers,
+                                                     used=used),
+                    lambda: bridge.convert_iresnet(fr_raw, used=fr_used)):
+        convert()
+    convert_s = time.perf_counter() - t0
+    if used != set(sd_keys) or sorted(set(state) - used) != extras:
+        raise RuntimeError(f"checkpoint: {len(set(sd_keys) - used)} manifest "
+                           f"keys not used, extras "
+                           f"{sorted(set(state) - used)}")
+    tracked = sorted(k for k in fr_keys if k.endswith("num_batches_tracked"))
+    if fr_used != set(fr_keys) - set(tracked):
+        raise RuntimeError("checkpoint: CosFace keys not used: "
+                           f"{sorted(set(fr_keys) - fr_used)}")
+    del raw, fr_raw, state
+
+    spec.celeb_txt = os.path.join(REPO, "infer_images", "wiki_names_v2.txt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    asm = assemble(spec, sd_ckpt=paths["sd"], fr_ckpt=paths["fr"],
+                   image_size=512, seed=1, cache_dir=None)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    if asm.unused_keys != {"sd": extras, "fr": tracked}:
+        raise RuntimeError(f"checkpoint: assemble reported "
+                           f"{asm.unused_keys}")
+    fr = asm.meta_net.fr_net
+    C = fr.head_bn.mean.shape[0]
+    fc = written["fr_fc"].float()
+    side = int(round((fc.shape[1] // C) ** 0.5))
+    read_back = {
+        "unet": asm.pipeline.unet.conv_in.weight,
+        "vae": asm.pipeline.vae.decoder.conv_out.weight,
+        "clip": asm.pipeline.clip.token_embedding.weight,
+        "fr_stem": fr.stem_conv.weight, "fr_fc": fr.fc.weight}
+    want = dict(written, fr_stem=written["fr_stem"].float(),
+                fr_fc=fc.reshape(-1, C, side, side).permute(0, 2, 3, 1)
+                .reshape(fc.shape[0], -1))
+    for name, got in read_back.items():
+        if got.dtype != torch.float32 or not torch.equal(got.cpu(),
+                                                         want[name]):
+            raise RuntimeError(f"checkpoint: {name} does not read back "
+                               f"({got.dtype})")
+    n_params = sum(p.numel() for p in asm.pipeline.parameters())
+    rec = {"sizes_bytes": sizes, "make_s": make_s, "write_s": write_s,
+           "read_s": read_s, "convert_s": convert_s,
+           "assemble_s": assemble_s, "sd_keys": len(sd_keys),
+           "fr_keys": len(fr_keys), "extras": len(extras),
+           "pipeline_parameters": n_params,
+           "device_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "host_peak_gib": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss / 2 ** 20}
+    del asm
+    torch.cuda.empty_cache()
+    log("checkpoint", f"sd-v1-4.ckpt {sizes['sd'] / 2**30:.3f} GiB "
+                      f"({len(sd_keys)} manifest keys + {len(extras)} "
+                      f"extras, fp32), backbone.pth {sizes['fr'] / 2**20:.1f} "
+                      f"MiB ({len(fr_keys)} keys, fp16): made in "
+                      f"{make_s:.1f} s, written in {write_s:.1f} s, read in "
+                      f"{read_s:.1f} s, converted in {convert_s:.2f} s; "
+                      f"assemble from both {assemble_s:.1f} s; every manifest "
+                      f"key used, extras reported, parameters read back "
+                      f"equal; peak memory device "
+                      f"{rec['device_peak_gib']:.2f} GiB, host "
+                      f"{rec['host_peak_gib']:.2f} GiB")
+    return paths, rec
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+def train_cli(keep_dir, checkpoints):
+    """``cli/train.main`` at 512x512 from the checkpoint phase's files, on a
+    synthetic aligned-face pickle: six uncached steps with validation,
+    TensorBoard, ``DeviceMonitor`` and a sample grid, then six cached steps
+    over three cached batches.  Copies the uncached run's last checkpoint
+    into ``keep_dir`` for the generate phase.  -> (launches by run, record
+    by run)."""
+    from celebbasis_tpu_torch.cli import train
+    from celebbasis_tpu_torch.cli.serve import encode_png
+    from celebbasis_tpu_torch.utils.config import load_run_spec
+    from celebbasis_tpu_torch.utils.tb import read_scalars
+
+    config = os.path.join(REPO, "configs", "aigc_id.yaml")
+    data = load_run_spec([config]).train_data
+    # the config picks identities by position (specific_ids), so the pickle
+    # holds as many files as the highest position asked for, plus one
+    n_files = max(data.specific_ids or [data.num_ids - 1]) + 1
+    faces = os.path.join(keep_dir, "faces")
+    os.makedirs(faces)
+    paths = []
+    for i, img in enumerate(face_crops(512, 77, k=n_files)):
+        paths.append(os.path.join(faces, f"{i:05d}.png"))
+        with open(paths[-1], "wb") as f:
+            f.write(encode_png(img))
+    with open(os.path.join(faces, "ffhq.pickle"), "wb") as f:
+        pickle.dump(paths, f)
+    logdir = os.path.join(keep_dir, "logs")
+    common = ["--base", config, "--logdir", logdir, "--data_root", faces,
+              "--actual_resume", checkpoints["sd"], "--fr_ckpt",
+              checkpoints["fr"], "--image_size", "512", "--face_size", "512",
+              "--max_steps", str(CLI_STEPS),
+              f"lightning.trainer.val_check_interval={CLI_VAL_EVERY}",
+              f"lightning.trainer.limit_val_batches={CLI_VAL_BATCHES}",
+              "lightning.callbacks.device_monitor.params.every=1",
+              "lightning.tensorboard=true",
+              "lightning.trainer.log_every_n_steps=1",
+              "data.params.validation.params.pickle_path=faces",
+              f"data.params.validation.params.num_ids={data.num_ids}"]
+    vals = CLI_STEPS // CLI_VAL_EVERY
+    val_launches = vals * CLI_VAL_BATCHES * ATTN_PER_UNET
+    runs = {"cli": (["--name", "cli", "lightning.callbacks.image_logger.params."
+                     f"batch_frequency={CLI_STEPS}"],
+                    DDIM_STEPS * ATTN_PER_UNET),
+            "cli_cached": (["--name", "cli_cached", "--cache_latents",
+                            str(CLI_CACHE)], 0)}
+    launches, recs = {}, {}
+    cwd = os.getcwd()
+    os.chdir(REPO)                          # the config's relative paths
+    try:
+        for name, (extra, sample_launches) in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_count()
+            t0 = time.perf_counter()
+            run = train.main(common + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = fa.launch_counts()
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                lines = [json.loads(line) for line in f]
+            steps = [r for r in lines if "loss" in r]
+            val = [r["val_loss_simple"] for r in lines
+                   if "val_loss_simple" in r]
+            with open(os.path.join(run, "device_stats.jsonl")) as f:
+                dev = [json.loads(line) for line in f]
+            events = [os.path.join(run, "tensorboard", n) for n in
+                      os.listdir(os.path.join(run, "tensorboard"))]
+            tags = {t for e in events for _, t, _ in read_scalars(e)}
+            step_ms = [r["step_time_s"] * 1e3 for r in steps]
+            wait_ms = [r["data_wait_s"] * 1e3 for r in steps]
+            rec = {"wall_s": wall, "step_ms": step_ms,
+                   "median_step_ms": float(np.median(step_ms[1:])),
+                   "data_wait_ms": wait_ms,
+                   "median_data_wait_ms": float(np.median(wait_ms[1:])),
+                   "losses": [r["loss"] for r in steps], "val_losses": val,
+                   "launches": got,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            recs[name], launches[name] = rec, got
+            log("train", f"cli/train.py {name}: {len(steps)} steps in "
+                         f"{wall:.1f} s (assembly from the checkpoints "
+                         f"included); ms per step "
+                         f"{[round(x, 1) for x in step_ms]} (median of all "
+                         f"but the first {rec['median_step_ms']:.1f}); ms "
+                         f"waiting on the loader "
+                         f"{[round(x, 2) for x in wait_ms]} (median "
+                         f"{rec['median_data_wait_ms']:.2f}); losses "
+                         f"{[round(x, 4) for x in rec['losses']]}, "
+                         f"validation {[round(x, 4) for x in val]}; flash "
+                         f"launches {json.dumps(got)} (a step: "
+                         f"{got['fwd_lse'] / CLI_STEPS:g} #3, "
+                         f"{got['dq'] / CLI_STEPS:g} #4, "
+                         f"{got['dkv'] / CLI_STEPS:g} #5; #1: "
+                         f"{TRAIN_LAUNCHES['flash_attention_nhd'] * CLI_STEPS}"
+                         f" in steps, {val_launches} in "
+                         f"validation, {sample_launches} in the sample grid "
+                         f"expected); peak memory {rec['peak_gib']:.2f} GiB")
+            want = {n: c * CLI_STEPS for n, c in TRAIN_LAUNCHES.items()}
+            want["flash_attention_nhd"] += val_launches + sample_launches
+            ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+            if got != want:
+                raise RuntimeError(f"train: {name} launched {got}; expected "
+                                   f"{want}")
+            if len(steps) != CLI_STEPS or len(val) != vals \
+                    or not np.isfinite(rec["losses"] + val).all():
+                raise RuntimeError(f"train: {name} losses {rec['losses']}, "
+                                   f"validation {val}")
+            if ckpts != [f"embeddings_gs-{CLI_STEPS}.pt"] or tags != {
+                    "train/loss", "train/loss_simple", "val/loss_simple"}:
+                raise RuntimeError(f"train: {name} wrote {ckpts}, "
+                                   f"TensorBoard tags {tags}")
+            if [r["step"] for r in dev] != list(range(1, CLI_STEPS + 1)) \
+                    or not all(r["peak_bytes_in_use"] for r in dev):
+                raise RuntimeError(f"train: {name} device stats {dev}")
+            if sample_launches and not os.path.exists(os.path.join(
+                    run, "images", f"samples_gs-{CLI_STEPS:06d}.jpg")):
+                raise RuntimeError(f"train: {name} wrote no sample grid")
+            if name == "cli":
+                shutil.copy(os.path.join(run, "checkpoints", ckpts[-1]),
+                            keep_dir)
+    finally:
+        os.chdir(cwd)
+    return launches, recs
+
+
 def checksum(module) -> int:
     """An integer checksum of the bytes of a module's parameters and
     buffers: equal before and after means no byte changed."""
@@ -1596,9 +1926,9 @@ def checksum(module) -> int:
     return total
 
 
-def phase_train(keep_dir):
-    """``Trainer.fit`` at full width (module docstring, phase 7); copies the
-    run's last checkpoint into ``keep_dir`` for the generate phase."""
+def phase_train():
+    """``Trainer.fit`` at full width (module docstring, phase 8; the phase
+    goes on with ``train_cli``)."""
     from celebbasis_tpu_torch.core import manager as mgr
     from celebbasis_tpu_torch.loader import assemble, init_weights
     from celebbasis_tpu_torch.train import step as tstep
@@ -1695,8 +2025,6 @@ def phase_train(keep_dir):
             device="cuda")
         if not torch.equal(back.id_coefficients, new.id_coefficients):
             raise RuntimeError("train: the checkpoint does not read back")
-        shutil.copy(os.path.join(trainer.run_dir, "checkpoints", want[-1]),
-                    keep_dir)
         log("train", f"checkpoints {ckpts} read back; MLP moved by "
                      f"{(meta.mlp.layer_0.weight - w0).abs().max().item():.4f}"
                      f"; dictionaries moved at ids "
@@ -1828,7 +2156,7 @@ def phase_train(keep_dir):
              "peak_gib": peak / 2 ** 30, **geglu_ms})
 
 
-# -- phase 8 ------------------------------------------------------------------
+# -- phase 9 ------------------------------------------------------------------
 
 class DrawnAssemblies:
     """While entered, every ``loader.assemble`` (the one the CLIs call) draws
@@ -2042,21 +2370,31 @@ def main() -> int:
     phase_parity()
     phase_train_parity()
     launches, request_ms = phase_serve()
-    work = tempfile.mkdtemp(prefix="chip_smoke_generate_")
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        train_launches, train_ms = phase_train(work)
+        checkpoints, checkpoint = phase_checkpoint(work)
+        train_launches, train_ms = phase_train()
+        cli_launches, cli = train_cli(work, checkpoints)
+        for path in checkpoints.values():
+            os.remove(path)
+        for name, r in cli.items():
+            train_ms.update({f"{name}_ms": r["median_step_ms"],
+                             f"{name}_data_wait_ms": r["median_data_wait_ms"],
+                             f"{name}_peak_gib": r["peak_gib"]})
         generate = phase_generate(work, os.path.join(
-            work, f"embeddings_gs-{TRAIN_STEPS}.pt"))
+            work, f"embeddings_gs-{CLI_STEPS}.pt"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
     for entry, replaces in KERNELS.items():
         main_shape = shapes[entry][0]          # N = M = 4096, D = 40, bf16
-        by_path = {"serve": launches[entry]}
+        by_path = {"serve": launches[entry], "train": train_launches[entry]}
         if entry == "flash_attention_nhd":
             by_path.update({name: r["launches"].get(entry, 0)
                             for name, r in generate.items()})
+            by_path.update({f"train_{name}": c[entry]
+                            for name, c in cli_launches.items()})
         kernels.append({
             "name": entry, "route": "cuda", "source": FWD_SOURCE,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2077,9 +2415,13 @@ def main() -> int:
     outputs = {"fwd_lse": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     for name, (source, replaces, _) in TRAIN_KERNELS.items():
         timed = main_shape[name]
+        by_path = {"train": train_launches[name],
+                   **{f"train_{run}": c[name]
+                      for run, c in cli_launches.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": train_launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(s[f"{o}_max_abs_err"] for s in train_shapes
                                for o in outputs[name]),
             "max_err_ratio": max(s.get(f"{o}_err_ratio", 0.0)
@@ -2149,7 +2491,8 @@ def main() -> int:
     generate_ms = {n: round(r["wall_ms"], 1) for n, r in generate.items()}
     log("done", f"{time.perf_counter() - t_start:.0f} s in all; request ms "
                 f"({DDIM_STEPS} DDIM steps) {json.dumps(request_ms)}; train "
-                f"step {json.dumps(train_ms)}; generate wall ms "
+                f"step {json.dumps(train_ms)}; checkpoint "
+                f"{json.dumps(checkpoint)}; generate wall ms "
                 f"{json.dumps(generate_ms)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

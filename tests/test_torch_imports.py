@@ -32,6 +32,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
                                     "celebbasis_tpu"))
 print("MODULES", len(names))
+print("TRAIN_RUN", sorted(n for n in names if n.endswith(
+    (".face_id", ".tb", ".callbacks", "cli.train", ".pt_io"))))
 print("KERNEL_MODULES", sorted(n for n in names if n.endswith(
     (".flash_attention", ".geglu", ".quant"))))
 print("BAD", bad)
@@ -51,6 +53,11 @@ def test_imports_pull_in_no_jax_and_build_nothing():
                                                   "quant")))
     assert lines["BAD"] == "[]"
     assert lines["BUILT"] == "[]"
+    # the modules of the personalisation run are among those imported
+    assert lines["TRAIN_RUN"] == str(sorted(
+        f"celebbasis_tpu_torch.{m}" for m in (
+            "data.face_id", "utils.tb", "train.callbacks", "cli.train",
+            "utils.pt_io")))
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -144,7 +151,7 @@ def test_typed_defaults_equal_the_yaml():
     assert pipeline_config_from_spec(loaded) == PipelineConfig.sd_v1()
     # and the JAX package reads the same file to the same numbers
     theirs = j_load([path])
-    for name in ("unet", "vae", "clip", "basis"):
+    for name in ("unet", "vae", "clip", "basis", "train_data"):
         ours = dataclasses.asdict(getattr(loaded, name))
         ref = dataclasses.asdict(getattr(theirs, name))
         assert ours == ref, name
