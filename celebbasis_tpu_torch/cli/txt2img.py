@@ -5,7 +5,9 @@ prompt, DDIM 50 steps (``--plms`` for PLMS), CFG scale 10, eta 0, 512x512,
 ``--n_samples`` per prompt, seed 42, ``--embedding_path`` for the trained
 coefficients, placeholder words (``sks``/``ks``) selecting saved identities
 through ``--ids``, or ``--faces`` for live-face conditioning (identity
-embeddings from a MetaIdNet forward on aligned crops).
+embeddings from a MetaIdNet forward on aligned crops), or
+``--ti_embedding`` for a textual-inversion checkpoint (its learned vectors
+stand in for its placeholders, e.g. ``*``).
 
 Image i of a run (counted over all prompts) draws from a generator seeded
 from ``(--seed, i)``.  Runs on ``cuda``; ``--device cpu`` asks for the CPU
@@ -78,8 +80,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--embedding_path", type=str, default=None,
                    help="embeddings_gs-*.pt with trained id coefficients")
     p.add_argument("--ti_embedding", type=str, default=None,
-                   help="textual-inversion checkpoint (not ported yet: "
-                        "ROADMAP A5)")
+                   help="textual-inversion checkpoint (train_ti / merge): "
+                        "its vectors replace its placeholders")
     p.add_argument("--vocab", type=str, default=None)
     p.add_argument("--ddim_steps", type=int, default=50)
     p.add_argument("--plms", action="store_true")
@@ -120,10 +122,6 @@ def main(argv=None) -> np.ndarray:
     args = build_argparser().parse_args(argv)
     if args.H != args.W:
         raise ValueError("square outputs only")
-    if args.ti_embedding:
-        raise NotImplementedError(
-            "--ti_embedding: textual inversion is not ported yet (ROADMAP "
-            "A5)")
     if args.mesh or args.tp:
         raise NotImplementedError(
             "--mesh/--tp: parallel/mesh.py is not ported yet (ROADMAP A10)")
@@ -152,6 +150,21 @@ def main(argv=None) -> np.ndarray:
 
         def fn(_state, basis, tokens, uncond, ids, num_ids, gens):
             return faces_fn(basis, tokens, uncond, faces, ids, num_ids, gens)
+    elif args.ti_embedding:
+        from celebbasis_tpu_torch.core import textual_inversion as ti
+        vectors = ti.load_ti_checkpoint(args.ti_embedding)
+        names = sorted(vectors)
+        ti_cfg = ti.TIConfig(placeholder_strings=tuple(names),
+                             num_vectors_per_token=vectors[names[0]].shape[0],
+                             token_dim=spec.clip.width)
+        ti_params = torch.from_numpy(
+            np.stack([vectors[n] for n in names])).to(dev)
+        ti_fn = pipe.make_txt2img_ti_fn(
+            ti_cfg, ti.placeholder_token_ids(ti_cfg, asm.tokenizer),
+            **sampler_args)
+
+        def fn(_state, _basis, tokens, uncond, _ids, _num_ids, gens):
+            return ti_fn(ti_params, tokens, uncond, gens)
     else:
         fn = pipe.make_txt2img_fn(**sampler_args)
 

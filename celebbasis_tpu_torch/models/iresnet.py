@@ -22,9 +22,8 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from celebbasis_tpu_torch.ops.basic import Dense, to_nchw, to_nhwc
+from celebbasis_tpu_torch.ops.basic import Conv, Dense, to_nchw, to_nhwc
 
 
 @dataclass(frozen=True)
@@ -83,33 +82,21 @@ class PReLU(nn.Module):
         return torch.where(x >= 0, x, alpha * x)
 
 
-class _Conv(nn.Conv2d):
-    """Bias-free conv that computes in ``dtype`` whatever its storage type."""
-
-    def __init__(self, in_ch, out_ch, kernel, stride, dtype):
-        super().__init__(in_ch, out_ch, kernel, stride=stride,
-                         padding=kernel // 2, bias=False)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
-                        self.padding)
-
-
 class IBasicBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int,
                  dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
         self.bn1 = FrozenBN(in_planes)
-        self.conv1 = _Conv(in_planes, planes, 3, 1, dtype)
+        self.conv1 = Conv(in_planes, planes, 3, dtype=dtype, bias=False)
         self.bn2 = FrozenBN(planes)
         self.prelu = PReLU(planes)
-        self.conv2 = _Conv(planes, planes, 3, stride, dtype)
+        self.conv2 = Conv(planes, planes, 3, stride=stride, dtype=dtype,
+                          bias=False)
         self.bn3 = FrozenBN(planes)
         if stride != 1 or in_planes != planes:
-            self.down_conv = _Conv(in_planes, planes, 1, stride, dtype)
+            self.down_conv = Conv(in_planes, planes, 1, stride=stride,
+                                  dtype=dtype, bias=False)
             self.down_bn = FrozenBN(planes)
 
     def forward(self, x):
@@ -127,7 +114,7 @@ class IResNet(nn.Module):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         base = cfg.base
-        self.stem_conv = _Conv(3, base, 3, 1, dtype)
+        self.stem_conv = Conv(3, base, 3, dtype=dtype, bias=False)
         self.stem_bn = FrozenBN(base)
         self.stem_prelu = PReLU(base)
         names, cur, size = [], base, cfg.input_size

@@ -130,19 +130,23 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` on ``(B, C, H, W)`` that computes in ``dtype``."""
+    """``nn.Conv2d`` on ``(B, C, H, W)`` that computes in ``dtype``.
+    ``kernel``, ``stride`` and ``padding`` may be pairs; ``padding`` defaults
+    to half a square kernel."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, padding: int | None = None,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, in_ch: int, out_ch: int, kernel=3, stride=1,
+                 padding=None, dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
         pad = kernel // 2 if padding is None else padding
-        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=pad)
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=pad,
+                         bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride, self.padding)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
+                        self.padding)
 
 
 class ZeroConv(Conv):

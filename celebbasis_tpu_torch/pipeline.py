@@ -8,13 +8,11 @@ Counterpart of ``celebbasis_tpu/pipeline.py``:
 The pipeline is an ``nn.Module`` that owns the three models (``unet``,
 ``vae``, ``clip``), so one ``state_dict`` carries what the JAX package keeps
 in its ``{"unet", "vae", "clip"}`` params tree, and ``.to(device)`` moves it.
-``make_txt2img_fn`` (identities from saved coefficients) and
+``make_txt2img_fn`` (identities from saved coefficients),
 ``make_txt2img_faces_fn`` (identities from a live MetaIdNet forward on face
-crops) return functions from prompt tokens to finished images that run under
-``torch.inference_mode()``.
-
-The textual-inversion variant (``make_txt2img_ti_fn``) waits for
-``core/textual_inversion.py`` (ROADMAP A5).
+crops) and ``make_txt2img_ti_fn`` (learned textual-inversion vectors in
+place of placeholders) return functions from prompt tokens to finished
+images that run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -215,6 +213,32 @@ class CelebBasisPipeline(nn.Module):
             embeds = self.clip.token_embed(tokens)
             embeds = mgr.test_inject(m_cfg, None, basis, tokens, embeds, ids,
                                      num_ids, pred_z=pred_z)
+            return run(self.clip.encode(embeds),
+                       self.conditioning(uncond_tokens), generators, x_T)
+
+        return fn
+
+    def make_txt2img_ti_fn(self, ti_cfg, ph_ids, num_steps: int = 50,
+                           guidance_scale: float = 7.5, eta: float = 0.0,
+                           image_size: int = 512, sampler: str = "ddim",
+                           output: str = "float"):
+        """Textual-inversion sampling: the learned vectors replace the
+        placeholders (the reference's ``main.py`` / textual-test path).
+
+        Returns fn(ti_params, tokens, uncond_tokens, generators, x_T=None)
+        -> images; ``ti_params`` (P, V, D) as ``core.textual_inversion``
+        keeps them, ``ph_ids`` the placeholders' token ids.
+        """
+        from celebbasis_tpu_torch.core import textual_inversion as ti
+        run = self._sample_and_decode(sampler, num_steps, guidance_scale,
+                                      eta, image_size, output)
+        ph = torch.as_tensor(ph_ids, dtype=torch.int64, device=self.device)
+
+        @torch.inference_mode()
+        def fn(ti_params, tokens, uncond_tokens,
+               generators: Optional[Sequence[torch.Generator]], x_T=None):
+            embeds = ti.ti_inject(ti_cfg, ti_params, ph, tokens,
+                                  self.clip.token_embed(tokens))
             return run(self.clip.encode(embeds),
                        self.conditioning(uncond_tokens), generators, x_T)
 

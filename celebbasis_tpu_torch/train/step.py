@@ -161,26 +161,34 @@ def _randn(shape, generator, device):
                        device=generator.device).to(device)
 
 
-def _loss_from_posterior(pipeline, sched, loss_type, gnet, manager_state,
-                         batch, generator, mean, logvar, pred_z, pred_coeff):
-    """Steps 1b-5 shared by the cached and uncached losses: sample the
-    posterior, draw t and eps, inject, encode, predict, take the loss."""
+def noisy_latents(pipeline, sched, batch, generator, mean, logvar):
+    """Sample the VAE posterior (mean, logvar), draw t and eps and noise the
+    latents: -> (z_t, t, eps).  The draws come from ``generator`` in this
+    order (posterior noise, t, eps) unless the batch carries
+    ``override_znoise`` / ``override_t`` / ``override_noise``."""
     dev = mean.device
-    T = pipeline.cfg.timesteps
     zn = batch.get("override_znoise")
     if zn is None:
         zn = _randn(mean.shape, generator, dev)
     z0 = ((mean + torch.exp(0.5 * logvar) * zn)
           * pipeline.cfg.scale_factor).detach()
-    B = z0.shape[0]
     t = batch.get("override_t")
     if t is None:
-        t = torch.randint(0, T, (B,), generator=generator,
+        t = torch.randint(0, pipeline.cfg.timesteps, (z0.shape[0],),
+                          generator=generator,
                           device=generator.device).to(dev)
     noise = batch.get("override_noise")
     if noise is None:
         noise = _randn(z0.shape, generator, dev)
-    z_t = ddpm.q_sample(sched, z0, t, noise)
+    return ddpm.q_sample(sched, z0, t, noise), t, noise
+
+
+def _loss_from_posterior(pipeline, sched, loss_type, gnet, manager_state,
+                         batch, generator, mean, logvar, pred_z, pred_coeff):
+    """Steps 1b-5 shared by the cached and uncached losses: sample the
+    posterior, draw t and eps, inject, encode, predict, take the loss."""
+    z_t, t, noise = noisy_latents(pipeline, sched, batch, generator, mean,
+                                  logvar)
     with torch.no_grad():
         embeds = pipeline.clip.token_embed(batch["tokens"])
     new_embeds, new_mstate = mgr.train_inject(

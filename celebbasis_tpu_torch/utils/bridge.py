@@ -10,14 +10,18 @@ model:
 * a dense kernel ``(in, out)`` -> ``(out, in)``;
 * ``scale`` -> ``weight`` (norms, FrozenBN), ``embedding`` -> ``weight`` (the
   token table); ``bias``, ``position_embedding``, FrozenBN's ``mean`` / ``var``
-  (buffers in the port), PReLU's ``alpha`` and ``coef_table`` as they are;
+  (buffers in the port), PReLU's ``alpha``, ``coef_table`` and the CLIP
+  towers' ``class_embedding`` and ``proj`` (used as ``x @ proj`` on both
+  sides) as they are;
   a leaf already called ``weight`` (EqualLinear) is stored ``(out, in)`` in
   both packages and is **not** transposed;
 * IResNet's ``fc`` follows a flatten in ``(H, W, C)`` order in both packages
   (the port keeps channels-last there), so its kernel is only transposed;
 * the extra nesting of the JAX wrappers (``GroupNorm_0`` / ``LayerNorm_0``
   under ``ops.basic``'s norms, ``Conv_0`` under ``ZeroConv``) and flax's
-  top-level ``params`` collection are dropped from the path.
+  top-level ``params`` and ``batch_stats`` collections are dropped from the
+  path (a BatchNorm's ``mean`` / ``var`` and ``scale`` / ``bias`` meet under
+  one module).
 
 ``load_jax_params(module, tree)`` loads with ``strict=True``: every leaf of
 the tree is consumed and every parameter of the module is filled, or it
@@ -52,7 +56,9 @@ _WRAPPER_LEVELS = ("GroupNorm_0", "LayerNorm_0", "Conv_0")
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "position_embedding": "position_embedding",
                "weight": "weight", "mean": "mean", "var": "var",
-               "alpha": "alpha", "coef_table": "coef_table"}
+               "alpha": "alpha", "coef_table": "coef_table",
+               "class_embedding": "class_embedding", "proj": "proj"}
+_COLLECTIONS = ("params", "batch_stats")
 
 
 def _convert_leaf(path, name: str, value) -> torch.Tensor:
@@ -76,7 +82,7 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     def walk(node, path):
         for key, val in node.items():
             if isinstance(val, Mapping):
-                skip = key in _WRAPPER_LEVELS or key == "params"
+                skip = key in _WRAPPER_LEVELS or key in _COLLECTIONS
                 walk(val, path if skip else path + (key,))
                 continue
             if key not in _LEAF_NAMES:

@@ -6,10 +6,12 @@
 Drives the port's main paths once each at full Stable Diffusion v1 width on
 random weights -- serving (``celebbasis_tpu_torch.cli.serve``, txt2img and
 live faces), personalisation training (``celebbasis_tpu_torch.train``, and
-``cli/train.py`` from synthetic checkpoints in the real files' formats) and
+``cli/train.py`` from synthetic checkpoints in the real files' formats),
 generation through the CLIs (``cli/{txt2img,img2img,build_basis,extract}``,
-and the DDPM chain) -- and holds every hand-written kernel against its plain
-PyTorch version.  Phases:
+and the DDPM chain), the textual-inversion baseline (``cli/train_ti``,
+``cli/merge``, ``txt2img --ti_embedding``) and the evaluation
+(``cli/gen_imgs``, ``cli/eval_imgs``) -- and holds every hand-written kernel
+against its plain PyTorch version.  Phases:
 
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
 2. ``build``   builds the kernel libraries from ``celebbasis_tpu_torch/csrc``,
@@ -31,7 +33,9 @@ PyTorch version.  Phases:
                serving and training shapes in bf16 and fp32, and
                ``int8_matmul`` at the UNet's projection shapes and two ragged
                ones, in every mode that can run each shape, bit for bit, and
-               on every bf16 value its quantisation tells apart;
+               on every bf16 value its quantisation tells apart; and the
+               packed forward at the scorer's ViT-B/32 shape (12 heads, 50
+               tokens, D = 64; batches 2 and 32; fp32 and bf16, timed);
 4. ``parity``  the norms' bf16 branch with float32 parameters against the
                float32 formula rounded once (within one bf16 unit); the tiny
                pipeline in fp32 through the kernel route and through the
@@ -77,7 +81,27 @@ PyTorch version.  Phases:
                the full 1000-step schedule with guidance; ``build_basis`` and
                ``extract`` on the CLI training run's checkpoint (the
                files' shapes as the JAX package writes them).  Each with
-               its wall time, peak memory, UNet calls and flash launches.
+               its wall time, peak memory, UNet calls and flash launches;
+10. ``ti``     ``cli/train_ti.py`` at full width from the checkpoint
+               phase's ``sd-v1-4.ckpt`` on three random-pixel 512x512 PNGs:
+               six steps, each timed to a sync, peak memory and launches;
+               the loss finite, the vectors moved, the UNet, CLIP and VAE
+               unchanged and without gradients; one step's loss and vector
+               gradient on the kernel route against the plain route (cosine
+               >= 0.99, |diff| / |grad| <= 0.1); ``cli/merge.py`` on its
+               checkpoint and a renamed copy, and a 20-step
+               ``txt2img --ti_embedding`` on the merged file (640 packed
+               launches);
+11. ``evaluate`` ``cli/gen_imgs.py`` at 512x512 (2 ids x 2 prompts x 2
+               samples, 20 steps, output convs drawn) on the CLI training
+               run's checkpoint, then ``cli/eval_imgs.py --fid
+               --inception_ckpt`` from synthetic CLIP ViT-B/32 (OpenAI
+               layout; its reader equal to the HF layout's), sphere20 and
+               FID Inception files of the manifests' keys, fp32: scores
+               finite, cosines in [-1, 1], every scorer forward with TF32
+               off (allowed before the call, allowed again after), 12
+               packed launches a ViT forward; the ViT's image features on
+               the kernel route within 2e-5 (relative) of the plain route.
 
 Exits non-zero if any phase fails or if there is no CUDA device.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
@@ -86,7 +110,6 @@ it is the ``{"kernels": [...]}`` record.
 from __future__ import annotations
 
 import base64
-import contextlib
 import ctypes
 import json
 import os
@@ -112,6 +135,7 @@ from celebbasis_tpu_torch.ops import cuda_build
 from celebbasis_tpu_torch.ops import flash_attention as fa
 from celebbasis_tpu_torch.ops import geglu
 from celebbasis_tpu_torch.ops import quant
+from celebbasis_tpu_torch.utils.precision import no_tf32
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DDIM_STEPS = 20
@@ -213,6 +237,25 @@ EMA_KEYS = {"model_ema.decay": (), "model_ema.num_updates": (),
 # over VAL_BATCHES batches, a sample grid (ImageLogger, 20 DDIM steps) at the
 # last uncached step, and the cached run's cache
 CLI_STEPS, CLI_VAL_EVERY, CLI_VAL_BATCHES, CLI_CACHE = 6, 3, 2, 3
+# the ti phase: cli/train_ti.py steps (a step's flash launches are
+# TRAIN_LAUNCHES: the vectors reach the UNet through the context, as the MLP's
+# identities do)
+TI_STEPS = 6
+# the CLIP ViT-B/32 image tower's attention: 7x7 patches and the class
+# token, 12 heads of 64, no mask; batches of the evaluate phase's samples (2)
+# and of the FID scorer (32)
+VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM, VIT_LAYERS = 12, 50, 64, 12
+VIT_BATCHES = (2, 32)
+VIT_REL_TOL = 2e-5           # fp32 image features, kernel vs plain route
+# the evaluate phase: gen_imgs over EVAL_IDS identities x two prompts x
+# EVAL_SAMPLES samples; the scorers' files from these manifests
+EVAL_IDS, EVAL_SAMPLES = 2, 2
+CLIP_MANIFEST = os.path.join(REPO, "manifests", "clip_vit_b32.json")
+SPHERE_MANIFEST = os.path.join(REPO, "manifests", "sphere20.json")
+INCEPTION_MANIFEST = os.path.join(REPO, "manifests", "fid_inception.json")
+SCORE_KEYS = {"image_sim", "text_sim", "id_cos_sim", "id_mse_dist",
+              "id_l2_dist", "num_has_face", "num_no_face", "n_items",
+              "n_id_items", "fid"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -612,6 +655,15 @@ def phase_kernels():
             shapes.append(check_shape(entry, B_SERVE, H_SERVE, N, N, D,
                                       torch.bfloat16, timed=False,
                                       q_scale=4.0))
+        if entry == "flash_attention_nhd":
+            # the scorer's ViT-B/32 (evaluate phase): D = 64 padded to 80,
+            # one ragged tile of 50 keys, fp32 as it scores and bf16
+            with no_tf32():
+                for B in VIT_BATCHES:
+                    for dtype in (torch.float32, torch.bfloat16):
+                        shapes.append(check_shape(
+                            entry, B, VIT_HEADS, VIT_TOKENS, VIT_TOKENS,
+                            VIT_HEAD_DIM, dtype, timed=True))
         records[entry] = shapes
     return records
 
@@ -1134,21 +1186,6 @@ def phase_parity():
                             x_T, gen, size, n_kernel)
 
 
-@contextlib.contextmanager
-def no_tf32():
-    """TF32 off for convolutions and matrix products, so that only the route
-    under test differs between two runs."""
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
-
-
 def kernel_vs_plain(run):
     """``run()`` with TF32 off, on the attention kernel route and then on the
     plain route -> (kernel image, its flash launches, plain image, its flash
@@ -1289,11 +1326,7 @@ def phase_train_parity():
     from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
     from celebbasis_tpu_torch.train import step as tstep
 
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         cfg = PipelineConfig.tiny()
         tok = CLIPTokenizer.synthetic(cfg.clip.vocab_size)
         gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1320,9 +1353,6 @@ def phase_train_parity():
                                                     basis, batch, 7)
         finally:
             attn_ops.set_default_impl(None)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
     rel = ((grad_k - grad_p).abs().max() / grad_p.abs().max()).item()
     log("train_parity", f"tiny fp32 64x64: loss {loss_k:.6f} (kernel route) "
                         f"{loss_p:.6f} (plain route); MLP gradient max "
@@ -1341,16 +1371,13 @@ def phase_train_parity():
                            f"{rel:.2e})")
     # the FF sub-blocks on the GEGLU kernel route (attention on its kernel
     # route on both sides); the backward recomputes through the plain path
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     geglu.set_default_impl("cuda")
     try:
-        loss_g, grad_g, n_g = loss_and_mlp_grad(loss_fn, meta, mstate, basis,
-                                                batch, 7)
+        with no_tf32():
+            loss_g, grad_g, n_g = loss_and_mlp_grad(loss_fn, meta, mstate,
+                                                    basis, batch, 7)
     finally:
         geglu.set_default_impl(None)
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
     rel = ((grad_g - grad_k).abs().max() / grad_k.abs().max()).item()
     log("train_parity", f"GEGLU kernel route vs plain route: loss "
                         f"{loss_g:.6f} vs {loss_k:.6f}; MLP gradient max "
@@ -2160,9 +2187,13 @@ def phase_train():
 
 class DrawnAssemblies:
     """While entered, every ``loader.assemble`` (the one the CLIs call) draws
-    its UNet's zero-initialised output convs, as the serve phase does, and
-    counts the UNet's calls; ``calls`` and ``assemble_s`` add up over all
-    assemblies made inside."""
+    its UNet's zero-initialised output convs, as the serve phase does (not
+    with ``draw=False``: weights read from a checkpoint stay), and counts the
+    UNet's calls; ``calls`` and ``assemble_s`` add up over all assemblies
+    made inside."""
+
+    def __init__(self, draw: bool = True):
+        self.draw = draw
 
     def __enter__(self):
         from celebbasis_tpu_torch import loader
@@ -2174,11 +2205,13 @@ class DrawnAssemblies:
         def assemble(*args, **kw):
             t0 = time.perf_counter()
             asm = self._real(*args, **kw)
-            loader.init_weights(asm.pipeline.unet,
-                                torch.Generator(device="cuda").manual_seed(5),
-                                zero_convs=False)
-            if kw.get("param_dtype") is not None:
-                cast_float_params(asm.pipeline, kw["param_dtype"])
+            if self.draw:
+                loader.init_weights(
+                    asm.pipeline.unet,
+                    torch.Generator(device="cuda").manual_seed(5),
+                    zero_convs=False)
+                if kw.get("param_dtype") is not None:
+                    cast_float_params(asm.pipeline, kw["param_dtype"])
             asm.pipeline.unet.register_forward_pre_hook(self._count)
             self.assemble_s += time.perf_counter() - t0
             return asm
@@ -2193,10 +2226,10 @@ class DrawnAssemblies:
         self._loader.assemble = self._real
 
 
-def measured(name, ctx, fn):
+def measured(name, ctx, fn, phase="generate"):
     """Runs ``fn()`` with the flash counters at 0 and the peak memory reset;
     -> (its result, a record of wall and assembly ms, UNet calls, launches,
-    peak GiB), logged."""
+    peak GiB), logged under `phase`."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2210,11 +2243,11 @@ def measured(name, ctx, fn):
            "unet_calls": ctx.calls - calls0,
            "launches": {n: c for n, c in fa.launch_counts().items() if c},
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log("generate", f"{name}: wall {rec['wall_ms']:.1f} ms (assembly "
-                    f"{rec['assemble_ms']:.1f}), UNet calls "
-                    f"{rec['unet_calls']}, flash launches "
-                    f"{json.dumps(rec['launches'])}, peak memory "
-                    f"{rec['peak_gib']:.2f} GiB")
+    log(phase, f"{name}: wall {rec['wall_ms']:.1f} ms (assembly "
+               f"{rec['assemble_ms']:.1f}), UNet calls "
+               f"{rec['unet_calls']}, flash launches "
+               f"{json.dumps(rec['launches'])}, peak memory "
+               f"{rec['peak_gib']:.2f} GiB")
     return out, rec
 
 
@@ -2353,6 +2386,413 @@ def phase_generate(work, ckpt):
     return recs
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+def write_pngs(folder, names, seed):
+    """Random-pixel 512x512 PNGs ``folder/<name>`` from a numpy seed."""
+    from celebbasis_tpu_torch.cli.serve import encode_png
+    os.makedirs(folder, exist_ok=True)
+    for name, img in zip(names, face_crops(512, seed, k=len(names))):
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(encode_png(img))
+
+
+def ti_route_parity(pipe, vectors):
+    """One TI loss and vector gradient on the full-width pipeline, kernel
+    route against plain route at the same draws (bf16 compute on both):
+    -> (loss_k, loss_p, cosine, |diff| / |grad|, kernel-route launches,
+    plain-route launches)."""
+    from celebbasis_tpu_torch.cli import train_ti
+    from celebbasis_tpu_torch.core import textual_inversion as ti
+
+    cfg = ti.TIConfig(("*",), vectors.shape[0], pipe.cfg.clip.width)
+    loss_fn = train_ti.make_ti_loss_fn(
+        pipe, cfg, ti.placeholder_token_ids(cfg, pipe.tokenizer))
+    r = np.random.default_rng(5)
+    batch = {"image": torch.from_numpy(r.uniform(
+        -1, 1, (2, 512, 512, 3)).astype(np.float32)).cuda(),
+        "tokens": torch.from_numpy(np.asarray(pipe.tokenizer(
+            ["a photo of a *", "a close-up photo of the *"]),
+            np.int64)).cuda()}
+
+    def loss_and_grad():
+        p = torch.nn.Parameter(torch.from_numpy(vectors[None].copy()).cuda())
+        fa.reset_launch_count()
+        loss, _ = loss_fn(p, batch, torch.Generator(device="cuda")
+                          .manual_seed(9))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), p.grad.flatten().float(), fa.launch_counts()
+
+    loss_k, grad_k, n_k = loss_and_grad()
+    attn_ops.set_default_impl("xla")
+    try:
+        loss_p, grad_p, n_p = loss_and_grad()
+    finally:
+        attn_ops.set_default_impl(None)
+    cos = torch.nn.functional.cosine_similarity(grad_k, grad_p, dim=0).item()
+    rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    return loss_k, loss_p, cos, rel, n_k, sum(n_p.values())
+
+
+def phase_ti(work, checkpoints):
+    """``cli/train_ti.py`` at full width (``configs/aigc_id.yaml``, bf16
+    compute, 512x512, batch 2) from the checkpoint phase's ``sd-v1-4.ckpt``
+    on three random-pixel PNGs: TI_STEPS steps, each timed to a sync; the
+    loss finite, the vectors moved, the UNet, CLIP and VAE unchanged and
+    without gradients, a step's flash launches TRAIN_LAUNCHES; one step's
+    loss and vector gradient on the kernel route against the plain route;
+    then ``cli/merge.py`` on its checkpoint and a renamed copy, and a
+    20-step ``cli/txt2img.py --ti_embedding`` on the merged file.  -> a
+    record."""
+    from celebbasis_tpu_torch.cli import merge, train_ti, txt2img
+    from celebbasis_tpu_torch.core import textual_inversion as ti
+
+    config = os.path.join(REPO, "configs", "aigc_id.yaml")
+    data = os.path.join(work, "ti_subject")
+    write_pngs(data, [f"{i}.png" for i in range(3)], 31)
+    steps, seen = [], {}
+    real_make = train_ti.make_ti_train_step
+
+    def make(pipe, *args, **kw):
+        """The CLI's step, timed to a sync; keeps the pipeline, the frozen
+        modules' checksums and the first vectors."""
+        step = real_make(pipe, *args, **kw)
+        seen["pipe"] = pipe
+        seen["sums"] = {n: checksum(getattr(pipe, n))
+                        for n in ("unet", "clip", "vae")}
+
+        def timed(params, batch, generator):
+            seen.setdefault("init", params.detach().cpu().numpy().copy())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = step(params, batch, generator)
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3,
+                          logs["loss"].item()))
+            return logs
+
+        return timed
+
+    cwd = os.getcwd()
+    os.chdir(REPO)                          # the config's relative paths
+    train_ti.make_ti_train_step = make
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        t0 = time.perf_counter()
+        run = train_ti.main([
+            "--base", config, "--data_root", data, "--actual_resume",
+            checkpoints["sd"], "--logdir", os.path.join(work, "ti_logs"),
+            "--max_steps", str(TI_STEPS), "--image_size", "512"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        train_ti.make_ti_train_step = real_make
+        os.chdir(cwd)
+    step_ms = [ms for ms, _ in steps]
+    losses = [loss for _, loss in steps]
+    ckpt = os.path.join(run, "checkpoints", f"embeddings_gs-{TI_STEPS}.pt")
+    vectors = ti.load_ti_checkpoint(ckpt)["*"]
+    moved = float(np.abs(vectors - seen["init"][0]).max())
+    pipe = seen.pop("pipe")
+    rec = {"wall_s": wall, "step_ms": step_ms,
+           "median_step_ms": float(np.median(step_ms[1:])), "losses": losses,
+           "launches": launches, "peak_gib": peak, "vectors_moved": moved}
+    log("ti", f"cli/train_ti.py: {len(steps)} steps in {wall:.1f} s "
+              f"(assembly from the checkpoint included); ms per step "
+              f"{[round(x, 1) for x in step_ms]} (median of all but the "
+              f"first {rec['median_step_ms']:.1f}); losses "
+              f"{[round(x, 4) for x in losses]}; vectors moved by "
+              f"{moved:.4f}; flash launches {json.dumps(launches)} (a step: "
+              f"{launches['fwd_lse'] / TI_STEPS:g} #3, "
+              f"{launches['dq'] / TI_STEPS:g} #4, "
+              f"{launches['dkv'] / TI_STEPS:g} #5); peak memory "
+              f"{peak:.2f} GiB")
+    want = {n: c * TI_STEPS for n, c in TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise RuntimeError(f"ti: launched {launches}; expected {want}")
+    if len(steps) != TI_STEPS or not np.isfinite(losses).all() \
+            or not moved > 0:
+        raise RuntimeError(f"ti: losses {losses}, vectors moved {moved}")
+    for name, total in seen["sums"].items():
+        module = getattr(pipe, name)
+        if checksum(module) != total or any(
+                p.grad is not None or p.requires_grad
+                for p in module.parameters()):
+            raise RuntimeError(f"ti: the frozen {name} changed or took a "
+                               f"gradient")
+
+    loss_k, loss_p, cos, rel, n_k, n_p = ti_route_parity(pipe, vectors)
+    rec.update(route_loss=(loss_k, loss_p), route_grad_cos=cos,
+               route_grad_rel=rel)
+    log("ti", f"full-width TI step, kernel route vs plain route: loss "
+              f"{loss_k:.5f} vs {loss_p:.5f}; vector gradient cosine "
+              f"{cos:.5f}, |diff| / |grad| {rel:.4f}")
+    if n_k != TRAIN_LAUNCHES or n_p or not (
+            cos >= 0.99 and rel <= 0.1
+            and abs(loss_k - loss_p) <= 0.01 * abs(loss_p)):
+        raise RuntimeError(f"ti: the kernel route ({n_k}) does not give the "
+                           f"plain route's ({n_p} launches) gradient")
+    del pipe, seen
+
+    copy = os.path.join(work, "ti_copy.pt")
+    shutil.copy(ckpt, copy)
+    merged = os.path.join(work, "ti_merged.pt")
+    names = merge.main(["--manager_ckpts", ckpt, copy, "--output_path",
+                        merged, "--rename", f"{copy}:*=@"])
+    if sorted(names) != ["*", "@"]:
+        raise RuntimeError(f"ti: merged {sorted(names)}")
+    os.chdir(REPO)
+    try:
+        with DrawnAssemblies(draw=False) as ctx:
+            imgs, rec["txt2img"] = measured(
+                "txt2img --ti_embedding", ctx, lambda: txt2img.main([
+                    "--config", config, "--ckpt", checkpoints["sd"],
+                    "--ti_embedding", merged, "--prompt",
+                    "a photo of * and @", "--ddim_steps", str(DDIM_STEPS),
+                    "--n_samples", "2", "--precision", "bf16", "--outdir",
+                    os.path.join(work, "ti_samples")]), phase="ti")
+    finally:
+        os.chdir(cwd)
+    check_images("ti txt2img", imgs, 2, 512)
+    got = rec["txt2img"]
+    if got["unet_calls"] != DDIM_STEPS or got["launches"] != {
+            "flash_attention_nhd": ATTN_PER_UNET * DDIM_STEPS}:
+        raise RuntimeError(f"ti: txt2img made {got['unet_calls']} UNet calls "
+                           f"and launched {got['launches']}")
+    return rec
+
+
+# -- phase 11 -----------------------------------------------------------------
+
+def openai_clip_from_hf(hf):
+    """A HuggingFace ``CLIPModel`` state dict -> the same weights in OpenAI
+    CLIP's layout (``visual.*``, fused ``in_proj``, projections as
+    ``x @ proj`` matrices)."""
+    out = {"logit_scale": hf["logit_scale"],
+           "visual.conv1.weight": hf["vision_model.embeddings."
+                                     "patch_embedding.weight"],
+           "visual.class_embedding": hf["vision_model.embeddings."
+                                        "class_embedding"],
+           "visual.positional_embedding": hf["vision_model.embeddings."
+                                             "position_embedding.weight"],
+           "visual.proj": hf["visual_projection.weight"].T.contiguous(),
+           "token_embedding.weight": hf["text_model.embeddings."
+                                        "token_embedding.weight"],
+           "positional_embedding": hf["text_model.embeddings."
+                                      "position_embedding.weight"],
+           "text_projection": hf["text_projection.weight"].T.contiguous()}
+    for dst, src in (("visual.ln_pre", "vision_model.pre_layrnorm"),
+                     ("visual.ln_post", "vision_model.post_layernorm"),
+                     ("ln_final", "text_model.final_layer_norm")):
+        for leaf in ("weight", "bias"):
+            out[f"{dst}.{leaf}"] = hf[f"{src}.{leaf}"]
+    for tower, dst in (("vision_model", "visual.transformer"),
+                       ("text_model", "transformer")):
+        i = 0
+        while f"{tower}.encoder.layers.{i}.layer_norm1.weight" in hf:
+            s, d = f"{tower}.encoder.layers.{i}.", f"{dst}.resblocks.{i}."
+            for leaf in ("weight", "bias"):
+                out[f"{d}attn.in_proj_{leaf}"] = torch.cat(
+                    [hf[f"{s}self_attn.{p}_proj.{leaf}"] for p in "qkv"])
+                for a, b in (("ln_1", "layer_norm1"), ("ln_2", "layer_norm2"),
+                             ("attn.out_proj", "self_attn.out_proj"),
+                             ("mlp.c_fc", "mlp.fc1"),
+                             ("mlp.c_proj", "mlp.fc2")):
+                    out[f"{d}{a}.{leaf}"] = hf[f"{s}{b}.{leaf}"]
+            i += 1
+    return out
+
+
+def scorer_files(work):
+    """Synthetic CLIP ViT-B/32 (OpenAI layout), sphere20 and FID Inception
+    files with every key and shape of their manifests, values from a seed
+    (``synthetic_value``; the Inception's conv weights He-scaled, so that
+    pool3 does not fade through 94 ReLU layers).  The OpenAI-layout reader
+    must give the HuggingFace reader's tensors exactly.  -> paths."""
+    from celebbasis_tpu_torch.models.clip_vit import (CLIPVisionConfig,
+                                                      convert_hf_clip,
+                                                      convert_openai_clip,
+                                                      text_config_b32)
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    paths = {}
+    for name, manifest, file in (
+            ("clip", CLIP_MANIFEST, "ViT-B-32.pt"),
+            ("sphere", SPHERE_MANIFEST, "sphere20.pth"),
+            ("inception", INCEPTION_MANIFEST, "pt_inception.pth")):
+        with open(manifest) as f:
+            keys = json.load(f)["keys"]
+        state = {k: synthetic_value(k, tuple(shape), gen)
+                 for k, shape in keys.items()}
+        if name == "inception":
+            state = {k: v * 2 ** 0.5 if k.endswith("conv.weight") else v
+                     for k, v in state.items()}
+        if name == "clip":
+            vcfg, tcfg = CLIPVisionConfig.vit_b32(), text_config_b32()
+            ref = convert_hf_clip(state, vcfg, tcfg)
+            state = openai_clip_from_hf(state)
+            got = convert_openai_clip(state, vcfg, tcfg)
+            if not all(sorted(g) == sorted(r) and all(
+                    torch.equal(g[k], r[k]) for k in r)
+                    for g, r in zip(got, ref)):
+                raise RuntimeError("evaluate: the OpenAI and HF CLIP readers "
+                                   "disagree")
+        paths[name] = os.path.join(work, file)
+        torch.save(state, paths[name])
+    return paths
+
+
+class ForwardProbe:
+    """While entered, records for each forward of the given module classes
+    its class name and whether TF32 was allowed (cuDNN, matmul)."""
+
+    def __init__(self, *classes):
+        self.classes, self.calls = classes, []
+
+    def __enter__(self):
+        self.saved = {cls: cls.forward for cls in self.classes}
+        for cls in self.classes:
+            def forward(module, *args, _real=cls.forward, _name=cls.__name__,
+                        **kw):
+                self.calls.append((_name, torch.backends.cudnn.allow_tf32,
+                                   torch.backends.cuda.matmul.allow_tf32))
+                return _real(module, *args, **kw)
+            cls.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fwd in self.saved.items():
+            cls.forward = fwd
+
+
+def phase_evaluate(work, ckpt):
+    """W4 at full width: ``cli/gen_imgs.py`` (512x512, EVAL_IDS identities
+    x two prompts x EVAL_SAMPLES samples, DDIM_STEPS steps, output convs
+    drawn) on the CLI training run's checkpoint, then ``cli/eval_imgs.py
+    --fid --inception_ckpt`` with synthetic ViT-B/32, sphere20 and FID
+    Inception files, fp32, TF32 allowed before the call: every score
+    finite, cosines in [-1, 1], every scorer forward run with TF32 off and
+    the setting restored after, the ViT's flash launches 12 a forward; the
+    ViT's image features on the kernel route against the plain route.
+    -> a record."""
+    from celebbasis_tpu_torch.cli import eval_imgs, gen_imgs
+    from celebbasis_tpu_torch.eval.evaluators import GeneratedEvalFolder
+    from celebbasis_tpu_torch.eval.inception import InceptionV3
+    from celebbasis_tpu_torch.eval.sphere import SphereNet
+    from celebbasis_tpu_torch.models.clip_vit import (CLIPTextTower,
+                                                      CLIPVisionEncoder)
+
+    config = os.path.join(REPO, "configs", "aigc_id.yaml")
+    src = os.path.join(work, "eval_src")
+    write_pngs(src, [f"face_id{j}_#0.png" for j in range(EVAL_IDS)], 61)
+    prompts = os.path.join(work, "eval_two.txt")   # action-two templates
+    with open(prompts, "w") as f:
+        f.write("a photo of sks person\n"
+                "a photo of sks person and ks person\n")
+    gen = os.path.join(work, "eval_gen")
+    items = EVAL_IDS * 2
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        with DrawnAssemblies() as ctx:
+            made, gen_rec = measured("gen_imgs", ctx, lambda: gen_imgs.main([
+                "--config", config, "--embedding_path", ckpt, "--from-file",
+                prompts, "--outdir", gen, "--ids",
+                *map(str, range(EVAL_IDS)), "--src_folder", src,
+                "--n_samples", str(EVAL_SAMPLES), "--ddim_steps",
+                str(DDIM_STEPS), "--H", "512"]), phase="evaluate")
+    finally:
+        os.chdir(cwd)
+    if made != items * EVAL_SAMPLES or gen_rec["unet_calls"] != \
+            items * DDIM_STEPS or gen_rec["launches"] != {
+                "flash_attention_nhd": items * DDIM_STEPS * ATTN_PER_UNET}:
+        raise RuntimeError(f"evaluate: gen_imgs made {made} images, "
+                           f"{gen_rec['unet_calls']} UNet calls, launched "
+                           f"{gen_rec['launches']}")
+
+    t0 = time.perf_counter()
+    files = scorer_files(work)
+    files_s = time.perf_counter() - t0
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with ForwardProbe(CLIPVisionEncoder, CLIPTextTower, SphereNet,
+                          InceptionV3) as probe:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_count()
+            t0 = time.perf_counter()
+            scores = eval_imgs.main([
+                "--eval_folder", gen, "--clip_ckpt", files["clip"],
+                "--sphere_ckpt", files["sphere"], "--fid",
+                "--inception_ckpt", files["inception"]])
+            torch.cuda.synchronize()
+            scoring_s = time.perf_counter() - t0
+            launches = {n: c for n, c in fa.launch_counts().items() if c}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        after = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    forwards = {}
+    for name, *_ in probe.calls:
+        forwards[name] = forwards.get(name, 0) + 1
+    tf32_on = [c for c in probe.calls if c[1] or c[2]]
+    vit_launches = VIT_LAYERS * forwards.get("CLIPVisionEncoder", 0)
+    rec = {"gen_imgs": gen_rec, "files_s": files_s, "scoring_s": scoring_s,
+           "scores": scores, "forwards": forwards,
+           "vit_launches": vit_launches, "launches": launches,
+           "peak_gib": peak}
+    log("evaluate", f"eval_imgs at full width (ViT-B/32, sphere20, "
+                    f"Inception-v3; fp32): {scoring_s:.1f} s (scorer files "
+                    f"made in {files_s:.1f} s); scores {json.dumps(scores)}; "
+                    f"forwards {json.dumps(forwards)}, {len(tf32_on)} with "
+                    f"TF32 on, TF32 after {after}; flash launches "
+                    f"{json.dumps(launches)}; peak memory {peak:.2f} GiB")
+    if set(scores) != SCORE_KEYS or not all(
+            np.isfinite(v) for v in scores.values()) or not all(
+            -1.0 <= scores[k] <= 1.0
+            for k in ("image_sim", "text_sim", "id_cos_sim")):
+        raise RuntimeError(f"evaluate: scores {scores}")
+    if tf32_on or after != (True, True) or set(forwards) != {
+            "CLIPVisionEncoder", "CLIPTextTower", "SphereNet",
+            "InceptionV3"}:
+        raise RuntimeError(f"evaluate: TF32 on in {tf32_on}, after {after}, "
+                           f"forwards {forwards}")
+    if launches != {"flash_attention_nhd": vit_launches}:
+        raise RuntimeError(f"evaluate: launched {launches}; expected "
+                           f"{vit_launches} for the ViT's forwards")
+
+    # the ViT's features: kernel route against plain route, fp32
+    _, clip_eval = eval_imgs.build_scorers(files["clip"], files["sphere"])
+    _, _, imgs = GeneratedEvalFolder(gen)[items - 1]
+    with no_tf32():
+        fa.reset_launch_count()
+        f_k = clip_eval.image_features(imgs)
+        n_k = fa.launch_count("flash_attention_nhd")
+        attn_ops.set_default_impl("xla")
+        try:
+            f_p = clip_eval.image_features(imgs)
+        finally:
+            attn_ops.set_default_impl(None)
+    rel = float(np.abs(f_k - f_p).max() / np.abs(f_p).max())
+    rec["vit_route_rel_err"] = rel
+    log("evaluate", f"ViT-B/32 image features of {len(imgs)} images, kernel "
+                    f"route ({n_k} launches) vs plain route: max |diff| / "
+                    f"max |feature| {rel:.3e} (limit {VIT_REL_TOL:g})")
+    if n_k != VIT_LAYERS or not rel <= VIT_REL_TOL:
+        raise RuntimeError(f"evaluate: the ViT's kernel route differs by "
+                           f"{rel:.3e} ({n_k} launches)")
+    return rec
+
+
 # -----------------------------------------------------------------------------
 
 def main() -> int:
@@ -2375,14 +2815,16 @@ def main() -> int:
         checkpoints, checkpoint = phase_checkpoint(work)
         train_launches, train_ms = phase_train()
         cli_launches, cli = train_cli(work, checkpoints)
+        ti = phase_ti(work, checkpoints)
         for path in checkpoints.values():
             os.remove(path)
         for name, r in cli.items():
             train_ms.update({f"{name}_ms": r["median_step_ms"],
                              f"{name}_data_wait_ms": r["median_data_wait_ms"],
                              f"{name}_peak_gib": r["peak_gib"]})
-        generate = phase_generate(work, os.path.join(
-            work, f"embeddings_gs-{CLI_STEPS}.pt"))
+        cli_ckpt = os.path.join(work, f"embeddings_gs-{CLI_STEPS}.pt")
+        generate = phase_generate(work, cli_ckpt)
+        evaluate = phase_evaluate(work, cli_ckpt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2395,6 +2837,11 @@ def main() -> int:
                             for name, r in generate.items()})
             by_path.update({f"train_{name}": c[entry]
                             for name, c in cli_launches.items()})
+            by_path.update({
+                "ti_train": ti["launches"][entry],
+                "ti_txt2img": ti["txt2img"]["launches"][entry],
+                "gen_imgs": evaluate["gen_imgs"]["launches"][entry],
+                "eval_vit": evaluate["launches"][entry]})
         kernels.append({
             "name": entry, "route": "cuda", "source": FWD_SOURCE,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2410,6 +2857,12 @@ def main() -> int:
             # the bf16 inference instantiations at each padded head dim
             "per_head_dim": [r for r in instantiations["fwd"]
                              if not r["lse"]],
+            # the scorer's ViT-B/32 attention (timed on the packed entry)
+            "vit_eval": [{k: s[k] for k in (
+                "B", "dtype", "kernel_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err")}
+                for s in shapes[entry] if s["N"] == VIT_TOKENS
+                and s["D"] == VIT_HEAD_DIM and "kernel_ms" in s],
             "shapes": shapes[entry]})
     main_shape = train_shapes[0]     # B = 2, N = M = 4096, D = 40, bf16, packed
     outputs = {"fwd_lse": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
@@ -2417,7 +2870,8 @@ def main() -> int:
         timed = main_shape[name]
         by_path = {"train": train_launches[name],
                    **{f"train_{run}": c[name]
-                      for run, c in cli_launches.items()}}
+                      for run, c in cli_launches.items()},
+                   "ti_train": ti["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2491,9 +2945,14 @@ def main() -> int:
     generate_ms = {n: round(r["wall_ms"], 1) for n, r in generate.items()}
     log("done", f"{time.perf_counter() - t_start:.0f} s in all; request ms "
                 f"({DDIM_STEPS} DDIM steps) {json.dumps(request_ms)}; train "
-                f"step {json.dumps(train_ms)}; checkpoint "
+                f"step {json.dumps(train_ms)}; TI step "
+                f"{ti['median_step_ms']:.1f} ms (Trainer.fit uncached "
+                f"{train_ms['uncached_ms']:.1f}); checkpoint "
                 f"{json.dumps(checkpoint)}; generate wall ms "
-                f"{json.dumps(generate_ms)}")
+                f"{json.dumps(generate_ms)}; ti txt2img wall ms "
+                f"{ti['txt2img']['wall_ms']:.1f}; gen_imgs wall ms "
+                f"{evaluate['gen_imgs']['wall_ms']:.1f}; eval_imgs "
+                f"{evaluate['scoring_s']:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -137,3 +137,59 @@ def tiny_pipelines(image_size, names, seed=5):
                 jstate=jstate, tp=tp, tok=tok,
                 tbasis=bridge.basis_from_jax(jbasis),
                 tstate=bridge.manager_state_from_jax(jstate))
+
+
+def hf_clip_state(cfg, seed=0, text_model=True,
+                  prefix="cond_stage_model.transformer."):
+    """An HF ``CLIPTextModel`` state dict for a ``CLIPTextConfig``, keys as
+    the SD checkpoint holds them (under ``prefix``), with random float32
+    values (and the int64 ``position_ids``)."""
+    r = np.random.default_rng(seed)
+    W, M = cfg.width, cfg.mlp_dim
+    p = prefix + ("text_model." if text_model else "")
+    shapes = {"embeddings.token_embedding.weight": (cfg.vocab_size, W),
+              "embeddings.position_embedding.weight": (cfg.max_length, W),
+              "final_layer_norm.weight": (W,), "final_layer_norm.bias": (W,)}
+    for i in range(cfg.layers):
+        s = f"encoder.layers.{i}."
+        for n in ("layer_norm1", "layer_norm2"):
+            shapes[s + n + ".weight"] = shapes[s + n + ".bias"] = (W,)
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            shapes[s + f"self_attn.{n}.weight"] = (W, W)
+            shapes[s + f"self_attn.{n}.bias"] = (W,)
+        shapes.update({s + "mlp.fc1.weight": (M, W), s + "mlp.fc1.bias": (M,),
+                       s + "mlp.fc2.weight": (W, M), s + "mlp.fc2.bias": (W,)})
+    out = {p + k: r.standard_normal(v).astype(np.float32)
+           for k, v in shapes.items()}
+    out[p + "embeddings.position_ids"] = np.arange(cfg.max_length)[None]
+    return out
+
+
+def tiny_sd_checkpoint(path, config, seed=0):
+    """A CompVis ``sd-v1-4.ckpt``-format file for the config at ``config``
+    (a YAML path): UNet and VAE from random flax params through the JAX
+    package's exporters (every leaf random, output convs included), the HF
+    CLIP text keys from ``hf_clip_state``.  Returns the JAX run spec."""
+    from celebbasis_tpu.models import unet as junet
+    from celebbasis_tpu.models import vae as jvae
+    from celebbasis_tpu.utils import bridge as jbridge
+    from celebbasis_tpu.utils.config import load_run_spec
+    jnp = jax.numpy
+    spec = load_run_spec([config])
+    um = junet.UNetModel(spec.unet, jnp.float32)
+    uparams = random_params(um.init, jax.random.key(0),
+                            jnp.zeros((1, 8, 8, 4)),
+                            jnp.zeros((1,), jnp.int32),
+                            jnp.zeros((1, 77, spec.unet.context_dim)),
+                            seed=seed)
+    vm = jvae.AutoencoderKL(spec.vae, jnp.float32)
+    vparams = random_params(vm.init, jax.random.key(0),
+                            jnp.zeros((1, 16, 16, 3)), jax.random.key(1),
+                            seed=seed + 1)
+    state = dict(jbridge.export_unet(np_tree(uparams), spec.unet))
+    state.update({f"first_stage_model.{k}": v for k, v in jbridge.export_vae(
+        np_tree(vparams), spec.vae.ch_mult, spec.vae.num_res_blocks).items()})
+    state.update(hf_clip_state(spec.clip, seed=seed + 2))
+    torch.save({"state_dict": {k: torch.from_numpy(np.array(v))
+                               for k, v in state.items()}}, path)
+    return spec

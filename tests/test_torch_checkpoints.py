@@ -37,7 +37,7 @@ from celebbasis_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from celebbasis_tpu_torch.utils import bridge, pt_io
 from celebbasis_tpu_torch.utils.config import load_run_spec
 
-from _torch_port_helpers import np_tree, random_params
+from _torch_port_helpers import hf_clip_state, np_tree, random_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "configs", "tiny.yaml")
@@ -78,30 +78,6 @@ def compvis():
         np_tree(vparams), jspec.vae.ch_mult,
         jspec.vae.num_res_blocks).items()}
     return jspec, unet, vae
-
-
-def hf_clip_state(cfg: CLIPTextConfig, seed=0, text_model=True):
-    """An HF ``CLIPTextModel`` state dict, keys as the SD checkpoint holds
-    them, with random float32 values (and the int64 ``position_ids``)."""
-    r = np.random.default_rng(seed)
-    W, M = cfg.width, cfg.mlp_dim
-    p = CLIP_PREFIX + ("text_model." if text_model else "")
-    shapes = {"embeddings.token_embedding.weight": (cfg.vocab_size, W),
-              "embeddings.position_embedding.weight": (cfg.max_length, W),
-              "final_layer_norm.weight": (W,), "final_layer_norm.bias": (W,)}
-    for i in range(cfg.layers):
-        s = f"encoder.layers.{i}."
-        for n in ("layer_norm1", "layer_norm2"):
-            shapes[s + n + ".weight"] = shapes[s + n + ".bias"] = (W,)
-        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            shapes[s + f"self_attn.{n}.weight"] = (W, W)
-            shapes[s + f"self_attn.{n}.bias"] = (W,)
-        shapes.update({s + "mlp.fc1.weight": (M, W), s + "mlp.fc1.bias": (M,),
-                       s + "mlp.fc2.weight": (W, M), s + "mlp.fc2.bias": (W,)})
-    out = {p + k: r.standard_normal(v).astype(np.float32)
-           for k, v in shapes.items()}
-    out[p + "embeddings.position_ids"] = np.arange(cfg.max_length)[None]
-    return out
 
 
 def insightface_state(cfg: IResNetConfig, seed=0, dtype=np.float16):

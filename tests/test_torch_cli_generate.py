@@ -214,8 +214,8 @@ def test_plms_daemon_matches_the_pipeline():
 def test_clis_refuse_what_is_not_ported_and_need_a_device(pictures,
                                                           tmp_path):
     base = ["--config", CFG, "--device", "cpu", "--outdir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A5"):
-        txt2img.main(base + ["--ti_embedding", "ti.pt"])
+    with pytest.raises(FileNotFoundError):  # ported: the reader opens it
+        txt2img.main(base + ["--ti_embedding", str(tmp_path / "ti.pt")])
     for flag in ("--mesh", "--tp"):
         with pytest.raises(NotImplementedError, match="A10"):
             txt2img.main(base + [flag, "2"])

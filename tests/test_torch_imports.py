@@ -34,6 +34,10 @@ bad = sorted(m for m in sys.modules
 print("MODULES", len(names))
 print("TRAIN_RUN", sorted(n for n in names if n.endswith(
     (".face_id", ".tb", ".callbacks", "cli.train", ".pt_io"))))
+print("TI_EVAL", sorted(n for n in names if n.endswith(
+    (".textual_inversion", ".personalized", ".clip_vit", ".train_ti",
+     ".merge", ".gen_imgs", ".eval_imgs", ".evaluate_model"))
+    or ".eval." in n))
 print("KERNEL_MODULES", sorted(n for n in names if n.endswith(
     (".flash_attention", ".geglu", ".quant"))))
 print("BAD", bad)
@@ -58,6 +62,14 @@ def test_imports_pull_in_no_jax_and_build_nothing():
         f"celebbasis_tpu_torch.{m}" for m in (
             "data.face_id", "utils.tb", "train.callbacks", "cli.train",
             "utils.pt_io")))
+    # and those of textual inversion and the evaluation
+    assert lines["TI_EVAL"] == str(sorted(
+        f"celebbasis_tpu_torch.{m}" for m in (
+            "core.textual_inversion", "data.personalized", "models.clip_vit",
+            "cli.train_ti", "cli.merge", "cli.gen_imgs", "cli.eval_imgs",
+            "cli.evaluate_model", "eval.base", "eval.evaluators", "eval.fid",
+            "eval.inception", "eval.prompt_templates", "eval.sphere",
+            "eval.survey")))
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -83,6 +95,15 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TxtToImgService(build_argparser().parse_args(
             ["--config", os.path.join(REPO, "configs", "tiny.yaml")]))
+    from celebbasis_tpu_torch.cli import eval_imgs, gen_imgs, train_ti
+    cfg = os.path.join(REPO, "configs", "tiny.yaml")
+    for cli, argv in (
+            (train_ti, ["--base", cfg, "--data_root", "unused"]),
+            (gen_imgs, ["--config", cfg, "--embedding_path", "e.pt",
+                        "--from-file", "prompts_two.txt"]),
+            (eval_imgs, ["--eval_folder", "unused", "--tiny"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv)
     assert resolve_device("cpu").type == "cpu"
     asm = assemble(spec, image_size=32, device="cpu", dtype=torch.float32)
     assert asm.meta_net.cfg.inner_dim == spec.meta_inner_dim
