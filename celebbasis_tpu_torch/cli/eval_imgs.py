@@ -9,11 +9,12 @@ pool3 with ``--inception_ckpt``, else CLIP-FID on the ViT's features).
 Prints the scores and writes ``scores.json``.  Without checkpoints the
 networks are random (a warning says so): for contract checks only.
 
-Scoring runs in float32 with TF32 off (``utils.precision.no_tf32``).  The
-alignment cropper (``--detector_ckpt`` / ``--pipnet_ckpt``: FaceBoxes and
-PIPNet) is not ported yet (ROADMAP A8); without it the inputs count as
-aligned crops, as in the JAX package.  Runs on ``cuda``; ``--device cpu``
-asks for the CPU on purpose.
+Scoring runs in float32 with TF32 off (``utils.precision.no_tf32``).  With
+``--detector_ckpt`` or ``--pipnet_ckpt`` every image is first aligned by the
+W0 chain (FaceBoxes -> PIPNet -> FFHQ ``norm_crop``, ``build_cropper``) and
+an image without a face counts in ``num_no_face``; without them the inputs
+count as aligned crops, as in the JAX package.  Runs on ``cuda``;
+``--device cpu`` asks for the CPU on purpose.
 
     python -m celebbasis_tpu_torch.cli.eval_imgs --eval_folder out/ \
         --clip_ckpt ViT-B-32.pt --sphere_ckpt sphere20.pth --fid \
@@ -30,7 +31,8 @@ import torch
 from celebbasis_tpu_torch.eval.evaluators import (CLIPEvaluator,
                                                   IdCLIPEvaluator,
                                                   IdentityEvaluator,
-                                                  IDCLIPScoreCalculator)
+                                                  IDCLIPScoreCalculator,
+                                                  face_cropper_from_nets)
 from celebbasis_tpu_torch.eval.fid import (FIDScorer, clip_feature_fn,
                                            copy_together)
 from celebbasis_tpu_torch.eval.sphere import (SphereConfig, SphereNet,
@@ -53,6 +55,19 @@ def _random_state(module: torch.nn.Module, seed: int):
     """A random state dict for `module` (``loader.init_weights``)."""
     return init_weights(module, torch.Generator().manual_seed(seed)
                         ).state_dict()
+
+
+def build_cropper(detector_ckpt=None, pipnet_ckpt=None, meanface=None,
+                  img_size=512, mode="ffhq", seed=0, device=None):
+    """The identity scorer's alignment chain (FaceBoxesV2, PIPNet
+    ResNet-101) from the reference's files; random nets where a file is
+    not given."""
+    from celebbasis_tpu_torch.cli.align import (_init_detector,
+                                                _init_landmarker)
+    detector = _init_detector(detector_ckpt, seed=seed, device=device)
+    landmarker = _init_landmarker(pipnet_ckpt, meanface, seed=seed,
+                                  device=device)
+    return face_cropper_from_nets(detector, landmarker, img_size, mode)
 
 
 def build_scorers(clip_ckpt=None, sphere_ckpt=None, vocab=None, seed=0,
@@ -100,11 +115,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="CLIP ViT-B/32 (OpenAI .pt or HuggingFace layout)")
     p.add_argument("--sphere_ckpt", type=str, default=None)
     p.add_argument("--detector_ckpt", type=str, default=None,
-                   help="FaceBoxesV2 weights for the identity cropper (not "
-                        "ported yet: ROADMAP A8); omit to score inputs as "
-                        "aligned crops")
+                   help="FaceBoxesV2 weights for the identity cropper; omit "
+                        "(and --pipnet_ckpt) to score inputs as aligned "
+                        "crops")
     p.add_argument("--pipnet_ckpt", type=str, default=None,
-                   help="PIPNet weights for the cropper (ROADMAP A8)")
+                   help="PIPNet (ResNet-101, WFLW) weights for the cropper")
     p.add_argument("--meanface", type=str, default=None)
     p.add_argument("--img_size", type=int, default=512,
                    help="identity crop size (clip_eval.py img_size)")
@@ -129,14 +144,16 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Scores the folder; returns the scores written to ``scores.json``."""
     args = build_argparser().parse_args(argv)
-    if args.detector_ckpt or args.pipnet_ckpt:
-        raise NotImplementedError(
-            "--detector_ckpt/--pipnet_ckpt: the alignment cropper (FaceBoxes "
-            "and PIPNet) is not ported yet (ROADMAP A8)")
+    device = resolve_device(args.device)
     with no_tf32():
+        cropper = None
+        if args.detector_ckpt or args.pipnet_ckpt:
+            cropper = build_cropper(args.detector_ckpt, args.pipnet_ckpt,
+                                    args.meanface, args.img_size,
+                                    device=device)
         evaluator, clip_eval = build_scorers(
             args.clip_ckpt, args.sphere_ckpt, args.vocab, tiny=args.tiny,
-            img_size=args.img_size, device=args.device)
+            face_cropper=cropper, img_size=args.img_size, device=device)
         calc = IDCLIPScoreCalculator(args.eval_folder, evaluator)
         scores = calc.start_calc()
         if args.fid:

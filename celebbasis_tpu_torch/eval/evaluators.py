@@ -21,15 +21,16 @@ Counterpart of ``celebbasis_tpu/eval/evaluators.py`` (the reference's
 The networks take state dicts in the port's names (``convert_*`` of their
 modules) and run on ``device`` (``cuda`` unless the caller asks for the CPU)
 in float32 with TF32 off (``utils.precision.no_tf32``), as the JAX package
-scores at ``"highest"`` matmul precision.  The alignment cropper
-(FaceBoxes + PIPNet) is not ported: ``face_cropper_from_nets`` raises
-(ROADMAP A8), and scoring without it treats inputs as aligned crops.
+scores at ``"highest"`` matmul precision.  ``face_cropper_from_nets``
+builds the identity scorer's alignment cropper from the W0 nets (FaceBoxes
+and PIPNet, ``align/``); scoring without a cropper treats inputs as aligned
+crops.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,12 +114,21 @@ class CLIPEvaluator:
 
 def face_cropper_from_nets(detector, landmarker, img_size: int = 512,
                            mode: str = "ffhq"):
-    """The reference's detect -> 98 landmarks -> FFHQ crop chain.  Its
-    networks (FaceBoxes, PIPNet) are not ported yet: ROADMAP A8."""
-    raise NotImplementedError(
-        "the alignment cropper needs FaceBoxes and PIPNet, which are not "
-        "ported yet (ROADMAP A8); score without it (inputs count as "
-        "aligned crops)")
+    """The reference's ``_check_lmk_box_for_one_image``: detect (at scale
+    1) -> the first detection's 98 landmarks -> ``get_5_from_98`` -> the
+    ``img_size`` FFHQ ``norm_crop``.  The returned function maps a uint8
+    image to (crop, True), or to (the image, False) when no face is
+    found."""
+    from celebbasis_tpu_torch.align.alignment import get_5_from_98, norm_crop
+
+    def crop(img_u8: np.ndarray) -> Tuple[np.ndarray, bool]:
+        dets = detector.detect(img_u8, im_scale=1.0)
+        if not dets:
+            return img_u8, False
+        lmk98 = landmarker.landmarks_for_box(img_u8, dets[0])
+        return norm_crop(img_u8, get_5_from_98(lmk98), img_size, mode), True
+
+    return crop
 
 
 def _trans_arr_to_tensor(crop_u8: np.ndarray, img_size: int) -> np.ndarray:

@@ -16,6 +16,11 @@ Attribute names follow the flax tree (``down_0_res_0.conv1``,
 ``down_0_attn_0.block_0.attn1.to_q``, ``block_0.norm3`` ...), so weights are
 carried over by one generic walk (``utils.bridge.from_jax_params``).
 
+``UNetConfig.remat`` (a config's ``use_checkpoint``) recomputes each
+``ResBlock`` and each ``SpatialTransformer`` in the backward pass instead of
+keeping its activations (``torch.utils.checkpoint``), as ``nn.remat`` does
+around the same blocks in the JAX module; the values are those without it.
+
 The legacy-LDM knobs of the JAX config (plain ``AttentionBlock``, FiLM
 conditioning, ``resblock_updown``, ``EncoderUNetModel``, ``AttentionPool2d``)
 are not ported yet; ``UNetConfig`` raises on them.
@@ -28,6 +33,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from celebbasis_tpu_torch.ops.attention import attention
 from celebbasis_tpu_torch.ops.basic import (Conv, Dense, GroupNorm, LayerNorm,
@@ -267,11 +273,13 @@ class UNetModel(nn.Module):
         context = context.to(dt)
         h = self.conv_in(to_nchw(x.to(dt)))
         skips = [h]
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for kind, name in self._plan:
-            if kind == "res":
-                h = getattr(self, name)(h, emb)
-            elif kind == "attn":
-                h = getattr(self, name)(h, context)
+            if kind in ("res", "attn"):
+                block = getattr(self, name)
+                arg = emb if kind == "res" else context
+                h = checkpoint(block, h, arg, use_reentrant=False) if remat \
+                    else block(h, arg)
             elif kind == "conv":
                 h = getattr(self, name)(h)
             elif kind == "push":

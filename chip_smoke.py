@@ -53,7 +53,19 @@ against its plain PyTorch version.  Phases:
                (two 512x512 crops, two images, the same bytes for the same
                seed); the kernels' launch counters must account for every
                UNet call;
-7. ``checkpoint`` a synthetic ``sd-v1-4.ckpt`` (every key and shape of
+7. ``align``   W0 at full width through ``cli/align.py``: synthetic
+               ``FaceBoxesV2.pth`` and ``epoch59.pth`` (PIPNet ResNet-101,
+               WFLW) of every key of their manifests, the detector's
+               face-class biases set from the photos' logits (a quarter of
+               the anchors pass 0.6, the best scores below 0.99), eight
+               512x512 photos, ``--workers 4`` and ``--workers 1``: crops
+               byte equal, the pickle read into a batch by
+               ``data/face_id``, no hand-written kernel launched; one photo
+               on the card against the CPU (boxes within 0.05 px before the
+               integer cast, landmarks within 1 px); the C++ NMS against
+               the numpy one; the OpenCV resampler copy against cv2 where
+               cv2 imports; ms per photo by stage, NMS ms, peak memory;
+8. ``checkpoint`` a synthetic ``sd-v1-4.ckpt`` (every key and shape of
                ``manifests/sd-v1-4.json``, fp32 from a seed, DDPM buffers,
                LitEma keys, Lightning callback objects of a class that cannot
                be imported when the file is read) and a synthetic fp16
@@ -62,7 +74,7 @@ against its plain PyTorch version.  Phases:
                (``utils/bridge``) and loaded through ``loader.assemble``:
                every manifest key used, the extras reported, parameters read
                back equal to what was written; sizes, seconds, peak memory;
-8. ``train``   ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
+9. ``train``   ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
                512x512 images, batch 2, two 512x512 faces per sample,
                synthetic batches): a few uncached steps and two cached ones;
                losses, what moved and what stayed frozen, launch counters,
@@ -74,7 +86,7 @@ against its plain PyTorch version.  Phases:
                steps (validation, TensorBoard, ``DeviceMonitor``, a sample
                grid) and six cached ones, with ms per step, ms each step
                waits on the loader, launches and peak memory;
-9. ``generate`` the generation CLIs in process on ``configs/aigc_id.yaml``
+10. ``generate`` the generation CLIs in process on ``configs/aigc_id.yaml``
                (bf16, 512x512, two samples, the output convs drawn): a
                20-step PLMS txt2img (21 UNet calls), txt2img on two face
                crops, a masked img2img at strength 0.5; ``ddpm_sample`` over
@@ -82,7 +94,7 @@ against its plain PyTorch version.  Phases:
                ``extract`` on the CLI training run's checkpoint (the
                files' shapes as the JAX package writes them).  Each with
                its wall time, peak memory, UNet calls and flash launches;
-10. ``ti``     ``cli/train_ti.py`` at full width from the checkpoint
+11. ``ti``     ``cli/train_ti.py`` at full width from the checkpoint
                phase's ``sd-v1-4.ckpt`` on three random-pixel 512x512 PNGs:
                six steps, each timed to a sync, peak memory and launches;
                the loss finite, the vectors moved, the UNet, CLIP and VAE
@@ -92,7 +104,7 @@ against its plain PyTorch version.  Phases:
                checkpoint and a renamed copy, and a 20-step
                ``txt2img --ti_embedding`` on the merged file (640 packed
                launches);
-11. ``evaluate`` ``cli/gen_imgs.py`` at 512x512 (2 ids x 2 prompts x 2
+12. ``evaluate`` ``cli/gen_imgs.py`` at 512x512 (2 ids x 2 prompts x 2
                samples, 20 steps, output convs drawn) on the CLI training
                run's checkpoint, then ``cli/eval_imgs.py --fid
                --inception_ckpt`` from synthetic CLIP ViT-B/32 (OpenAI
@@ -101,7 +113,10 @@ against its plain PyTorch version.  Phases:
                finite, cosines in [-1, 1], every scorer forward with TF32
                off (allowed before the call, allowed again after), 12
                packed launches a ViT forward; the ViT's image features on
-               the kernel route within 2e-5 (relative) of the plain route.
+               the kernel route within 2e-5 (relative) of the plain route;
+               then ``eval_imgs`` with ``--detector_ckpt`` / ``--pipnet_ckpt``
+               (the align phase's files): scores finite, the cropper
+               launching no hand-written kernel.
 
 Exits non-zero if any phase fails or if there is no CUDA device.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
@@ -253,6 +268,12 @@ EVAL_IDS, EVAL_SAMPLES = 2, 2
 CLIP_MANIFEST = os.path.join(REPO, "manifests", "clip_vit_b32.json")
 SPHERE_MANIFEST = os.path.join(REPO, "manifests", "sphere20.json")
 INCEPTION_MANIFEST = os.path.join(REPO, "manifests", "fid_inception.json")
+# the align phase: synthetic photos, the nets' manifests, and how far the
+# card's boxes (pixels, before the integer cast) may be from the CPU's
+ALIGN_PHOTOS, ALIGN_PHOTO = 8, 512
+FB_MANIFEST = os.path.join(REPO, "manifests", "faceboxesv2.json")
+PIP_MANIFEST = os.path.join(REPO, "manifests", "pipnet_wflw_r101.json")
+ALIGN_BOX_TOL = 0.05
 SCORE_KEYS = {"image_sim", "text_sim", "id_cos_sim", "id_mse_dist",
               "id_l2_dist", "num_has_face", "num_no_face", "n_items",
               "n_id_items", "fid"}
@@ -280,7 +301,7 @@ def phase_env() -> str:
                           capture_output=True, text=True).stdout.strip()
     log("env", "nvcc: " + nvcc.splitlines()[-2].strip())
     have = []
-    for mod in ("regex", "yaml", "PIL"):
+    for mod in ("regex", "yaml", "PIL", "cv2"):
         try:
             __import__(mod)
             have.append(f"{mod}=yes")
@@ -1649,6 +1670,339 @@ def phase_serve():
 
 # -- phase 7 ------------------------------------------------------------------
 
+def align_photos(folder, n, seed, size=ALIGN_PHOTO):
+    """``n`` size x size PNG "photos": smooth random colour fields with
+    noise, from a numpy seed.  -> their paths."""
+    from PIL import Image
+    os.makedirs(folder, exist_ok=True)
+    r = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        coarse = r.integers(0, 256, (size // 32 + 1, size // 32 + 1, 3),
+                            dtype=np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((size, size),
+                                                        Image.BILINEAR),
+                         np.int16)
+        img = np.clip(img + r.integers(-24, 25, img.shape), 0, 255)
+        paths.append(os.path.join(folder, f"photo_{i}.png"))
+        Image.fromarray(img.astype(np.uint8)).save(paths[-1])
+    return paths
+
+
+def face_logits(detector, rgbs):
+    """The face-minus-background logit of every anchor on each image."""
+    out = []
+    with torch.inference_mode(), no_tf32():
+        for rgb in rgbs:
+            x = torch.from_numpy(rgb[None].copy()).cuda().float() \
+                - detector._means
+            _, conf = detector.net(x)
+            out.append((conf[0, :, 1].log() - conf[0, :, 0].log()).cpu()
+                       .numpy())
+    return out
+
+
+def write_align_files(work, photos):
+    """Synthetic ``FaceBoxesV2.pth`` and ``epoch59.pth`` with every key and
+    shape of their manifests (``synthetic_value``, seeded on the card) and a
+    jittered-grid meanface file.  The face-class biases of the ``conf.*``
+    heads are then set from the photos' logits: a quarter of the anchors
+    pass the 0.6 threshold, and where the logits spread so far that the
+    best scores would reach 0.999, the class heads are scaled down first
+    (the scale is reported).  -> (paths, calibration record)."""
+    from PIL import Image
+
+    from celebbasis_tpu_torch.align.faceboxes import FaceBoxesDetector
+    from celebbasis_tpu_torch.utils.bridge_align import convert_faceboxes
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    states = {}
+    for name, manifest in (("fb", FB_MANIFEST), ("pip", PIP_MANIFEST)):
+        with open(manifest) as f:
+            keys = json.load(f)["keys"]
+        states[name] = {k: synthetic_value(k, tuple(s), gen)
+                        for k, s in keys.items()}
+    fb = states["fb"]
+    rgbs = [np.asarray(Image.open(p).convert("RGB")) for p in photos]
+    det = FaceBoxesDetector(convert_faceboxes(fb), device="cuda")
+    d = np.concatenate(face_logits(det, rgbs))
+    q75, top = float(np.quantile(d, 0.75)), float(d.max())
+    # logit of the threshold score 0.6; the best scores stay below 0.99
+    thr, ceiling = float(np.log(0.6 / 0.4)), float(np.log(0.99 / 0.01))
+    scale = min(1.0, 0.8 * (ceiling - thr) / max(top - q75, 1e-6))
+    bias = thr - scale * q75
+    for i in range(3):
+        fb[f"conf.{i}.weight"] = fb[f"conf.{i}.weight"] * scale
+        b = fb[f"conf.{i}.bias"] * scale
+        b[1::2] += bias
+        fb[f"conf.{i}.bias"] = b
+    paths = {"fb": os.path.join(work, "FaceBoxesV2.pth"),
+             "pip": os.path.join(work, "epoch59.pth"),
+             "meanface": os.path.join(work, "meanface.txt")}
+    torch.save(fb, paths["fb"])
+    torch.save(states["pip"], paths["pip"])
+    g = np.stack(np.meshgrid(np.linspace(0.1, 0.9, 10),
+                             np.linspace(0.1, 0.9, 10)), -1).reshape(-1, 2)
+    mf = g[:98] + np.random.default_rng(78).normal(0, 0.01, (98, 2))
+    with open(paths["meanface"], "w") as f:
+        f.write(" ".join(f"{v:.6f}" for v in mf.ravel()) + "\n")
+    return paths, {"logit_q75": q75, "logit_max": top, "head_scale": scale,
+                   "face_bias": bias}
+
+
+def check_resampler_against_cv2():
+    """Where OpenCV imports, ``align.cv_resample`` bit for bit against it
+    (resize to a size and by a factor, warpAffine leaving the image, the
+    warp of the installed generation: OpenCV 4 or 5).  -> cv2's version or
+    None."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    from celebbasis_tpu_torch.align import cv_resample
+    version = 4 if int(cv2.__version__.split(".")[0]) < 5 else 5
+    if cv_resample.default_warp_version() != version:
+        raise RuntimeError(f"align: OpenCV {cv2.__version__} imports but the "
+                           f"resampler's default warp is OpenCV "
+                           f"{cv_resample.default_warp_version()}'s")
+    r = np.random.default_rng(5)
+    for _ in range(20):
+        h, w = (int(v) for v in r.integers(20, 700, 2))
+        img = r.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        size = int(r.integers(16, 600))
+        scale = float(r.choice([0.5, 600.0 / min(h, w), r.uniform(0.3, 2)]))
+        ang, s = r.uniform(-0.6, 0.6), r.uniform(0.3, 3)
+        M = np.array([[s * np.cos(ang), -s * np.sin(ang), r.uniform(-99, 99)],
+                      [s * np.sin(ang), s * np.cos(ang), r.uniform(-99, 99)]])
+        pairs = [(cv_resample.resize_linear(img, (size, size)),
+                  cv2.resize(img, (size, size)))]
+        if round(h * scale) >= 1 and round(w * scale) >= 1:
+            pairs.append((cv_resample.resize_scale(img, scale),
+                          cv2.resize(img, None, fx=scale, fy=scale)))
+        pairs.append((cv_resample.warp_affine(img, M, (size, size),
+                                              version),
+                      cv2.warpAffine(img, M, (size, size), borderValue=0)))
+        for ours, theirs in pairs:
+            if ours.shape != theirs.shape or not np.array_equal(ours, theirs):
+                raise RuntimeError(f"align: the resampler differs from "
+                                   f"OpenCV {cv2.__version__} at {(h, w)} -> "
+                                   f"{size}, scale {scale}")
+    return cv2.__version__
+
+
+def stage_times(photos, det, land, crop_size):
+    """Each photo through the CLI's stages one at a time, timed (the nets
+    warm, the anchors made): decode, FaceBoxes forward (to a sync), the
+    best anchors' copy to the host,
+    threshold + sort + NMS, landmarks (box crop, resize, net, copy),
+    crop and save.  -> (ms per photo by stage, candidate sets for NMS)."""
+    from PIL import Image
+
+    from celebbasis_tpu_torch.cli.align import aligned_crop
+    out = tempfile.mkdtemp(prefix="chip_smoke_stage_")
+    ms = {k: [] for k in ("decode", "faceboxes_forward", "topk_copy",
+                          "nms_host", "landmarks", "crop_save")}
+    candidates = []
+    try:
+        for path in photos:
+            t0 = time.perf_counter()
+            rgb = np.asarray(Image.open(path).convert("RGB"))
+            t1 = time.perf_counter()
+            x = torch.from_numpy(rgb[None].copy()).cuda()
+            boxes, scores = det.forward(x, det.priors(rgb.shape[:2]))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            boxes, scores = boxes.cpu().numpy(), scores.cpu().numpy()
+            t3 = time.perf_counter()
+            dets = det.postprocess(boxes, scores, rgb.shape[:2], 1.0)
+            t4 = time.perf_counter()
+            lmk = land.landmarks_for_box(rgb, dets[0])
+            t5 = time.perf_counter()
+            Image.fromarray(aligned_crop(rgb, lmk, crop_size)).save(
+                os.path.join(out, os.path.basename(path)))
+            t6 = time.perf_counter()
+            for k, a, b in (("decode", t0, t1), ("faceboxes_forward", t1, t2),
+                            ("topk_copy", t2, t3), ("nms_host", t3, t4),
+                            ("landmarks", t4, t5), ("crop_save", t5, t6)):
+                ms[k].append((b - a) * 1e3)
+            s = rgb.shape[:2]
+            keep = scores > det.thresh
+            order = scores[keep].argsort()[::-1]
+            cand = boxes[keep][order] * np.float32([s[1], s[0], s[1], s[0]])
+            candidates.append(np.hstack([cand, scores[keep][order, None]])
+                              .astype(np.float32))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return {k: float(np.median(v)) for k, v in ms.items()}, candidates
+
+
+def phase_align(work):
+    """W0 at full width through ``cli/align.py``: FaceBoxesV2 and PIPNet
+    ResNet-101 (WFLW, 98 landmarks, 10 neighbours, 256x256 input) from
+    synthetic files of their manifests' keys, on ALIGN_PHOTOS synthetic
+    512x512 photos, with ``--workers 4`` and ``--workers 1``: crops byte
+    equal, a pickle of every photo that ``data/face_id`` reads into a
+    batch, no hand-written kernel launched; the card against the CPU on one
+    photo (boxes before the integer cast within 0.05 px, landmarks within
+    1 px); the C++ NMS against the numpy one on the largest candidate set;
+    the resampler against OpenCV where it imports; ms per photo by stage.
+    -> (record, the weight files)."""
+    from PIL import Image
+
+    from celebbasis_tpu_torch.align import nms
+    from celebbasis_tpu_torch.align.faceboxes import decode_boxes, prior_boxes
+    from celebbasis_tpu_torch.cli import align as align_cli
+    from celebbasis_tpu_torch.data.face_id import (FaceIdDataset,
+                                                   FaceIdDatasetConfig,
+                                                   PrefetchLoader)
+    from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
+
+    cv2_version = check_resampler_against_cv2()
+    log("align", "resampler vs OpenCV: " + (
+        f"bit for bit (cv2 {cv2_version})" if cv2_version
+        else "cv2 not installed here, not compared"))
+    photos = align_photos(os.path.join(work, "align_photos"), ALIGN_PHOTOS, 41)
+    t0 = time.perf_counter()
+    files, calib = write_align_files(work, photos)
+    files_s = time.perf_counter() - t0
+    common = ["--in_folder", os.path.dirname(photos[0]), "--detector_ckpt",
+              files["fb"], "--pipnet_ckpt", files["pip"], "--meanface",
+              files["meanface"]]
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the first run builds the host C++ and warms the nets; then one run
+    # with 4 threads and one with 1, timed
+    for workers in (4, 4, 1):
+        out = os.path.join(work, f"aligned_{len(runs)}")
+        for module in (fa, geglu, quant):
+            module.reset_launch_count()
+        t0 = time.perf_counter()
+        n = align_cli.main([*common, "--out_folder", out, "--workers",
+                            str(workers)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**fa.launch_counts(), **geglu.launch_counts(),
+                    **quant.launch_counts()}
+        with open(out + ".pickle", "rb") as f:
+            listed = pickle.load(f)
+        crops = {}
+        for p in listed:
+            with open(p, "rb") as f:
+                crops[os.path.basename(p)] = f.read()
+        runs.append({"workers": workers, "n": n, "wall_s": wall,
+                     "listed": listed, "crops": crops,
+                     "launches": launches, "pickle": out + ".pickle"})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (all(r["n"] == len(r["listed"]) == ALIGN_PHOTOS for r in runs)
+            and runs[0]["crops"] == runs[1]["crops"] == runs[2]["crops"]):
+        raise RuntimeError(f"align: faces {[r['n'] for r in runs]}, paths "
+                           f"listed {[len(r['listed']) for r in runs]}, "
+                           f"crops equal across worker counts "
+                           f"{runs[1]['crops'] == runs[2]['crops']}")
+    if any(any(r["launches"].values()) for r in runs):
+        raise RuntimeError(f"align: launched hand-written kernels "
+                           f"{[r['launches'] for r in runs]}")
+
+    # the W0 -> W2 contract: the training data reads the pickle
+    ds = FaceIdDataset(FaceIdDatasetConfig(
+        pickle_path=runs[2]["pickle"],
+        num_ids=ALIGN_PHOTOS, image_size=512, repeats=1))
+    batch = next(iter(PrefetchLoader(ds, CLIPTokenizer.synthetic(), 2,
+                                     face_size=112, shuffle=False)))
+    if batch["image"].shape != (2, 512, 512, 3) or batch["faces"].shape[
+            1:] != (2, 112, 112, 3) or not np.isfinite(batch["image"]).all():
+        raise RuntimeError(f"align: face_id batch {batch['image'].shape} "
+                           f"{batch['faces'].shape}")
+
+    # stage by stage, on the card's nets
+    det = align_cli._init_detector(files["fb"], device="cuda")
+    land = align_cli._init_landmarker(files["pip"], files["meanface"],
+                                      device="cuda")
+    with no_tf32():
+        stage_ms, candidates = stage_times(photos, det, land, 512)
+    passing = [len(c) for c in candidates]
+    biggest = max(candidates, key=len)
+    keep_c = nms.greedy_nms(biggest, det.nms_thresh)
+    keep_n = nms.greedy_nms_numpy(biggest, det.nms_thresh)
+    # the same boxes kept, in the same order of score (two boxes of equal
+    # score may come in either order: std::sort is not numpy's argsort)
+    same_nms = set(keep_c.tolist()) == set(keep_n.tolist()) and \
+        np.array_equal(biggest[keep_c, 4], biggest[keep_n, 4])
+    if not same_nms or not 1 <= min(passing) or max(passing) > det.max_pre:
+        raise RuntimeError(f"align: NMS C++ kept {len(keep_c)}, numpy "
+                           f"{len(keep_n)}; anchors passing {passing}")
+    nms_ms = {name: 1e3 * min(_time_host(lambda: fn(biggest,
+                                                      det.nms_thresh))
+                              for _ in range(3))
+              for name, fn in (("cpp", nms.greedy_nms),
+                               ("numpy", nms.greedy_nms_numpy))}
+
+    # the card against the CPU on one photo
+    rgb = np.asarray(Image.open(photos[0]).convert("RGB"))
+    cdet = align_cli._init_detector(files["fb"], device="cpu")
+    cland = align_cli._init_landmarker(files["pip"], files["meanface"],
+                                       device="cpu")
+    priors = torch.from_numpy(prior_boxes(rgb.shape[:2]))
+    scale = torch.tensor([rgb.shape[1], rgb.shape[0]] * 2)
+    boxes, scores = {}, {}
+    for name, d in (("cuda", det), ("cpu", cdet)):
+        x = torch.from_numpy(rgb[None]).to(d.device).float() - d._means
+        with torch.inference_mode(), no_tf32():
+            loc, conf = d.net(x)
+            boxes[name] = (decode_boxes(loc[0], priors.to(d.device))
+                           .cpu() * scale)
+        scores[name] = conf[0, :, 1].cpu()
+    passed = scores["cuda"] > det.thresh
+    box_err = float((boxes["cuda"] - boxes["cpu"])[passed].abs().max())
+    with no_tf32():
+        dets_g, dets_c = det.detect(rgb, 1.0), cdet.detect(rgb, 1.0)
+        lm_g = land.landmarks_for_box(rgb, dets_g[0])
+        lm_c = cland.landmarks_for_box(rgb, dets_g[0])
+    lm_err = int(np.abs(lm_g - lm_c).max())
+    if not box_err <= ALIGN_BOX_TOL or lm_err > 1 or len(dets_g) != \
+            len(dets_c):
+        raise RuntimeError(f"align: card vs CPU boxes {box_err:.4f} px, "
+                           f"landmarks {lm_err} px, detections "
+                           f"{len(dets_g)} vs {len(dets_c)}")
+    rec = {"photos": ALIGN_PHOTOS, "files_s": files_s, "calibration": calib,
+           "anchors_passing": passing,
+           "wall_s": {"workers_4": runs[1]["wall_s"],
+                      "workers_1": runs[2]["wall_s"],
+                      "first_run_workers_4": runs[0]["wall_s"]},
+           "stage_ms_per_photo": stage_ms,
+           "nms_candidates": len(biggest), "nms_kept": len(keep_c),
+           "nms_ms": nms_ms, "peak_gib": peak, "box_err_px": box_err,
+           "landmark_err_px": lm_err, "detections": len(dets_g),
+           "cv2": cv2_version}
+    log("align", f"{ALIGN_PHOTOS} photos of {ALIGN_PHOTO}^2 through "
+                 f"cli/align.py (FaceBoxesV2, PIPNet ResNet-101, 98 "
+                 f"landmarks): {json.dumps(rec['wall_s'])} s wall (the "
+                 f"first run built the host C++); crops byte-equal at 4 "
+                 f"and 1 workers; pickle of {len(runs[2]['listed'])} paths "
+                 f"read by FaceIdDataset; no kernel launched; peak "
+                 f"{peak:.2f} GiB")
+    log("align", f"ms per photo by stage {json.dumps(stage_ms)}; anchors "
+                 f"passing 0.6 per photo {passing} (head scale "
+                 f"{calib['head_scale']:.3f}, face bias "
+                 f"{calib['face_bias']:.3f}); NMS on {len(biggest)} "
+                 f"candidates (kept {len(keep_c)}): C++ "
+                 f"{nms_ms['cpp']:.3f} ms, numpy {nms_ms['numpy']:.3f} ms, "
+                 f"the same boxes kept")
+    log("align", f"card vs CPU on one photo: boxes {box_err:.5f} px "
+                 f"(limit {ALIGN_BOX_TOL}), landmarks {lm_err} px, "
+                 f"{len(dets_g)} detections each; synthetic files made in "
+                 f"{files_s:.1f} s")
+    return rec, files
+
+
+def _time_host(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+# -- phase 8 ------------------------------------------------------------------
+
 def synthetic_value(key, shape, gen):
     """A seeded value for a checkpoint key, drawn on the card: fan-in-scaled
     normal weights, small biases, norm scales near 1, positive BatchNorm
@@ -1816,7 +2170,7 @@ def phase_checkpoint(work):
     return paths, rec
 
 
-# -- phase 8 ------------------------------------------------------------------
+# -- phase 9 ------------------------------------------------------------------
 
 def train_cli(keep_dir, checkpoints):
     """``cli/train.main`` at 512x512 from the checkpoint phase's files, on a
@@ -2183,7 +2537,7 @@ def phase_train():
              "peak_gib": peak / 2 ** 30, **geglu_ms})
 
 
-# -- phase 9 ------------------------------------------------------------------
+# -- phase 10 -----------------------------------------------------------------
 
 class DrawnAssemblies:
     """While entered, every ``loader.assemble`` (the one the CLIs call) draws
@@ -2386,7 +2740,7 @@ def phase_generate(work, ckpt):
     return recs
 
 
-# -- phase 10 -----------------------------------------------------------------
+# -- phase 11 -----------------------------------------------------------------
 
 def write_pngs(folder, names, seed):
     """Random-pixel 512x512 PNGs ``folder/<name>`` from a numpy seed."""
@@ -2567,7 +2921,7 @@ def phase_ti(work, checkpoints):
     return rec
 
 
-# -- phase 11 -----------------------------------------------------------------
+# -- phase 12 -----------------------------------------------------------------
 
 def openai_clip_from_hf(hf):
     """A HuggingFace ``CLIPModel`` state dict -> the same weights in OpenAI
@@ -2669,7 +3023,7 @@ class ForwardProbe:
             cls.forward = fwd
 
 
-def phase_evaluate(work, ckpt):
+def phase_evaluate(work, ckpt, align_files):
     """W4 at full width: ``cli/gen_imgs.py`` (512x512, EVAL_IDS identities
     x two prompts x EVAL_SAMPLES samples, DDIM_STEPS steps, output convs
     drawn) on the CLI training run's checkpoint, then ``cli/eval_imgs.py
@@ -2790,6 +3144,43 @@ def phase_evaluate(work, ckpt):
     if n_k != VIT_LAYERS or not rel <= VIT_REL_TOL:
         raise RuntimeError(f"evaluate: the ViT's kernel route differs by "
                            f"{rel:.3e} ({n_k} launches)")
+
+    # identity scored on crops: the align phase's nets as the cropper
+    with ForwardProbe(CLIPVisionEncoder) as probe:
+        for module in (fa, geglu, quant):
+            module.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cropped = eval_imgs.main([
+            "--eval_folder", gen, "--clip_ckpt", files["clip"],
+            "--sphere_ckpt", files["sphere"], "--detector_ckpt",
+            align_files["fb"], "--pipnet_ckpt", align_files["pip"],
+            "--meanface", align_files["meanface"], "--out",
+            os.path.join(work, "scores_cropped.json")])
+        torch.cuda.synchronize()
+        cropped_s = time.perf_counter() - t0
+        launches = {**fa.launch_counts(), **geglu.launch_counts(),
+                    **quant.launch_counts()}
+    vit = VIT_LAYERS * len(probe.calls)
+    # each item scores its source and its samples; the first image of an
+    # item counts as a face whether or not one is found
+    faces_in_gen = cropped["num_has_face"] - cropped["n_items"]
+    rec.update({"cropped_scoring_s": cropped_s, "cropped_scores": cropped,
+                "cropped_launches": launches})
+    log("evaluate", f"eval_imgs with the FaceBoxes + PIPNet cropper: "
+                    f"{cropped_s:.1f} s; faces found in {faces_in_gen} "
+                    f"of the {items * EVAL_SAMPLES} generated images "
+                    f"(has_face {cropped['num_has_face']}, no_face "
+                    f"{cropped['num_no_face']}); scores "
+                    f"{json.dumps(cropped)}; launches {json.dumps(launches)}")
+    if set(cropped) != SCORE_KEYS - {"fid"} or not all(
+            np.isfinite(v) for v in cropped.values()):
+        raise RuntimeError(f"evaluate: cropped scores {cropped}")
+    if {k: c for k, c in launches.items() if c} != {
+            "flash_attention_nhd": vit}:
+        raise RuntimeError(f"evaluate: the cropped run launched {launches}; "
+                           f"the ViT's {len(probe.calls)} forwards alone "
+                           f"account for {vit}")
     return rec
 
 
@@ -2812,6 +3203,7 @@ def main() -> int:
     launches, request_ms = phase_serve()
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
+        align, align_files = phase_align(work)
         checkpoints, checkpoint = phase_checkpoint(work)
         train_launches, train_ms = phase_train()
         cli_launches, cli = train_cli(work, checkpoints)
@@ -2824,7 +3216,7 @@ def main() -> int:
                              f"{name}_peak_gib": r["peak_gib"]})
         cli_ckpt = os.path.join(work, f"embeddings_gs-{CLI_STEPS}.pt")
         generate = phase_generate(work, cli_ckpt)
-        evaluate = phase_evaluate(work, cli_ckpt)
+        evaluate = phase_evaluate(work, cli_ckpt, align_files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2952,7 +3344,10 @@ def main() -> int:
                 f"{json.dumps(generate_ms)}; ti txt2img wall ms "
                 f"{ti['txt2img']['wall_ms']:.1f}; gen_imgs wall ms "
                 f"{evaluate['gen_imgs']['wall_ms']:.1f}; eval_imgs "
-                f"{evaluate['scoring_s']:.1f} s")
+                f"{evaluate['scoring_s']:.1f} s (with the cropper "
+                f"{evaluate['cropped_scoring_s']:.1f} s); align "
+                f"{ALIGN_PHOTOS} photos {json.dumps(align['wall_s'])} s, ms "
+                f"per photo {json.dumps(align['stage_ms_per_photo'])}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -193,3 +193,66 @@ def tiny_sd_checkpoint(path, config, seed=0):
     torch.save({"state_dict": {k: torch.from_numpy(np.array(v))
                                for k, v in state.items()}}, path)
     return spec
+
+
+def align_params(pip_cfg, seed=11, face_bias=0.5, conf_scale=0.05):
+    """One set of random FaceBoxesV2 and PIPNet(``pip_cfg``, the JAX
+    config) weights: the flax trees ``fb`` and ``pip``, and the port's state
+    dicts ``fb_state`` and ``pip_state``.  The detector's class heads are
+    scaled down and its face logits raised by ``face_bias``, so that a part
+    of the anchors pass the 0.6 threshold with scores well apart and well
+    below 1 (random full-size heads saturate the softmax)."""
+    from celebbasis_tpu.align import faceboxes as jfb
+    from celebbasis_tpu.align import pipnet as jpip
+    from celebbasis_tpu_torch.utils import bridge
+
+    fb = random_params(jfb.FaceBoxesV2().init, jax.random.key(0),
+                       jax.numpy.zeros((1, 96, 128, 3)), seed=seed)
+    for i in range(3):
+        head = fb["params"][f"head{i}"]["conf"]
+        head["kernel"] = np.asarray(head["kernel"]) * conf_scale
+        bias = np.array(head["bias"])
+        bias[1::2] += face_bias
+        head["bias"] = bias
+    S = pip_cfg.input_size
+    pip = random_params(jpip.PIPNet(pip_cfg).init, jax.random.key(0),
+                        jax.numpy.zeros((1, S, S, 3)), seed=seed + 1)
+    return dict(fb=fb, pip=pip,
+                fb_state=bridge.from_jax_params(np_tree(fb)),
+                pip_state=bridge.from_jax_params(np_tree(pip)))
+
+
+def write_photos(folder, n, hw=(160, 192), seed=0):
+    """``n`` PNG "photos" of smooth random colour fields with noise,
+    ``photo_{i}.png``; -> their paths."""
+    import os
+
+    from PIL import Image
+    os.makedirs(folder, exist_ok=True)
+    r = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        coarse = r.integers(0, 256, (hw[0] // 16 + 1, hw[1] // 16 + 1, 3),
+                            dtype=np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize(
+            (hw[1], hw[0]), Image.BILINEAR), np.int16)
+        img = np.clip(img + r.integers(-20, 21, img.shape), 0, 255)
+        paths.append(os.path.join(folder, f"photo_{i}.png"))
+        Image.fromarray(img.astype(np.uint8)).save(paths[-1])
+    return paths
+
+
+def reference_layout(state, pairs):
+    """A port state dict in the reference's key layout, through the
+    readers' own (kind, port module, file module) pairs
+    (``utils.bridge_align.faceboxes_pairs`` / ``pipnet_pairs``):
+    BatchNorm statistics as ``running_mean`` / ``running_var``."""
+    out = {}
+    for kind, dst, src in pairs:
+        leaves = (("weight", "weight"), ("bias", "bias"))
+        if kind == "bn":
+            leaves += (("mean", "running_mean"), ("var", "running_var"))
+        for ours, theirs in leaves:
+            if f"{dst}.{ours}" in state:
+                out[f"{src}.{theirs}"] = state[f"{dst}.{ours}"]
+    return out

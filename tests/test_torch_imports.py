@@ -1,8 +1,8 @@
 """PyTorch port: what it imports, what it needs, and where it runs.
 
 * importing every module of ``celebbasis_tpu_torch`` and ``chip_smoke`` pulls
-  in neither ``jax``, ``flax``, ``triton`` nor ``celebbasis_tpu``, and builds
-  nothing;
+  in neither ``jax``, ``flax``, ``triton``, ``cv2`` nor ``celebbasis_tpu``,
+  and builds nothing (no CUDA kernel, no host C++ of the alignment path);
 * an entry point without a card and without ``device="cpu"`` raises;
 * the serving path's optional modules have stand-ins that agree with them
   (stdlib token split vs ``regex``; typed defaults vs ``configs/aigc_id.yaml``).
@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,7 +31,7 @@ for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
-                                    "celebbasis_tpu"))
+                                    "celebbasis_tpu", "cv2"))
 print("MODULES", len(names))
 print("TRAIN_RUN", sorted(n for n in names if n.endswith(
     (".face_id", ".tb", ".callbacks", "cli.train", ".pt_io"))))
@@ -38,6 +39,8 @@ print("TI_EVAL", sorted(n for n in names if n.endswith(
     (".textual_inversion", ".personalized", ".clip_vit", ".train_ti",
      ".merge", ".gen_imgs", ".eval_imgs", ".evaluate_model"))
     or ".eval." in n))
+print("ALIGN", sorted(n for n in names if ".align" in n
+                      or n.endswith(".bridge_align")))
 print("KERNEL_MODULES", sorted(n for n in names if n.endswith(
     (".flash_attention", ".geglu", ".quant"))))
 print("BAD", bad)
@@ -70,6 +73,12 @@ def test_imports_pull_in_no_jax_and_build_nothing():
             "cli.evaluate_model", "eval.base", "eval.evaluators", "eval.fid",
             "eval.inception", "eval.prompt_templates", "eval.sphere",
             "eval.survey")))
+    # and those of W0 alignment
+    assert lines["ALIGN"] == str(sorted(
+        f"celebbasis_tpu_torch.{m}" for m in (
+            "align", "align.alignment", "align.cv_resample",
+            "align.faceboxes", "align.metrics", "align.native", "align.nms",
+            "align.pipnet", "cli.align", "utils.bridge_align")))
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -95,15 +104,26 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TxtToImgService(build_argparser().parse_args(
             ["--config", os.path.join(REPO, "configs", "tiny.yaml")]))
-    from celebbasis_tpu_torch.cli import eval_imgs, gen_imgs, train_ti
+    from celebbasis_tpu_torch.cli import align, eval_imgs, gen_imgs, train_ti
     cfg = os.path.join(REPO, "configs", "tiny.yaml")
     for cli, argv in (
+            (align, ["--in_folder", "unused", "--out_folder", "unused"]),
             (train_ti, ["--base", cfg, "--data_root", "unused"]),
             (gen_imgs, ["--config", cfg, "--embedding_path", "e.pt",
                         "--from-file", "prompts_two.txt"]),
             (eval_imgs, ["--eval_folder", "unused", "--tiny"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(argv)
+    from celebbasis_tpu_torch.align.faceboxes import (FaceBoxesDetector,
+                                                      FaceBoxesV2)
+    from celebbasis_tpu_torch.align.pipnet import (PIPNet, PIPNetConfig,
+                                                   PIPNetLandmarker)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FaceBoxesDetector(FaceBoxesV2().state_dict())
+    cfg = PIPNetConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PIPNetLandmarker(PIPNet(cfg).state_dict(), cfg,
+                         np.random.default_rng(0).uniform(size=(12, 2)))
     assert resolve_device("cpu").type == "cpu"
     asm = assemble(spec, image_size=32, device="cpu", dtype=torch.float32)
     assert asm.meta_net.cfg.inner_dim == spec.meta_inner_dim
