@@ -12,6 +12,11 @@ follows from the configuration, as the port's module is built; a key the
 module needs and the file lacks raises, and ``load_state_dict(strict=True)``
 refuses a shape that differs.  A leading ``module.`` (DataParallel) is
 dropped from the file's keys.
+
+The writers go the other way through the same pairs: ``reference_layout``
+puts a port state dict on the file's keys, and ``export_pipnet`` writes
+what the reference's ``torch.save(net.state_dict())`` holds (the landmark
+trainers' ``epoch%d.pth``).
 """
 from __future__ import annotations
 
@@ -151,3 +156,34 @@ def convert_pipnet(state: Mapping, cfg: PIPNetConfig,
     """A PIPNet state dict -> ``align.pipnet.PIPNet(cfg)``'s state dict;
     the keys taken are added to ``used``."""
     return _read(state, pipnet_pairs(cfg), used)
+
+
+def reference_layout(state: Mapping[str, torch.Tensor], pairs: Pairs
+                     ) -> Dict[str, torch.Tensor]:
+    """A port state dict on the reference's keys, through the readers' own
+    (kind, port module, file module) pairs: BatchNorm statistics as
+    ``running_mean`` / ``running_var``."""
+    out = {}
+    for kind, dst, src in pairs:
+        leaves = (("weight", "weight"), ("bias", "bias"))
+        if kind == "bn":
+            leaves += (("mean", "running_mean"), ("var", "running_var"))
+        for ours, theirs in leaves:
+            if f"{dst}.{ours}" in state:
+                out[f"{src}.{theirs}"] = state[f"{dst}.{ours}"]
+    return out
+
+
+def export_pipnet(state: Mapping[str, torch.Tensor], cfg: PIPNetConfig
+                  ) -> Dict[str, torch.Tensor]:
+    """``PIPNet(cfg)``'s state (port names; a GSSL net's too) -> the keys of
+    the reference's ``net.state_dict()``, float32 on the CPU, each
+    BatchNorm with a ``num_batches_tracked`` of 0 (the port's BatchNorm
+    counts no batches)."""
+    pairs = pipnet_pairs(cfg)
+    out = reference_layout({k: v.detach().float().cpu()
+                            for k, v in state.items()}, pairs)
+    for kind, _, src in pairs:
+        if kind == "bn":
+            out[f"{src}.num_batches_tracked"] = torch.tensor(0)
+    return out

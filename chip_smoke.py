@@ -9,9 +9,11 @@ live faces), personalisation training (``celebbasis_tpu_torch.train``, and
 ``cli/train.py`` from synthetic checkpoints in the real files' formats),
 generation through the CLIs (``cli/{txt2img,img2img,build_basis,extract}``,
 and the DDPM chain), the textual-inversion baseline (``cli/train_ti``,
-``cli/merge``, ``txt2img --ti_embedding``) and the evaluation
-(``cli/gen_imgs``, ``cli/eval_imgs``) -- and holds every hand-written kernel
-against its plain PyTorch version.  Phases:
+``cli/merge``, ``txt2img --ti_embedding``), the evaluation
+(``cli/gen_imgs``, ``cli/eval_imgs``), face alignment (``cli/align``) and
+the landmark trainers (``cli/preprocess_pipnet``, ``cli/train_pipnet``,
+``cli/train_pipnet_gssl``) -- and holds every hand-written kernel against
+its plain PyTorch version.  Phases:
 
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
 2. ``build``   builds the kernel libraries from ``celebbasis_tpu_torch/csrc``,
@@ -65,7 +67,21 @@ against its plain PyTorch version.  Phases:
                integer cast, landmarks within 1 px); the C++ NMS against
                the numpy one; the OpenCV resampler copy against cv2 where
                cv2 imports; ms per photo by stage, NMS ms, peak memory;
-8. ``checkpoint`` a synthetic ``sd-v1-4.ckpt`` (every key and shape of
+8. ``align_train`` W0's training side at full width: synthetic raw WFLW,
+               300W, CelebA and COFW layouts in the datasets' formats through
+               ``cli/preprocess_pipnet.py`` (WFLW, CELEBA,
+               data_300W_CELEBA); ``cli/train_pipnet.py`` on PIPNet
+               ResNet-101 (98 landmarks, 10 neighbours, 256x256, stride 32,
+               batch 16) for two epochs, whose ``epoch1.pth`` holds every
+               key and shape of the PIPNet manifest; ``cli/align.py`` reading
+               that file (its net equal to the trained state) on the align
+               phase's photos; ``cli/train_pipnet_gssl.py`` on ResNet-18 (68
+               landmarks, batch 16, the warmup and five curriculum rounds
+               with augmentation); one step of each trainer from one state
+               on the card against the CPU (loss, every leaf's gradient, the
+               parameters after Adam); no hand-written kernel launched; ms a
+               step, images per second, peak memory, walls;
+9. ``checkpoint`` a synthetic ``sd-v1-4.ckpt`` (every key and shape of
                ``manifests/sd-v1-4.json``, fp32 from a seed, DDPM buffers,
                LitEma keys, Lightning callback objects of a class that cannot
                be imported when the file is read) and a synthetic fp16
@@ -74,7 +90,7 @@ against its plain PyTorch version.  Phases:
                (``utils/bridge``) and loaded through ``loader.assemble``:
                every manifest key used, the extras reported, parameters read
                back equal to what was written; sizes, seconds, peak memory;
-9. ``train``   ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
+10. ``train``  ``Trainer.fit`` on ``configs/aigc_id.yaml`` (bf16 compute,
                512x512 images, batch 2, two 512x512 faces per sample,
                synthetic batches): a few uncached steps and two cached ones;
                losses, what moved and what stayed frozen, launch counters,
@@ -86,7 +102,7 @@ against its plain PyTorch version.  Phases:
                steps (validation, TensorBoard, ``DeviceMonitor``, a sample
                grid) and six cached ones, with ms per step, ms each step
                waits on the loader, launches and peak memory;
-10. ``generate`` the generation CLIs in process on ``configs/aigc_id.yaml``
+11. ``generate`` the generation CLIs in process on ``configs/aigc_id.yaml``
                (bf16, 512x512, two samples, the output convs drawn): a
                20-step PLMS txt2img (21 UNet calls), txt2img on two face
                crops, a masked img2img at strength 0.5; ``ddpm_sample`` over
@@ -94,7 +110,7 @@ against its plain PyTorch version.  Phases:
                ``extract`` on the CLI training run's checkpoint (the
                files' shapes as the JAX package writes them).  Each with
                its wall time, peak memory, UNet calls and flash launches;
-11. ``ti``     ``cli/train_ti.py`` at full width from the checkpoint
+12. ``ti``     ``cli/train_ti.py`` at full width from the checkpoint
                phase's ``sd-v1-4.ckpt`` on three random-pixel 512x512 PNGs:
                six steps, each timed to a sync, peak memory and launches;
                the loss finite, the vectors moved, the UNet, CLIP and VAE
@@ -104,7 +120,7 @@ against its plain PyTorch version.  Phases:
                checkpoint and a renamed copy, and a 20-step
                ``txt2img --ti_embedding`` on the merged file (640 packed
                launches);
-12. ``evaluate`` ``cli/gen_imgs.py`` at 512x512 (2 ids x 2 prompts x 2
+13. ``evaluate`` ``cli/gen_imgs.py`` at 512x512 (2 ids x 2 prompts x 2
                samples, 20 steps, output convs drawn) on the CLI training
                run's checkpoint, then ``cli/eval_imgs.py --fid
                --inception_ckpt`` from synthetic CLIP ViT-B/32 (OpenAI
@@ -274,6 +290,27 @@ ALIGN_PHOTOS, ALIGN_PHOTO = 8, 512
 FB_MANIFEST = os.path.join(REPO, "manifests", "faceboxesv2.json")
 PIP_MANIFEST = os.path.join(REPO, "manifests", "pipnet_wflw_r101.json")
 ALIGN_BOX_TOL = 0.05
+# the align_train phase: synthetic raw WFLW (images, train rows, test rows),
+# the labeled 300W rows and unlabeled CelebA crops of data_300W_CELEBA, the
+# trainers' batch (the reference's 16), and how far one step on the card
+# may be from the same step on the CPU (fp32, TF32 off): the loss
+# (relative), the leaves' gradients (relative L2, the median over the
+# leaves and the worst leaf: one entry of a leaf that is a sum with heavy
+# cancellation, such as a BatchNorm mean's, differs by up to 3e-3 of the
+# leaf's largest entry), and the parameters after the first Adam update in
+# units of lr.  That update is lr * g / (|g| + 1e-8), lr * sign(g) wherever
+# |g| >> 1e-8, so an entry whose gradient is within rounding of 0 moves by
+# up to lr either way: the largest difference is bounded by 2 * lr (a wrong
+# rate or schedule exceeds it), and the mean and the share of entries over
+# lr / 2 say how many flipped.  torch_scripts/align_train_tf32_probe.py
+# measures both steps with TF32 off and with TF32 left on for the card: on
+# an H100 the limits pass the first and refuse the second
+ALIGN_TRAIN_WFLW = (12, 48, 4)
+ALIGN_TRAIN_LABELED, ALIGN_TRAIN_UNLABELED = 32, 16
+ALIGN_TRAIN_BATCH = 16
+ALIGN_TRAIN_TOL = {"loss": 1e-4, "grad_rel_l2_median": 1e-3,
+                   "grad_rel_l2_max": 1e-2, "param_lr_max": 2.01,
+                   "param_lr_mean": 1e-3, "param_share_over_half_lr": 1e-3}
 SCORE_KEYS = {"image_sim", "text_sim", "id_cos_sim", "id_mse_dist",
               "id_l2_dist", "num_has_face", "num_no_face", "n_items",
               "n_id_items", "fid"}
@@ -2003,6 +2040,357 @@ def _time_host(fn):
 
 # -- phase 8 ------------------------------------------------------------------
 
+def _smooth_image(r, h, w):
+    """A smooth random colour field with noise, (h, w, 3) uint8."""
+    import cv2
+    coarse = r.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3), np.uint8)
+    img = cv2.resize(coarse, (w, h)).astype(np.int16)
+    return np.clip(img + r.integers(-24, 25, img.shape), 0, 255
+                   ).astype(np.uint8)
+
+
+def _template(n, r):
+    """``n`` landmark positions in the unit square: a jittered grid."""
+    side = int(np.ceil(np.sqrt(n)))
+    g = np.stack(np.meshgrid(np.linspace(0.15, 0.85, side),
+                             np.linspace(0.15, 0.85, side)), -1)
+    return g.reshape(-1, 2)[:n] + r.normal(0, 0.01, (n, 2))
+
+
+def _face(r, tmpl, h, w):
+    """A box inside an (h, w) image and the template's landmarks in it:
+    (x0, y0, x1, y1), (n, 2) pixel coordinates."""
+    bw = r.uniform(0.45, 0.7) * w
+    bh = r.uniform(0.45, 0.7) * h
+    x0, y0 = r.uniform(0.05 * w, w - bw - 0.05 * w), r.uniform(
+        0.05 * h, h - bh - 0.05 * h)
+    pts = tmpl + r.normal(0, 0.01, tmpl.shape)
+    return (x0, y0, x0 + bw, y0 + bh), np.stack(
+        [x0 + pts[:, 0] * bw, y0 + pts[:, 1] * bh], -1)
+
+
+def write_pipnet_raw(root, seed):
+    """Synthetic raw layouts in the public datasets' formats, for
+    ``cli/preprocess_pipnet``: WFLW (ALIGN_TRAIN_WFLW images, the train and
+    test annotation lists: 98 landmarks, detector box, six attributes, image
+    name), and the raw inputs of data_300W_CELEBA: 300W (image + 68-point
+    ``.pts`` pairs; ALIGN_TRAIN_LABELED rows in the train folders, two in
+    each test folder), CelebA (ALIGN_TRAIN_UNLABELED images and
+    ``celeba_bboxes.txt``), COFW's test ``.mat`` and the 68-point COFW test
+    boxes and annotations."""
+    import cv2
+    import scipy.io
+    r = np.random.default_rng(seed)
+    t98, t68 = _template(98, r), _template(68, r)
+    wdir = os.path.join(root, "WFLW")
+    adir = os.path.join(wdir, "WFLW_annotations",
+                        "list_98pt_rect_attr_train_test")
+    os.makedirs(adir)
+    os.makedirs(os.path.join(wdir, "WFLW_images"))
+    sizes = {}
+    for i in range(ALIGN_TRAIN_WFLW[0]):
+        name = f"{i:02d}_Crowd_{i}.jpg"
+        h, w = (int(v) for v in r.integers(320, 480, 2))
+        cv2.imwrite(os.path.join(wdir, "WFLW_images", name),
+                    _smooth_image(r, h, w))
+        sizes[name] = (h, w)
+    names = sorted(sizes)
+    for split, n in (("train", ALIGN_TRAIN_WFLW[1]),
+                     ("test", ALIGN_TRAIN_WFLW[2])):
+        rows = []
+        for j in range(n):
+            name = names[j % len(names)]
+            box, pts = _face(r, t98, *sizes[name])
+            rows.append(" ".join(f"{v:.3f}" for v in pts.ravel()) + " "
+                        + " ".join(f"{v:.0f}" for v in box)
+                        + " 0 0 0 0 0 0 " + name)
+        with open(os.path.join(adir, f"list_98pt_rect_attr_{split}.txt"),
+                  "w") as f:
+            f.write("\n".join(rows) + "\n")
+    n_lab = ALIGN_TRAIN_LABELED
+    for folder, n in (("afw", n_lab - 2 * (n_lab // 3)),
+                      ("helen/trainset", n_lab // 3),
+                      ("lfpw/trainset", n_lab // 3), ("helen/testset", 2),
+                      ("lfpw/testset", 2), ("ibug", 2)):
+        d = os.path.join(root, "data_300W", folder)
+        os.makedirs(d)
+        for i in range(n):
+            h, w = (int(v) for v in r.integers(300, 420, 2))
+            box, pts = _face(r, t68, h, w)
+            cv2.imwrite(os.path.join(d, f"image_{i:03d}.jpg"),
+                        _smooth_image(r, h, w))
+            with open(os.path.join(d, f"image_{i:03d}.pts"), "w") as f:
+                f.write("version: 1\nn_points: 68\n{\n")
+                f.writelines(f"{x:.3f} {y:.3f}\n" for x, y in pts)
+                f.write("}\n")
+    cdir = os.path.join(root, "CELEBA", "img_celeba")
+    os.makedirs(cdir)
+    with open(os.path.join(root, "CELEBA", "celeba_bboxes.txt"), "w") as f:
+        for i in range(ALIGN_TRAIN_UNLABELED):
+            h, w = (int(v) for v in r.integers(300, 420, 2))
+            box, _ = _face(r, t68, h, w)
+            name = f"{i + 1:06d}.jpg"
+            cv2.imwrite(os.path.join(cdir, name), _smooth_image(r, h, w))
+            f.write(name + " " + " ".join(f"{v:.0f}" for v in box) + "\n")
+    n_cofw = 2
+    cells = np.empty((n_cofw, 1), object)
+    boxes, annos = [], []
+    for i in range(n_cofw):
+        h, w = 300, 280
+        img = _smooth_image(r, h, w)[:, :, ::-1]           # RGB in the .mat
+        cells[i, 0] = img[:, :, 0] if i % 2 else np.ascontiguousarray(img)
+        box, pts = _face(r, t68, h, w)
+        boxes.append([box[0], box[1], box[2] - box[0], box[3] - box[1]])
+        annos.append(pts)
+    os.makedirs(os.path.join(root, "COFW"))
+    scipy.io.savemat(os.path.join(root, "COFW", "COFW_test_color.mat"),
+                     {"IsT": cells, "bboxesT": np.asarray(boxes),
+                      "phisT": np.zeros((n_cofw, 87))})
+    tdir = os.path.join(root, "data_300W_CELEBA")
+    os.makedirs(os.path.join(tdir, "cofw68_test_annotations"))
+    scipy.io.savemat(os.path.join(tdir, "cofw68_test_bboxes.mat"),
+                     {"bboxes": np.asarray(boxes)})
+    for i, pts in enumerate(annos):
+        scipy.io.savemat(os.path.join(tdir, "cofw68_test_annotations",
+                                      f"{i + 1}_points.mat"),
+                         {"Points": pts})
+
+
+def _normalised_crops(folder, rows):
+    """The ImageNet-normalised crops of label rows and their (L, 2)
+    landmarks, as the trainers feed them (without augmentation)."""
+    from PIL import Image
+
+    from celebbasis_tpu_torch.align.pipnet import IMAGENET_MEAN, IMAGENET_STD
+    x = np.stack([(np.asarray(Image.open(os.path.join(folder, n))
+                              .convert("RGB"), np.float32) / 255.0
+                   - IMAGENET_MEAN) / IMAGENET_STD for n, _ in rows])
+    return (torch.from_numpy(x.astype(np.float32)),
+            torch.from_numpy(np.clip(np.stack([t.reshape(-1, 2)
+                                               for _, t in rows]), 0, 1)))
+
+
+def step_parity(kind, images, lms, meanface, task=None):
+    """One step of a trainer from one seeded state, on the card and on the
+    CPU: ``kind`` "pipnet" (PIPNet ResNet-101, 98 landmarks) or "gssl"
+    (PIPNetGSSL ResNet-18, 68 landmarks, ``task`` per row).  -> relative
+    loss difference, the relative L2 difference of the leaves' gradients
+    (median over the leaves, and the largest and its leaf), and the
+    parameters' difference after Adam in units of lr: largest, mean, and
+    the share of entries over lr / 2."""
+    from celebbasis_tpu_torch.align import pipnet_gssl as pg
+    from celebbasis_tpu_torch.align import pipnet_train as pt
+    from celebbasis_tpu_torch.align.pipnet import PIPNet, PIPNetConfig
+    from celebbasis_tpu_torch.loader import init_weights
+
+    L = meanface.shape[0]
+    if kind == "pipnet":
+        cfg, net_cls = PIPNetConfig.resnet101(num_lms=L), PIPNet
+    else:
+        cfg, net_cls = PIPNetConfig.resnet18(num_lms=L), pg.PIPNetGSSL
+    tcfg = pt.PIPTrainConfig(num_lms=L, num_nb=cfg.num_nb,
+                             input_size=cfg.input_size,
+                             net_stride=cfg.net_stride,
+                             batch_size=len(images))
+    state = init_weights(net_cls(cfg), torch.Generator().manual_seed(5)
+                         ).state_dict()
+    nb_idx = pt.forward_neighbors(meanface, tcfg.num_nb)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = pt.leaf_state(state, dev)
+        opt = pt.make_optimizer(tcfg, 3, params.values())
+        args = (params, images.to(dev), lms.to(dev))
+        if kind == "pipnet":
+            total, _ = pt.make_train_step(net_cls(cfg), opt, nb_idx,
+                                          tcfg)(*args)
+        else:
+            total, _ = pg.make_gssl_train_step(
+                net_cls(cfg), opt, nb_idx, tcfg)(*args, task.to(dev))
+        out[dev] = (float(total),
+                    {k: v.grad.cpu() for k, v in params.items()},
+                    {k: v.detach().cpu() for k, v in params.items()})
+    (lg, gg, pg_), (lc, gc, pc) = out["cuda"], out["cpu"]
+    rel_l2 = {k: float((gg[k] - gc[k]).norm()
+                       / gc[k].norm().clamp_min(1e-30)) for k in gc}
+    worst = max(rel_l2, key=rel_l2.get)
+    diffs = torch.cat([(pg_[k] - pc[k]).abs().flatten()
+                       for k in pc]) / tcfg.init_lr
+    return {"loss": lc, "loss_rel_err": abs(lg - lc) / abs(lc),
+            "grad_rel_l2_median": float(np.median(list(rel_l2.values()))),
+            "grad_rel_l2_max": rel_l2[worst], "grad_worst_leaf": worst,
+            "leaves": len(gc), "param_err_lr_max": float(diffs.max()),
+            "param_err_lr_mean": float(diffs.mean()),
+            "param_share_over_half_lr": float((diffs > 0.5).float().mean())}
+
+
+def per_step(result, wall_s):
+    """A trainer CLI's result -> ms a step (median after the first, each
+    step timed to a sync), images per second at that median, the run's wall
+    and peak device memory."""
+    ms = float(np.median(result["step_s"][1:])) * 1e3
+    return {"steps": len(result["step_s"]), "median_ms": ms,
+            "first_ms": result["step_s"][0] * 1e3,
+            "images_per_s": ALIGN_TRAIN_BATCH / ms * 1e3, "wall_s": wall_s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_align_train(work, align_files, t_smoke):
+    """W0's training side at full width (module docstring, phase 8).
+    -> record."""
+    import cv2         # the preprocessing's codecs; fail here without it
+
+    from celebbasis_tpu_torch.align import pipnet_gssl as pg
+    from celebbasis_tpu_torch.cli import align as align_cli
+    from celebbasis_tpu_torch.cli import (preprocess_pipnet, train_pipnet,
+                                          train_pipnet_gssl)
+    from celebbasis_tpu_torch.cli.train_pipnet import (load_labels,
+                                                       load_meanface)
+
+    t_phase = time.perf_counter()
+    for module in (fa, geglu, quant):
+        module.reset_launch_count()
+    root = os.path.join(work, "pipnet_data")
+    t0 = time.perf_counter()
+    write_pipnet_raw(root, 51)
+    t1 = time.perf_counter()
+    for name in ("WFLW", "CELEBA", "data_300W_CELEBA"):
+        preprocess_pipnet.main([name, "--root", root, "--quiet"])
+    preprocess_s = (t1 - t0, time.perf_counter() - t1)
+    wflw = os.path.join(root, "WFLW")
+    gssl_dir = os.path.join(root, "data_300W_CELEBA")
+    n_wflw = len(load_labels(os.path.join(wflw, "train.txt")))
+    n_lab = len(load_labels(os.path.join(gssl_dir, "train_300W.txt")))
+    with open(os.path.join(gssl_dir, "train_CELEBA.txt")) as f:
+        n_unl = len(f.read().split())
+    if (n_wflw, n_lab, n_unl) != ALIGN_TRAIN_WFLW[1:2] + (
+            ALIGN_TRAIN_LABELED, ALIGN_TRAIN_UNLABELED):
+        raise RuntimeError(f"align_train: preprocessing gave {n_wflw} WFLW, "
+                           f"{n_lab} labeled and {n_unl} unlabeled rows")
+
+    # supervised, the reference's pip_32_16_60_r101_l2_l1_10_1_nb10
+    snap = os.path.join(work, "pipnet_snapshots")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sup = train_pipnet.main([
+        "--data_dir", wflw, "--save_dir", snap, "--backbone", "resnet101",
+        "--num_nb", "10", "--input_size", "256", "--net_stride", "32",
+        "--batch_size", str(ALIGN_TRAIN_BATCH), "--epochs", "2",
+        "--save_interval", "2"])
+    sup_rec = per_step(sup, time.perf_counter() - t0)
+    ckpt = os.path.join(snap, "epoch1.pth")
+    saved = torch.load(ckpt, weights_only=True)
+    with open(PIP_MANIFEST) as f:
+        manifest = json.load(f)["keys"]
+    if sorted(os.listdir(snap)) != ["epoch1.pth"] or {
+            k: list(v.shape) for k, v in saved.items()} != manifest:
+        raise RuntimeError(f"align_train: {sorted(os.listdir(snap))} "
+                           f"written; keys and shapes equal the manifest's: "
+                           f"{sorted(saved) == sorted(manifest)}")
+    if not np.isfinite(sup["history"]).all():
+        raise RuntimeError(f"align_train: losses {sup['history']}")
+
+    # the aligner reads what the trainer wrote
+    land = align_cli._init_landmarker(ckpt, os.path.join(wflw,
+                                                         "meanface.txt"),
+                                      device="cuda")
+    got = land.net.state_dict()
+    if sorted(got) != sorted(sup["params"]) or not all(
+            torch.equal(got[k], v.detach()) for k, v in sup["params"].items()):
+        raise RuntimeError("align_train: the aligner's PIPNet differs from "
+                           "the trained state")
+    del land, got
+    photos = os.path.join(work, "align_photos")
+    t0 = time.perf_counter()
+    n = align_cli.main(["--in_folder", photos, "--out_folder",
+                        os.path.join(work, "aligned_trained"),
+                        "--detector_ckpt", align_files["fb"],
+                        "--pipnet_ckpt", ckpt, "--meanface",
+                        os.path.join(wflw, "meanface.txt"), "--workers", "1"])
+    align_wall = time.perf_counter() - t0
+    if n != ALIGN_PHOTOS:
+        raise RuntimeError(f"align_train: cli/align.py with the trained "
+                           f"checkpoint cropped {n} of {ALIGN_PHOTOS}")
+
+    # GSSL, the reference's ResNet-18 curriculum (warmup + 5 rounds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gssl = train_pipnet_gssl.main([
+        "--data_dir", gssl_dir, "--save_dir",
+        os.path.join(work, "gssl_snapshots"), "--num_nb", "10",
+        "--input_size", "256", "--batch_size", str(ALIGN_TRAIN_BATCH),
+        "--epochs", "1"])
+    gssl_rec = per_step(gssl, time.perf_counter() - t0)
+    losses = gssl["init_history"] + sum(gssl["history"], [])
+    if len(gssl["history"]) != 5 or not np.isfinite(losses).all():
+        raise RuntimeError(f"align_train: GSSL losses {losses}")
+    del sup, gssl
+
+    # the card against the CPU: one step of each trainer from one state
+    rows = load_labels(os.path.join(wflw, "train.txt"))[:2]
+    x, lms = _normalised_crops(os.path.join(wflw, "images_train"), rows)
+    parity = {"pipnet": step_parity(
+        "pipnet", x, lms, load_meanface(os.path.join(wflw, "meanface.txt")))}
+    rows = load_labels(os.path.join(gssl_dir, "train_300W.txt"))[:4]
+    x, lms = _normalised_crops(os.path.join(gssl_dir, "images_train"), rows)
+    parity["gssl"] = step_parity(
+        "gssl", x, lms, load_meanface(os.path.join(gssl_dir,
+                                                   "meanface.txt")),
+        task=torch.tensor([pg.TASK_STD, pg.TASK_CLS1, pg.TASK_CLS2,
+                           pg.TASK_CLS3]))
+    for name, p in parity.items():
+        if not (p["loss_rel_err"] <= ALIGN_TRAIN_TOL["loss"]
+                and p["grad_rel_l2_median"]
+                <= ALIGN_TRAIN_TOL["grad_rel_l2_median"]
+                and p["grad_rel_l2_max"] <= ALIGN_TRAIN_TOL["grad_rel_l2_max"]
+                and p["param_err_lr_max"] <= ALIGN_TRAIN_TOL["param_lr_max"]
+                and p["param_err_lr_mean"] <= ALIGN_TRAIN_TOL["param_lr_mean"]
+                and p["param_share_over_half_lr"]
+                <= ALIGN_TRAIN_TOL["param_share_over_half_lr"]):
+            raise RuntimeError(f"align_train: {name} step, card vs CPU "
+                               f"{json.dumps(p)} (limits "
+                               f"{json.dumps(ALIGN_TRAIN_TOL)})")
+    launches = {**fa.launch_counts(), **geglu.launch_counts(),
+                **quant.launch_counts()}
+    if any(launches.values()):
+        raise RuntimeError(f"align_train: launched hand-written kernels "
+                           f"{launches}")
+
+    rec = {"rows": {"wflw_train": n_wflw, "gssl_labeled": n_lab,
+                    "gssl_unlabeled": n_unl},
+           "raw_write_s": preprocess_s[0], "preprocess_s": preprocess_s[1],
+           "pipnet_r101": sup_rec, "gssl_r18": gssl_rec,
+           "align_with_trained_s": align_wall, "step_parity": parity,
+           "launches": launches,
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "smoke_wall_s": time.perf_counter() - t_smoke}
+    log("align_train", f"preprocess (cv2 {cv2.__version__}): raw layouts "
+                       f"{rec['raw_write_s']:.1f} s, WFLW + CELEBA + "
+                       f"data_300W_CELEBA {rec['preprocess_s']:.1f} s; "
+                       f"rows {json.dumps(rec['rows'])}")
+    for name in ("pipnet_r101", "gssl_r18"):
+        r = rec[name]
+        log("align_train", f"{name}: {r['steps']} steps of batch "
+                           f"{ALIGN_TRAIN_BATCH} at 256^2, median "
+                           f"{r['median_ms']:.1f} ms a step after the first "
+                           f"({r['first_ms']:.1f} ms), "
+                           f"{r['images_per_s']:.1f} images/s, run wall "
+                           f"{r['wall_s']:.1f} s, peak {r['peak_gib']:.2f} "
+                           f"GiB")
+    log("align_train", f"epoch1.pth has every key and shape of "
+                       f"{os.path.basename(PIP_MANIFEST)}; cli/align.py read "
+                       f"it and cropped {n} photos in {align_wall:.2f} s")
+    log("align_train", f"card vs CPU, one step: {json.dumps(parity)} "
+                       f"(limits {json.dumps(ALIGN_TRAIN_TOL)}); kernel "
+                       f"launches {sum(launches.values())}")
+    log("align_train", f"phase {rec['phase_wall_s']:.1f} s, smoke "
+                       f"{rec['smoke_wall_s']:.1f} s so far; {smi_line()}")
+    return rec
+
+
+# -- phase 9 ------------------------------------------------------------------
+
 def synthetic_value(key, shape, gen):
     """A seeded value for a checkpoint key, drawn on the card: fan-in-scaled
     normal weights, small biases, norm scales near 1, positive BatchNorm
@@ -2170,7 +2558,7 @@ def phase_checkpoint(work):
     return paths, rec
 
 
-# -- phase 9 ------------------------------------------------------------------
+# -- phase 10 -----------------------------------------------------------------
 
 def train_cli(keep_dir, checkpoints):
     """``cli/train.main`` at 512x512 from the checkpoint phase's files, on a
@@ -2308,7 +2696,7 @@ def checksum(module) -> int:
 
 
 def phase_train():
-    """``Trainer.fit`` at full width (module docstring, phase 8; the phase
+    """``Trainer.fit`` at full width (module docstring, phase 10; the phase
     goes on with ``train_cli``)."""
     from celebbasis_tpu_torch.core import manager as mgr
     from celebbasis_tpu_torch.loader import assemble, init_weights
@@ -2537,7 +2925,7 @@ def phase_train():
              "peak_gib": peak / 2 ** 30, **geglu_ms})
 
 
-# -- phase 10 -----------------------------------------------------------------
+# -- phase 11 -----------------------------------------------------------------
 
 class DrawnAssemblies:
     """While entered, every ``loader.assemble`` (the one the CLIs call) draws
@@ -2740,7 +3128,7 @@ def phase_generate(work, ckpt):
     return recs
 
 
-# -- phase 11 -----------------------------------------------------------------
+# -- phase 12 -----------------------------------------------------------------
 
 def write_pngs(folder, names, seed):
     """Random-pixel 512x512 PNGs ``folder/<name>`` from a numpy seed."""
@@ -2921,7 +3309,7 @@ def phase_ti(work, checkpoints):
     return rec
 
 
-# -- phase 12 -----------------------------------------------------------------
+# -- phase 13 -----------------------------------------------------------------
 
 def openai_clip_from_hf(hf):
     """A HuggingFace ``CLIPModel`` state dict -> the same weights in OpenAI
@@ -3204,6 +3592,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         align, align_files = phase_align(work)
+        align_train = phase_align_train(work, align_files, t_start)
         checkpoints, checkpoint = phase_checkpoint(work)
         train_launches, train_ms = phase_train()
         cli_launches, cli = train_cli(work, checkpoints)
@@ -3347,7 +3736,11 @@ def main() -> int:
                 f"{evaluate['scoring_s']:.1f} s (with the cropper "
                 f"{evaluate['cropped_scoring_s']:.1f} s); align "
                 f"{ALIGN_PHOTOS} photos {json.dumps(align['wall_s'])} s, ms "
-                f"per photo {json.dumps(align['stage_ms_per_photo'])}")
+                f"per photo {json.dumps(align['stage_ms_per_photo'])}; "
+                f"align_train ms a step: PIPNet ResNet-101 "
+                f"{align_train['pipnet_r101']['median_ms']:.1f}, GSSL "
+                f"ResNet-18 {align_train['gssl_r18']['median_ms']:.1f}; "
+                f"phase {align_train['phase_wall_s']:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

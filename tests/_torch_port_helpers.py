@@ -1,10 +1,15 @@
 """Shared helpers of the tests/test_torch_*.py files: carry JAX-side arrays
 into the PyTorch port (always as numpy), and make all-zero leaves of a
 freshly initialised flax tree random so that zero-initialised output layers
-take part in a comparison."""
+take part in a comparison.  ``reference_layout`` (the package's writer of
+reference-layout state dicts) is re-exported for the tests that write
+weight files; ``stash_grads`` and the ``assert_*_close`` helpers hold one
+training step against the JAX package's."""
 import jax
 import numpy as np
 import torch
+
+from celebbasis_tpu_torch.utils.bridge_align import reference_layout  # noqa: F401
 
 # The suite runs several worker processes on one machine.  PyTorch's intra-op
 # pool would start one thread per core in each of them, and at these tiny
@@ -242,17 +247,38 @@ def write_photos(folder, n, hw=(160, 192), seed=0):
     return paths
 
 
-def reference_layout(state, pairs):
-    """A port state dict in the reference's key layout, through the
-    readers' own (kind, port module, file module) pairs
-    (``utils.bridge_align.faceboxes_pairs`` / ``pipnet_pairs``):
-    BatchNorm statistics as ``running_mean`` / ``running_var``."""
-    out = {}
-    for kind, dst, src in pairs:
-        leaves = (("weight", "weight"), ("bias", "bias"))
-        if kind == "bn":
-            leaves += (("mean", "running_mean"), ("var", "running_var"))
-        for ours, theirs in leaves:
-            if f"{dst}.{ours}" in state:
-                out[f"{src}.{theirs}"] = state[f"{dst}.{ours}"]
-    return out
+def stash_grads():
+    """An optax link that passes the updates on and keeps them as its
+    state: chained before the JAX trainer's optimizer, the step's returned
+    state holds the raw gradients, so that one compiled step gives both."""
+    import optax
+    return optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jax.numpy.zeros_like, p),
+        lambda u, s, p=None: (u, u))
+
+
+def assert_grads_close(got, ref, rel=1e-4):
+    """Each leaf within ``rel`` of the reference leaf's largest entry."""
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        scale = float(ref[k].abs().max())
+        assert scale > 0, k
+        err = float((got[k] - ref[k]).abs().max())
+        assert err <= rel * scale, (k, err, scale)
+
+
+def assert_adam_step_close(state, before, ref_new, lr):
+    """Adam's first update moves each entry by lr * g / (|g| + 1e-8), about
+    lr whatever the gradient, so the new parameters are held in units of
+    lr: every entry within 2e-2 * lr (where |g| nears Adam's eps the update
+    turns sensitive to the gradients' rounding: 4e-3 * lr at |g| = 8e-8 in
+    the tiny supervised step of test_torch_pipnet_train) and the mean
+    within 1e-4 * lr."""
+    errs = []
+    for k, new in ref_new.items():
+        moved = float((state[k].detach() - before[k]).abs().max())
+        assert 0.5 * lr < moved <= 1.01 * lr, k
+        err = (state[k].detach() - new).abs()
+        assert float(err.max()) <= 2e-2 * lr, (k, float(err.max()))
+        errs.append(err.flatten())
+    assert float(torch.cat(errs).mean()) <= 1e-4 * lr

@@ -1,7 +1,8 @@
 """PyTorch port: what it imports, what it needs, and where it runs.
 
 * importing every module of ``celebbasis_tpu_torch`` and ``chip_smoke`` pulls
-  in neither ``jax``, ``flax``, ``triton``, ``cv2`` nor ``celebbasis_tpu``,
+  in neither ``jax``, ``flax``, ``optax``, ``triton``, ``cv2`` nor
+  ``celebbasis_tpu``,
   and builds nothing (no CUDA kernel, no host C++ of the alignment path);
 * an entry point without a card and without ``device="cpu"`` raises;
 * the serving path's optional modules have stand-ins that agree with them
@@ -30,8 +31,8 @@ names = ["celebbasis_tpu_torch"] + [
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
-                                    "celebbasis_tpu", "cv2"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "triton", "celebbasis_tpu", "cv2"))
 print("MODULES", len(names))
 print("TRAIN_RUN", sorted(n for n in names if n.endswith(
     (".face_id", ".tb", ".callbacks", "cli.train", ".pt_io"))))
@@ -40,7 +41,8 @@ print("TI_EVAL", sorted(n for n in names if n.endswith(
      ".merge", ".gen_imgs", ".eval_imgs", ".evaluate_model"))
     or ".eval." in n))
 print("ALIGN", sorted(n for n in names if ".align" in n
-                      or n.endswith(".bridge_align")))
+                      or n.endswith((".bridge_align", "_pipnet",
+                                     "_pipnet_gssl"))))
 print("KERNEL_MODULES", sorted(n for n in names if n.endswith(
     (".flash_attention", ".geglu", ".quant"))))
 print("BAD", bad)
@@ -78,7 +80,10 @@ def test_imports_pull_in_no_jax_and_build_nothing():
         f"celebbasis_tpu_torch.{m}" for m in (
             "align", "align.alignment", "align.cv_resample",
             "align.faceboxes", "align.metrics", "align.native", "align.nms",
-            "align.pipnet", "cli.align", "utils.bridge_align")))
+            "align.pipnet", "align.pipnet_gssl", "align.pipnet_train",
+            "align.preprocess", "cli.align", "cli.preprocess_pipnet",
+            "cli.train_pipnet", "cli.train_pipnet_gssl",
+            "utils.bridge_align")))
 
 
 def test_chip_smoke_fails_without_a_card():
