@@ -108,7 +108,14 @@ class TxtToImgService:
             self._batcher.start()
 
     def warmup(self):
+        """Captures the /txt2img and the /faces2img graphs at the daemon's
+        one fixed batch (the JAX daemon compiles both at start-up): every
+        later request replays them."""
         self.generate("a photo of a person", seed=0)
+        size = self.image_size
+        self.generate_faces("a photo of a person",
+                            [np.zeros((size, size, 3), np.uint8)] * self.k,
+                            seed=0)
         self.warm = True
 
     def stop(self):
@@ -210,7 +217,10 @@ class TxtToImgService:
         crops of any size, one per placeholder slot (``ids = arange(k)``).
         They are resized to the service's image size and normalised to
         [-1, 1] on the device.  -> (n_samples, H, W, 3) uint8; sample j draws
-        from a generator seeded from ``(seed, j)``, as on /txt2img."""
+        from a generator seeded from ``(seed, j)``, as on /txt2img.  The call
+        is padded to the fixed batch and to every placeholder slot (blank
+        crops past the k given, which ``num_ids = k`` leaves out of the
+        prompt), so that every request replays one graph."""
         from torch.nn import functional as F
 
         if not (1 <= n_samples <= self.batch):
@@ -220,14 +230,15 @@ class TxtToImgService:
         if not 1 <= k <= self.k:
             raise ValueError(f"faces: 1 to {self.k} crops (one per "
                              f"placeholder slot); got {k}")
-        dev, size, B = self.device, self.image_size, n_samples
+        dev, size, B, n = self.device, self.image_size, self.batch, n_samples
         as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-        tokens = as_dev(self.asm.tokenizer([prompt] * B))
-        uncond = as_dev(self.asm.tokenizer([""] * B))
-        ids = as_dev(np.tile(np.arange(k), (B, 1)))
-        num_ids = as_dev([k] * B)
-        gens = [torch.Generator(device=dev).manual_seed(sample_seed(seed, j))
-                for j in range(B)]
+        tokens = as_dev(self.asm.tokenizer([prompt] * n + [""] * (B - n)))
+        if self._uncond is None:
+            self._uncond = as_dev(self.asm.tokenizer([""] * B))
+        ids = as_dev(np.tile(np.arange(self.k), (B, 1)))
+        num_ids = as_dev([k] * n + [0] * (B - n))
+        seeds = [sample_seed(seed, j) for j in range(n)] + [0] * (B - n)
+        gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
         with self._lock:
             crops = []
             for face in faces_u8:
@@ -237,10 +248,11 @@ class TxtToImgService:
                     x = F.interpolate(x, size=(size, size), mode="bilinear",
                                       antialias=True, align_corners=False)
                 crops.append(x[0].permute(1, 2, 0) / 127.5 - 1.0)
-            faces = torch.stack(crops)[None].expand(B, k, size, size, 3)
-            imgs = self.faces_fn(self.asm.basis, tokens, uncond, faces, ids,
-                                 num_ids, gens)
-            imgs = imgs.cpu().numpy()
+            crops += [torch.zeros_like(crops[0])] * (self.k - k)
+            faces = torch.stack(crops)[None].expand(B, self.k, size, size, 3)
+            imgs = self.faces_fn(self.asm.basis, tokens, self._uncond, faces,
+                                 ids, num_ids, gens)
+            imgs = imgs[:n].cpu().numpy()
             self.requests += 1
         return imgs
 

@@ -29,8 +29,11 @@ from celebbasis_tpu_torch.core import textual_inversion as ti
 from celebbasis_tpu_torch.data.personalized import (PersonalizedBase,
                                                     PersonalizedConfig)
 from celebbasis_tpu_torch.diffusion import ddpm
-from celebbasis_tpu_torch.train.step import make_optimizer, noisy_latents
+from celebbasis_tpu_torch.train.step import (draw_step_noise, latent_shape,
+                                             make_optimizer, noisy_latents,
+                                             written_in_place)
 from celebbasis_tpu_torch.train.trainer import TrainerConfig, make_run_dir
+from celebbasis_tpu_torch.utils import graphs
 from celebbasis_tpu_torch.utils.config import load_run_spec
 
 
@@ -65,19 +68,34 @@ def make_ti_loss_fn(pipe, cfg: ti.TIConfig, ph_ids, reg_weight: float = 0.0,
 
 def make_ti_train_step(pipe, cfg: ti.TIConfig, ph_ids, optimizer,
                        reg_weight: float = 0.0, init_vectors=None):
-    """``step(ti_params, batch, generator) -> logs``: one loss, backward and
-    optimizer step; ``ti_params`` (the optimizer's parameter) is updated in
-    place."""
+    """``step(ti_params, batch, generator) -> logs``: the draws from
+    ``generator`` (posterior noise, t, eps), then one loss, backward and
+    optimizer step, captured as one CUDA graph per signature on a card
+    (``utils.graphs``; ``step.eager`` is the step uncaptured);
+    ``ti_params``, the optimizer's one parameter, is updated in place."""
     loss_fn = make_ti_loss_fn(pipe, cfg, ph_ids, reg_weight, init_vectors)
+    (param,) = [p for g in optimizer.param_groups for p in g["params"]]
 
-    def step(ti_params, batch, generator):
-        loss, logs = loss_fn(ti_params, batch, generator)
-        optimizer.zero_grad(set_to_none=True)
+    def body(batch):
+        loss, logs = loss_fn(param, batch, None)
+        optimizer.zero_grad(set_to_none=False)
         loss.backward()
         optimizer.step()
         return {k: v.detach() for k, v in logs.items()}
 
-    return step
+    def make(run):
+        def step(ti_params, batch, generator):
+            if ti_params is not param:
+                raise ValueError("ti_params must be the optimizer's "
+                                 "parameter")
+            batch = draw_step_noise(batch, generator,
+                                    latent_shape(pipe, batch),
+                                    pipe.cfg.timesteps, pipe.device)
+            return run(batch)
+        return step
+
+    return graphs.entry(make, body,
+                        restore=lambda: written_in_place(optimizer))
 
 
 def build_argparser() -> argparse.ArgumentParser:

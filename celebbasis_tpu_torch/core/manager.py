@@ -81,6 +81,12 @@ def momentum_update(cfg: ManagerConfig, state: ManagerState,
     valid: (K,) bool -- entries beyond a row's num_ids are masked out.
     Returns new tensors; the given state is not modified, and no graph is
     kept.
+
+    The entries are taken in order on the device, as the JAX ``lax.scan``
+    takes them: entry j reads its id's current rows, which an earlier entry
+    with the same id has already moved, and writes them back unless it is
+    masked.  Nothing waits for the host, so the update can be captured in a
+    CUDA graph.
     """
     m = cfg.momentum
     with torch.no_grad():
@@ -88,16 +94,29 @@ def momentum_update(cfg: ManagerConfig, state: ManagerState,
         coeff = state.id_coefficients.clone()
         zs = pred_z.detach().to(emb.dtype)
         cs = pred_coeff.detach().to(coeff.dtype)
-        for j, (idx, ok) in enumerate(zip(ids.tolist(), valid.tolist())):
-            if ok:
-                emb[idx] = m * emb[idx] + (1 - m) * zs[j]
-                coeff[idx] = m * coeff[idx] + (1 - m) * cs[j]
+        ids = ids.long()
+        for j in range(ids.shape[0]):
+            idx, ok = ids[j:j + 1], valid[j]
+            for table, pred in ((emb, zs), (coeff, cs)):
+                cur = table.index_select(0, idx)
+                upd = m * cur + (1 - m) * pred[j:j + 1]
+                table.index_copy_(0, idx, torch.where(ok, upd, cur))
     return ManagerState(emb, coeff)
 
 
+_PLACEHOLDER_IDS: dict = {}
+
+
 def _placeholder_ids(cfg: ManagerConfig, device) -> torch.Tensor:
-    return torch.tensor(cfg.placeholder_token_ids, dtype=torch.int64,
-                        device=device)
+    """The placeholder token ids on `device`, made once per device: a copy
+    from the host inside a captured CUDA graph is refused."""
+    key = (cfg.placeholder_token_ids, str(torch.device(device)))
+    ids = _PLACEHOLDER_IDS.get(key)
+    if ids is None:
+        with torch.inference_mode(False):
+            ids = _PLACEHOLDER_IDS[key] = torch.tensor(
+                cfg.placeholder_token_ids, dtype=torch.int64, device=device)
+    return ids
 
 
 def train_inject(cfg: ManagerConfig, state: ManagerState,

@@ -90,6 +90,20 @@ class StyleVectorizer(nn.Module):
         return x
 
 
+_TRANS_MATRIX: dict = {}
+
+
+def _trans_matrix(device) -> torch.Tensor:
+    """``INSIGHTFACE_TRANS_MATRIX`` on `device`, copied there once: a copy
+    from the host inside a captured CUDA graph is refused."""
+    key = str(torch.device(device))
+    m = _TRANS_MATRIX.get(key)
+    if m is None:
+        with torch.inference_mode(False):
+            m = _TRANS_MATRIX[key] = INSIGHTFACE_TRANS_MATRIX.to(device)
+    return m
+
+
 class MetaIdNet(nn.Module):
     """Returns (z, coeff): z (N, es*heads, token_dim) identity embeddings,
     coeff (N, es, heads, inner_dim) normalised basis coefficients."""
@@ -120,7 +134,7 @@ class MetaIdNet(nn.Module):
         vectors.  Frozen: no graph is kept."""
         s = self.cfg.face_size
         warped = batched_affine_warp_resize(
-            faces, INSIGHTFACE_TRANS_MATRIX.to(faces.device), (s, s))
+            faces, _trans_matrix(faces.device), (s, s))
         return l2_normalize(self.fr_net(warped), axis=-1)
 
     def coefficients(self, faces: torch.Tensor,

@@ -15,7 +15,12 @@ the full ancestral chain.
 Randomness: one ``torch.Generator`` per sample row.  Row i's noise (initial
 latents and any eta > 0 step noise) depends only on generator i, so a
 sample's result is independent of whatever it is batched with: the property
-a continuous batcher needs for reproducible results.
+a continuous batcher needs for reproducible results.  The DDIM and PLMS
+chains draw everything before their first step (``x_T``, then
+``step_noise``: each generator gives x_T first and then the steps' noise in
+order, as a chain that drew at each step would), or take the draws as
+tensors; the chain itself draws nothing, so that it can be captured in a
+CUDA graph (``pipeline.py``).
 """
 from __future__ import annotations
 
@@ -103,26 +108,46 @@ def _eps_fn(eps_model: EpsModel, cond, uncond, cfg: SamplerConfig, batch):
     return eps
 
 
+def step_noise(generators: Sequence[torch.Generator] | None,
+               ddim: DDIMSchedule, shape, device) -> torch.Tensor | None:
+    """The DDIM chain's step noise, drawn before the chain: (S', B, ...)
+    standard normals for the S' steps whose sigma is above 0 (every step at
+    eta > 0, none at eta 0), in the chain's order, row i from generator i;
+    None when no step draws."""
+    n = sum(1 for *_, sigma in step_constants(ddim) if sigma > 0.0)
+    if n == 0:
+        return None
+    return torch.stack([batched_normal(generators, shape, device)
+                        for _ in range(n)])
+
+
 def ddim_sample(eps_model: EpsModel, ddim: DDIMSchedule, *,
                 generators: Sequence[torch.Generator] | None, shape,
                 cond: torch.Tensor, uncond: torch.Tensor | None = None,
                 cfg: SamplerConfig = SamplerConfig(),
-                x_T: torch.Tensor | None = None) -> torch.Tensor:
+                x_T: torch.Tensor | None = None,
+                noise: torch.Tensor | None = None) -> torch.Tensor:
     """Run the full DDIM chain; returns final latents (B, H, W, C), float32.
 
-    ``generators``: one per sample row; may be None when ``x_T`` is given and
-    eta is 0 (nothing is drawn then).
+    ``x_T`` and ``noise`` (``step_noise``'s draws) are drawn from
+    ``generators``, one per sample row, unless they are given; the chain
+    then draws nothing.  ``generators`` may be None when both are given (or
+    ``x_T`` is given at eta 0).
     """
     device = cond.device
     x = _start_latents(generators, shape, device, x_T)
+    steps = step_constants(ddim)
+    if noise is None:
+        noise = step_noise(generators, ddim, shape, device)
     eps_fn = _eps_fn(eps_model, cond, uncond, cfg, shape[0])
-    for t, a_t, a_prev, sqrt_oma, sigma in step_constants(ddim):
+    drawn = 0
+    for t, a_t, a_prev, sqrt_oma, sigma in steps:
         eps = eps_fn(x, t)
-        noise = 0.0
+        z = 0.0
         if sigma > 0.0:
-            noise = batched_normal(generators, shape,
-                                   device) * cfg.temperature
-        x, _ = ddim_step(x, eps, a_t, a_prev, sqrt_oma, sigma, noise)
+            z = noise[drawn] * cfg.temperature
+            drawn += 1
+        x, _ = ddim_step(x, eps, a_t, a_prev, sqrt_oma, sigma, z)
     return x
 
 

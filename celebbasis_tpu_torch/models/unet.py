@@ -278,7 +278,11 @@ class UNetModel(nn.Module):
             if kind in ("res", "attn"):
                 block = getattr(self, name)
                 arg = emb if kind == "res" else context
-                h = checkpoint(block, h, arg, use_reentrant=False) if remat \
+                # the blocks draw nothing, so no RNG state is kept: reading
+                # and setting the card's RNG state is refused in a captured
+                # CUDA graph (utils.graphs)
+                h = checkpoint(block, h, arg, use_reentrant=False,
+                               preserve_rng_state=False) if remat \
                     else block(h, arg)
             elif kind == "conv":
                 h = getattr(self, name)(h)

@@ -13,12 +13,24 @@ in its ``{"unet", "vae", "clip"}`` params tree, and ``.to(device)`` moves it.
 crops) and ``make_txt2img_ti_fn`` (learned textual-inversion vectors in
 place of placeholders) return functions from prompt tokens to finished
 images that run under ``torch.inference_mode()``.
+
+Each behaves like the JAX ``jax.jit(fn)``: the generators' draws (x_T, and
+the step noise at eta > 0) are taken first, then the whole function
+(conditioning, the DDIM or PLMS chain, the VAE decode and
+``finish_images``) runs as one CUDA graph, captured by the first call with
+a given shape signature and replayed by later ones (``utils.graphs``).  The
+step constants are Python floats baked into the graph, as they are into the
+JAX program, and PLMS's first steps unroll at capture.  On CPU tensors the
+same Python runs eagerly.  The returned function's ``eager`` attribute is
+the same function uncaptured, for comparisons; ``captured`` is its
+``utils.graphs.Captured``.  The graph reads the models' weights where they
+lie when it is captured: load or cast them before the first call.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,7 +38,9 @@ import torch.nn as nn
 from celebbasis_tpu_torch.core import manager as mgr
 from celebbasis_tpu_torch.core.basis import BasisConfig
 from celebbasis_tpu_torch.diffusion.sampler import (SamplerConfig,
-                                                    ddim_sample, plms_sample)
+                                                    batched_normal,
+                                                    ddim_sample, plms_sample,
+                                                    step_noise)
 from celebbasis_tpu_torch.diffusion.schedules import (NoiseSchedule,
                                                       make_ddim_schedule,
                                                       make_schedule)
@@ -37,6 +51,7 @@ from celebbasis_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from celebbasis_tpu_torch.text.tokenizer import (PLACEHOLDER_WORDS,
                                                  CLIPTokenizer,
                                                  token_for_string)
+from celebbasis_tpu_torch.utils import graphs
 
 
 def finish_images(img: torch.Tensor, output: str) -> torch.Tensor:
@@ -143,26 +158,54 @@ class CelebBasisPipeline(nn.Module):
     def _sample_and_decode(self, sampler: str, num_steps: int,
                            guidance_scale: float, eta: float,
                            image_size: int, output: str):
-        """-> run(cond, uncond, generators, x_T) -> finished images: the
-        sampler named ``sampler`` ("ddim" or "plms") over a fixed DDIM
-        schedule, then the VAE decode and :func:`finish_images`."""
+        """-> (draws, run): ``draws(generators, batch, x_T) -> (x_T,
+        noise)`` takes the chain's random numbers from the generators (x_T
+        unless given, then the DDIM step noise at eta > 0); ``run(cond,
+        uncond, x_T, noise)`` -> finished images runs the sampler named
+        ``sampler`` ("ddim" or "plms") over a fixed DDIM schedule, the VAE
+        decode and :func:`finish_images`, and draws nothing."""
         samplers = {"ddim": ddim_sample, "plms": plms_sample}
         if sampler not in samplers:
             raise ValueError(f"unknown sampler {sampler!r}; expected one of "
                              f"{sorted(samplers)}")
-        sample_fn = samplers[sampler]
         ddim = make_ddim_schedule(self.schedule, num_steps, eta)
         lat = image_size // self.latent_factor
         scfg = SamplerConfig(guidance_scale=guidance_scale, eta=eta)
 
-        def run(cond, uncond, generators, x_T):
-            x = sample_fn(self.eps_model(), ddim, generators=generators,
-                          shape=(cond.shape[0], lat, lat, 4), cond=cond,
-                          uncond=uncond, cfg=scfg, x_T=x_T)
+        def draws(generators, batch, x_T):
+            shape, dev = (batch, lat, lat, 4), self.device
+            x_T = (batched_normal(generators, shape, dev) if x_T is None
+                   else x_T.to(device=dev, dtype=torch.float32))
+            noise = (step_noise(generators, ddim, shape, dev)
+                     if sampler == "ddim" else None)
+            return x_T, noise
+
+        def run(cond, uncond, x_T, noise):
+            kw = {"noise": noise} if sampler == "ddim" else {}
+            x = samplers[sampler](
+                self.eps_model(), ddim, generators=None,
+                shape=(cond.shape[0], lat, lat, 4), cond=cond, uncond=uncond,
+                cfg=scfg, x_T=x_T, **kw)
             img = self.vae.decode(x / self.cfg.scale_factor)
             return finish_images(img, output)
 
-        return run
+        return draws, run
+
+    @staticmethod
+    def _entry(body, draws, tokens_at: int):
+        """fn(*inputs, generators, x_T=None) -> images: the draws first
+        (the batch is ``inputs[tokens_at].shape[0]``), then ``body(*inputs,
+        x_T, noise)`` captured; ``fn.eager`` is the same uncaptured."""
+        def make(run):
+            @torch.inference_mode()
+            def fn(*args, x_T=None):
+                *inputs, generators = args
+                x_T, noise = draws(generators, inputs[tokens_at].shape[0],
+                                   x_T)
+                return run(*inputs, x_T, noise)
+            return fn
+
+        return graphs.entry(make, body)
 
     def make_txt2img_fn(self, num_steps: int = 50,
                         guidance_scale: float = 10.0, eta: float = 0.0,
@@ -175,20 +218,20 @@ class CelebBasisPipeline(nn.Module):
         ``generators``: one ``torch.Generator`` per row (see
         ``diffusion.sampler``); ``x_T``: optional explicit start latents
         (B, lat, lat, 4).  ``sampler``: "ddim" or "plms".  Default recipe:
-        DDIM 50 / scale 10 / eta 0.
+        DDIM 50 / scale 10 / eta 0.  Captured per shape signature on a card
+        (module docstring).
         """
-        run = self._sample_and_decode(sampler, num_steps, guidance_scale,
-                                      eta, image_size, output)
+        draws, run = self._sample_and_decode(sampler, num_steps,
+                                             guidance_scale, eta, image_size,
+                                             output)
 
-        @torch.inference_mode()
-        def fn(manager_state, basis, tokens, uncond_tokens, ids, num_ids,
-               generators: Optional[Sequence[torch.Generator]], x_T=None):
+        def body(manager_state, basis, tokens, uncond_tokens, ids, num_ids,
+                 x_T, noise):
             cond = self.conditioning(tokens, manager_state, basis, ids,
                                      num_ids)
-            return run(cond, self.conditioning(uncond_tokens), generators,
-                       x_T)
+            return run(cond, self.conditioning(uncond_tokens), x_T, noise)
 
-        return fn
+        return self._entry(body, draws, tokens_at=2)
 
     def make_txt2img_faces_fn(self, meta_net, num_steps: int = 50,
                               guidance_scale: float = 10.0, eta: float = 0.0,
@@ -201,22 +244,24 @@ class CelebBasisPipeline(nn.Module):
         Returns fn(basis, tokens, uncond_tokens, faces, ids, num_ids,
         generators, x_T=None) -> images; faces (B, k, Hf, Wf, 3) aligned
         crops in [-1, 1], ids (B, k) the face slots' identity indices.
+        Captured per shape signature on a card, the face net's forward
+        included.
         """
-        run = self._sample_and_decode(sampler, num_steps, guidance_scale,
-                                      eta, image_size, output)
+        draws, run = self._sample_and_decode(sampler, num_steps,
+                                             guidance_scale, eta, image_size,
+                                             output)
         m_cfg = dataclasses.replace(self.manager_cfg, test_mode="image")
 
-        @torch.inference_mode()
-        def fn(basis, tokens, uncond_tokens, faces, ids, num_ids,
-               generators: Optional[Sequence[torch.Generator]], x_T=None):
+        def body(basis, tokens, uncond_tokens, faces, ids, num_ids, x_T,
+                 noise):
             pred_z, _ = meta_net.multi_faces(faces, ids, basis)
             embeds = self.clip.token_embed(tokens)
             embeds = mgr.test_inject(m_cfg, None, basis, tokens, embeds, ids,
                                      num_ids, pred_z=pred_z)
             return run(self.clip.encode(embeds),
-                       self.conditioning(uncond_tokens), generators, x_T)
+                       self.conditioning(uncond_tokens), x_T, noise)
 
-        return fn
+        return self._entry(body, draws, tokens_at=1)
 
     def make_txt2img_ti_fn(self, ti_cfg, ph_ids, num_steps: int = 50,
                            guidance_scale: float = 7.5, eta: float = 0.0,
@@ -227,19 +272,19 @@ class CelebBasisPipeline(nn.Module):
 
         Returns fn(ti_params, tokens, uncond_tokens, generators, x_T=None)
         -> images; ``ti_params`` (P, V, D) as ``core.textual_inversion``
-        keeps them, ``ph_ids`` the placeholders' token ids.
+        keeps them, ``ph_ids`` the placeholders' token ids.  Captured per
+        shape signature on a card.
         """
         from celebbasis_tpu_torch.core import textual_inversion as ti
-        run = self._sample_and_decode(sampler, num_steps, guidance_scale,
-                                      eta, image_size, output)
+        draws, run = self._sample_and_decode(sampler, num_steps,
+                                             guidance_scale, eta, image_size,
+                                             output)
         ph = torch.as_tensor(ph_ids, dtype=torch.int64, device=self.device)
 
-        @torch.inference_mode()
-        def fn(ti_params, tokens, uncond_tokens,
-               generators: Optional[Sequence[torch.Generator]], x_T=None):
+        def body(ti_params, tokens, uncond_tokens, x_T, noise):
             embeds = ti.ti_inject(ti_cfg, ti_params, ph, tokens,
                                   self.clip.token_embed(tokens))
             return run(self.clip.encode(embeds),
-                       self.conditioning(uncond_tokens), generators, x_T)
+                       self.conditioning(uncond_tokens), x_T, noise)
 
-        return fn
+        return self._entry(body, draws, tokens_at=1)

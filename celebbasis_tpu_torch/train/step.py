@@ -18,10 +18,24 @@ optimizer), and the fields of ``TrainState``.  The momentum dictionaries stay
 functional (``ManagerState`` is replaced, not written into).
 
 Randomness comes from the ``torch.Generator`` carried in the state, drawn in
-a fixed order (posterior noise, t, eps).  A batch may carry deterministic
-draws instead -- ``override_znoise``, ``override_t`` (B,) and
-``override_noise`` -- so that tests can feed this step and the JAX one the
-same numbers (the two frameworks' streams differ).
+a fixed order (posterior noise, t, eps) before the step runs
+(``draw_step_noise``).  A batch may carry deterministic draws instead --
+``override_znoise``, ``override_t`` (B,) and ``override_noise`` -- so that
+tests can feed this step and the JAX one the same numbers (the two
+frameworks' streams differ).
+
+The train and eval steps behave like the JAX ``jax.jit(step_fn)``: the loss,
+the backward and the optimizer step run as one CUDA graph, captured by the
+first call with a given shape signature and replayed by later ones
+(``utils.graphs``); on CPU tensors the same Python runs eagerly.  Each
+returned step has the uncaptured step as its ``eager`` attribute, for
+comparisons, and its ``utils.graphs.Captured`` as ``captured``.  So that a
+graph can be replayed, every tensor the step writes is allocated before the
+first step and written only in place: on a card the optimizer is AdamW with
+``capturable=True`` whose state and gradients ``make_optimizer`` allocates
+up front (for the eager step and the graph alike, so the two compare bit for
+bit), gradients are zeroed and never set to None, and the accumulation
+buffers and their count live on the device.
 
 Batches are channels-last like the JAX package's: image (B, H, W, 3) in
 [-1, 1]; tokens (B, 77) int64; faces (B, k, Hf, Wf, 3); ids (B, k) int64;
@@ -38,6 +52,7 @@ import torch.nn as nn
 from celebbasis_tpu_torch.core import manager as mgr
 from celebbasis_tpu_torch.core.meta_net import MetaIdNet
 from celebbasis_tpu_torch.diffusion import ddpm
+from celebbasis_tpu_torch.utils import graphs
 
 
 @dataclass
@@ -92,13 +107,19 @@ def build_trainable(meta_net: MetaIdNet, unet: Optional[nn.Module] = None,
 class AccumulatingOptimizer:
     """Gradient accumulation with ``optax.MultiSteps`` semantics: the
     gradients of ``every`` micro-batches are averaged (as a running mean) and
-    one update of the inner optimizer is applied on the boundary."""
+    one update of the inner optimizer is applied on the boundary.
+
+    ``accumulate`` and ``apply`` touch only device tensors (the running
+    mean's count included), so a captured step holds one of two graphs: an
+    accumulating step, and a boundary step that accumulates and applies.
+    ``mini_step``, the host's count, picks between them."""
 
     def __init__(self, inner: torch.optim.Optimizer, every: int):
         self.inner, self.every = inner, every
         self.mini_step = 0
         self._params = [p for g in inner.param_groups for p in g["params"]]
         self._acc = [torch.zeros_like(p) for p in self._params]
+        self._seen = torch.zeros((), device=self._params[0].device)
 
     @property
     def param_groups(self):
@@ -107,21 +128,80 @@ class AccumulatingOptimizer:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.inner.zero_grad(set_to_none=set_to_none)
 
+    @property
+    def boundary_next(self) -> bool:
+        """Whether the next micro-batch ends an accumulation."""
+        return self.mini_step + 1 >= self.every
+
     @torch.no_grad()
-    def step(self) -> None:
+    def accumulate(self) -> None:
+        self._seen += 1
         for acc, p in zip(self._acc, self._params):
             if p.grad is not None:
-                acc += (p.grad - acc) / (self.mini_step + 1)
+                acc += (p.grad - acc) / self._seen
             else:
-                acc -= acc / (self.mini_step + 1)
-        self.mini_step += 1
-        if self.mini_step < self.every:
-            return
+                acc -= acc / self._seen
+
+    @torch.no_grad()
+    def apply(self) -> None:
         for acc, p in zip(self._acc, self._params):
-            p.grad = acc.clone()
+            if p.grad is None:
+                p.grad = acc.clone()
+            else:
+                p.grad.copy_(acc)
             acc.zero_()
+        self._seen.zero_()
         self.inner.step()
-        self.mini_step = 0
+
+    def advance(self, boundary: bool) -> None:
+        self.mini_step = 0 if boundary else self.mini_step + 1
+
+    def step(self) -> None:
+        boundary = self.boundary_next
+        self.accumulate()
+        if boundary:
+            self.apply()
+        self.advance(boundary)
+
+    def tensors(self) -> List[torch.Tensor]:
+        """What a step writes in place, besides the inner optimizer's."""
+        return self._acc + [self._seen]
+
+
+def allocate_state(optimizer: torch.optim.Optimizer) -> None:
+    """Allocate each parameter's gradient (zeros) and AdamW's state now, as
+    its first step would (step 0, zero moments), so that neither is created
+    inside a captured step."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32,
+                                            device=p.device)
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+
+def written_in_place(optimizer) -> List[torch.Tensor]:
+    """Every tensor a train step writes in place: the trained parameters,
+    their gradients, the optimizer's state and the accumulation buffers (a
+    graph's warm-up puts them back)."""
+    inner = getattr(optimizer, "inner", optimizer)
+    out = []
+    for group in inner.param_groups:
+        for p in group["params"]:
+            out.append(p)
+            if p.grad is not None:
+                out.append(p.grad)
+            out += [v for v in inner.state[p].values()
+                    if isinstance(v, torch.Tensor)]
+    if isinstance(optimizer, AccumulatingOptimizer):
+        out += optimizer.tensors()
+    return out
 
 
 def make_optimizer(trainable: Dict[str, List[nn.Parameter]],
@@ -137,7 +217,9 @@ def make_optimizer(trainable: Dict[str, List[nn.Parameter]],
     With ``model_lr`` set, the ``"unet"`` group runs at its own rate (the
     reference's ``unfreeze_model`` / ``model_lr`` path); the g-net, if
     present, rides with the MLP at the base rate.  ``accumulate > 1`` wraps
-    the optimizer in ``AccumulatingOptimizer``.
+    the optimizer in ``AccumulatingOptimizer``.  Parameters on a card get
+    ``capturable=True`` and their gradients and state allocated now
+    (``allocate_state``), so that a captured step can update them.
     """
     base = [p for name, group in trainable.items() if name != "unet"
             for p in group]
@@ -146,7 +228,11 @@ def make_optimizer(trainable: Dict[str, List[nn.Parameter]],
         groups.append({"params": trainable["unet"], "lr": model_lr})
     elif "unet" in trainable:
         raise ValueError("an unfrozen UNet needs model_lr")
-    opt = torch.optim.AdamW(groups, lr=lr, weight_decay=weight_decay)
+    on_card = base[0].is_cuda
+    opt = torch.optim.AdamW(groups, lr=lr, weight_decay=weight_decay,
+                            capturable=on_card)
+    if on_card:
+        allocate_state(opt)
     return AccumulatingOptimizer(opt, accumulate) if accumulate > 1 else opt
 
 
@@ -159,6 +245,33 @@ def _check_loss_type(loss_type: str) -> None:
 def _randn(shape, generator, device):
     return torch.randn(shape, generator=generator,
                        device=generator.device).to(device)
+
+
+def draw_step_noise(batch, generator, latent_shape, timesteps: int,
+                    device) -> dict:
+    """The step's draws, taken from ``generator`` before the step runs and
+    in the order the step used them (posterior noise, t, eps), as the
+    batch's ``override_znoise`` / ``override_t`` / ``override_noise``; a
+    draw the batch already carries is kept and not drawn."""
+    out = dict(batch)
+    if "override_znoise" not in out:
+        out["override_znoise"] = _randn(latent_shape, generator, device)
+    if "override_t" not in out:
+        out["override_t"] = torch.randint(
+            0, timesteps, (latent_shape[0],), generator=generator,
+            device=generator.device).to(device)
+    if "override_noise" not in out:
+        out["override_noise"] = _randn(latent_shape, generator, device)
+    return out
+
+
+def latent_shape(pipeline, batch) -> tuple:
+    """The VAE posterior's shape for a batch: (B, h, w, embed_dim)."""
+    if "latent_mean" in batch:
+        return tuple(batch["latent_mean"].shape)
+    B, H, W = batch["image"].shape[:3]
+    f = pipeline.latent_factor
+    return (B, H // f, W // f, pipeline.cfg.vae.embed_dim)
 
 
 def noisy_latents(pipeline, sched, batch, generator, mean, logvar):
@@ -272,18 +385,42 @@ def make_cached_loss_fn(pipeline, meta_net: MetaIdNet,
     return loss_fn
 
 
-def _step_from_loss(loss_fn, optimizer):
-    def step_fn(state: TrainState, basis, batch):
-        loss, (new_mstate, logs) = loss_fn(state.manager_state, basis, batch,
-                                           state.generator)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        state.step += 1
-        state.manager_state = new_mstate
-        return state, {k: v.detach() for k, v in logs.items()}
+def _step_from_loss(pipeline, loss_fn, optimizer):
+    """``step_fn(state, basis, batch) -> (state, logs)``: the draws from
+    ``state.generator``, then the loss, the backward and the optimizer step
+    captured as one graph per signature (one for an accumulating and one
+    for a boundary step with ``AccumulatingOptimizer``)."""
+    accumulating = isinstance(optimizer, AccumulatingOptimizer)
 
-    return step_fn
+    def body(manager_state, basis, batch, boundary):
+        loss, (new_mstate, logs) = loss_fn(manager_state, basis, batch, None)
+        optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        if accumulating:
+            optimizer.accumulate()
+            if boundary:
+                optimizer.apply()
+        else:
+            optimizer.step()
+        return new_mstate, {k: v.detach() for k, v in logs.items()}
+
+    def make(run):
+        def step_fn(state: TrainState, basis, batch):
+            batch = draw_step_noise(batch, state.generator,
+                                    latent_shape(pipeline, batch),
+                                    pipeline.cfg.timesteps, pipeline.device)
+            boundary = optimizer.boundary_next if accumulating else True
+            new_mstate, logs = run(state.manager_state, basis, batch,
+                                   boundary)
+            if accumulating:
+                optimizer.advance(boundary)
+            state.step += 1
+            state.manager_state = new_mstate
+            return state, logs
+        return step_fn
+
+    return graphs.entry(make, body,
+                        restore=lambda: written_in_place(optimizer))
 
 
 def make_train_step(pipeline, meta_net: MetaIdNet, optimizer,
@@ -292,8 +429,8 @@ def make_train_step(pipeline, meta_net: MetaIdNet, optimizer,
     """Returns ``step_fn(state, basis, batch) -> (state, logs)``; the state
     and the trainable parameters are updated in place."""
     return _step_from_loss(
-        make_loss_fn(pipeline, meta_net, loss_type, train_unet, gnet),
-        optimizer)
+        pipeline, make_loss_fn(pipeline, meta_net, loss_type, train_unet,
+                               gnet), optimizer)
 
 
 def make_cached_train_step(pipeline, meta_net: MetaIdNet, optimizer,
@@ -302,7 +439,8 @@ def make_cached_train_step(pipeline, meta_net: MetaIdNet, optimizer,
     """Fast-personalisation step over precomputed frozen features (see
     ``make_cached_loss_fn``)."""
     return _step_from_loss(
-        make_cached_loss_fn(pipeline, meta_net, loss_type, gnet), optimizer)
+        pipeline, make_cached_loss_fn(pipeline, meta_net, loss_type, gnet),
+        optimizer)
 
 
 def make_eval_step(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
@@ -311,7 +449,8 @@ def make_eval_step(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
     """Loss-only step for validation: no gradients, no optimizer, and the
     momentum dictionaries are NOT advanced.
 
-    Returns ``eval_fn(state, basis, batch, generator) -> logs``.
+    Returns ``eval_fn(state, basis, batch, generator) -> logs``, captured
+    like the train step.
     """
     if cached:
         loss_fn = make_cached_loss_fn(pipeline, meta_net, loss_type, gnet)
@@ -319,14 +458,21 @@ def make_eval_step(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
         loss_fn = make_loss_fn(pipeline, meta_net, loss_type, train_unet,
                                gnet)
 
-    @torch.no_grad()
-    def eval_fn(state: TrainState, basis, batch, generator):
-        loss, (_, logs) = loss_fn(state.manager_state, basis, batch,
-                                  generator)
+    def body(manager_state, basis, batch):
+        loss, (_, logs) = loss_fn(manager_state, basis, batch, None)
         logs["loss"] = loss
         return logs
 
-    return eval_fn
+    def make(run):
+        @torch.no_grad()
+        def eval_fn(state: TrainState, basis, batch, generator):
+            batch = draw_step_noise(batch, generator,
+                                    latent_shape(pipeline, batch),
+                                    pipeline.cfg.timesteps, pipeline.device)
+            return run(state.manager_state, basis, batch)
+        return eval_fn
+
+    return graphs.entry(make, body)
 
 
 def init_train_state(generator: torch.Generator, trainable, optimizer,

@@ -25,6 +25,11 @@ Counterpart of ``celebbasis_tpu/train/trainer.py``:
   precomputes the frozen VAE posteriors and face features of that many
   batches and cycles over them.
 
+On a card the train and eval steps run as CUDA graphs (``train.step``),
+captured by their first call; ``unfreeze_unet`` builds new steps, whose
+graphs are captured anew for the new trainable set.  ``frozen_bf16`` casts
+the weights before any step is built, so every graph reads the cast ones.
+
 The loader is any iterable of batch dicts (numpy arrays or tensors, layouts
 as in ``train.step``), such as ``data.face_id.PrefetchLoader``.  Not ported
 yet: the mesh / FSDP options (``fsdp``, ``n_data_shards != 1``; ROADMAP A10),

@@ -54,7 +54,13 @@ its plain PyTorch version.  Phases:
                with the GEGLU kernel route, and two ``/faces2img`` requests
                (two 512x512 crops, two images, the same bytes for the same
                seed); the kernels' launch counters must account for every
-               UNet call;
+               UNet call; the warm-up captures the two routes' CUDA graphs
+               (seconds each), a changed layout or GEGLU route captures its
+               own (its warm-up's launches counted); then both routes on
+               their graphs and eagerly in turns (graph, eager, eager,
+               graph): the same bytes, the same launches a request, request
+               ms and peak memory each way; and the DDIM chain alone,
+               captured and eagerly: the final latents bit for bit;
 7. ``align``   W0 at full width through ``cli/align.py``: synthetic
                ``FaceBoxesV2.pth`` and ``epoch59.pth`` (PIPNet ResNet-101,
                WFLW) of every key of their manifests, the detector's
@@ -96,7 +102,12 @@ its plain PyTorch version.  Phases:
                losses, what moved and what stayed frozen, launch counters,
                the checkpoint, and one step's MLP gradient against the plain
                attention route; then the same gradient and a few uncached
-               and cached steps with the GEGLU kernel route; then
+               and cached steps with the GEGLU kernel route (every
+               trainer's first step captures its graph: one step's launches
+               more); the uncached, cached and eval steps on their graphs and
+               eagerly in turns, four steps a run: losses, MLP gradients,
+               MLP parameters after AdamW and the manager state bit for bit,
+               launches, ms a step and peak memory each way; then
                ``cli/train.py`` from the checkpoint phase's files on a
                synthetic aligned-face pickle of 512x512 PNGs: six uncached
                steps (validation, TensorBoard, ``DeviceMonitor``, a sample
@@ -114,7 +125,9 @@ its plain PyTorch version.  Phases:
                phase's ``sd-v1-4.ckpt`` on three random-pixel 512x512 PNGs:
                six steps, each timed to a sync, peak memory and launches;
                the loss finite, the vectors moved, the UNet, CLIP and VAE
-               unchanged and without gradients; one step's loss and vector
+               unchanged and without gradients; the step on its graph and
+               eagerly in turns (losses, gradient, vectors after AdamW bit
+               for bit; ms a step each way); one step's loss and vector
                gradient on the kernel route against the plain route (cosine
                >= 0.99, |diff| / |grad| <= 0.1); ``cli/merge.py`` on its
                checkpoint and a renamed copy, and a 20-step
@@ -132,7 +145,15 @@ its plain PyTorch version.  Phases:
                the kernel route within 2e-5 (relative) of the plain route;
                then ``eval_imgs`` with ``--detector_ckpt`` / ``--pipnet_ckpt``
                (the align phase's files): scores finite, the cropper
-               launching no hand-written kernel.
+               launching no hand-written kernel;
+14. ``warmup`` ``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults
+               in a process of its own: the kernel libraries built, the
+               train-step and txt2img graphs captured, seconds of each.
+
+The generation and training paths run as CUDA graphs (``utils/graphs.py``):
+a graph's warm-up and capture run its Python (hooks that count UNet calls
+see both), its warm-up and each replay launch its kernels (the launch
+counts hold both), and the checks count them so.
 
 Exits non-zero if any phase fails or if there is no CUDA device.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
@@ -166,7 +187,9 @@ from celebbasis_tpu_torch.ops import cuda_build
 from celebbasis_tpu_torch.ops import flash_attention as fa
 from celebbasis_tpu_torch.ops import geglu
 from celebbasis_tpu_torch.ops import quant
+from celebbasis_tpu_torch.utils import graphs
 from celebbasis_tpu_torch.utils.precision import no_tf32
+from celebbasis_tpu_torch.utils.timing import replay_ms as time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DDIM_STEPS = 20
@@ -566,38 +589,6 @@ def int8_instantiations():
 
 
 # -- phase 3 ------------------------------------------------------------------
-
-def time_ms(fn, iters: int, repeats: int = 5):
-    """Device time per call: `iters` calls are captured into one CUDA graph,
-    so that its replay runs them back to back with no host between them
-    (most of the serving shapes finish faster than the host can issue the
-    next launch).  Returns (median, least) of `repeats` replays, by CUDA
-    events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    readings = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        readings.append(start.elapsed_time(end) / iters)
-    del graph
-    return float(np.median(readings)), min(readings)
-
 
 def bound(B, H, N, M, D, dtype):
     """Least time for the work: each input read once, the output written
@@ -1220,6 +1211,7 @@ def phase_parity():
     geglu.set_default_impl("cuda")
     try:
         with no_tf32():
+            fn(state, basis, tokens, uncond, ids, num_ids, None, x_T=x_T)
             geglu.reset_launch_count()
             img_g = fn(state, basis, tokens, uncond, ids, num_ids, None,
                        x_T=x_T)
@@ -1247,13 +1239,17 @@ def phase_parity():
 def kernel_vs_plain(run):
     """``run()`` with TF32 off, on the attention kernel route and then on the
     plain route -> (kernel image, its flash launches, plain image, its flash
-    launches)."""
+    launches).  Each route's first call captures its graph (the route is
+    part of the signature); the image and the launches are a second call's,
+    a replay's."""
     with no_tf32():
+        run()
         fa.reset_launch_count()
         img_k = run()
         n_k = fa.launch_count()
         attn_ops.set_default_impl("xla")
         try:
+            run()
             fa.reset_launch_count()
             img_p = run()
             n_p = fa.launch_count()
@@ -1536,7 +1532,14 @@ def phase_serve():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     service.warmup()
-    log("serve", f"warm-up request: {time.perf_counter() - t0:.1f} s")
+    capture_s = {"txt2img": list(service.fn.captured.capture_s.values()),
+                 "faces2img": list(
+                     service.faces_fn.captured.capture_s.values())}
+    log("serve", f"warm-up (captures the /txt2img and /faces2img graphs at "
+                 f"batch 2): {time.perf_counter() - t0:.1f} s; seconds to "
+                 f"warm, capture and replay each {json.dumps(capture_s)}")
+    if [len(v) for v in capture_s.values()] != [1, 1]:
+        raise RuntimeError(f"serve: warm-up captured {capture_s}")
 
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1585,9 +1588,13 @@ def phase_serve():
         n_packed = fa.launch_count("flash_attention_nhd")
         n_other = fa.launch_count("flash_attention")
 
+        # the layout is part of a graph's signature: this request captures
+        # the per-head graph, whose warm-up launches #2 as the replay does
+        caps0 = graphs.captures()
         os.environ["CELEBBASIS_FLASH_LAYOUT"] = "bhnd"
         ask("per_head_layout", p_a, 11)
         os.environ.pop("CELEBBASIS_FLASH_LAYOUT")
+        caps_per_head = graphs.captures() - caps0
         calls_total = healthz(url)["batched_calls"] - calls0
         n_per_head = fa.launch_count("flash_attention")
         h = healthz(url)
@@ -1618,10 +1625,15 @@ def phase_serve():
         h_geglu = healthz(url)
         calls_g0 = h_geglu["batched_calls"]
         geglu.reset_launch_count()
+        caps0 = graphs.captures()
         ask("geglu_cuda", p_a, 11)
         ask("geglu_cuda_repeat", p_a, 11)
+        caps_geglu = graphs.captures() - caps0
         calls_geglu = healthz(url)["batched_calls"] - calls_g0
         n_geglu = geglu.launch_counts()
+        geglu.set_default_impl(None)
+        both_ways = serve_graph_vs_eager(service, ask, results, faces_req,
+                                         url)
     finally:
         geglu.set_default_impl(None)
         os.environ.pop("CELEBBASIS_FLASH_LAYOUT", None)
@@ -1655,9 +1667,12 @@ def phase_serve():
             f"flash_attention_nhd launched {n_packed} times (and "
             f"flash_attention {n_other}) over {calls_packed} device calls; "
             f"expected {want} per call")
-    if n_per_head != want * (calls_total - calls_packed) or n_per_head == 0:
+    if caps_per_head != 1 or n_per_head != want * (
+            calls_total - calls_packed + caps_per_head):
         raise RuntimeError(f"flash_attention launched {n_per_head} times in "
-                           f"the per-head layout; expected {want}")
+                           f"the per-head layout over one capture "
+                           f"({caps_per_head} made); expected {want} for the "
+                           f"warm-up and {want} for the request")
     for name, (imgs, _) in results.items():
         for im in imgs:
             if im.shape != (512, 512, 3) or im.dtype != np.uint8:
@@ -1691,18 +1706,139 @@ def phase_serve():
     if h["geglu"] != "xla" or h_geglu["geglu"] != "cuda":
         raise RuntimeError(f"/healthz names the GEGLU route {h['geglu']!r} / "
                            f"{h_geglu['geglu']!r}")
-    if n_geglu != {"geglu_block": GEGLU_PER_UNET * DDIM_STEPS * calls_geglu,
-                   "geglu_ffn": 0} or calls_geglu != 2:
+    if n_geglu != {"geglu_block": GEGLU_PER_UNET * DDIM_STEPS
+                   * (calls_geglu + caps_geglu), "geglu_ffn": 0} \
+            or calls_geglu != 2 or caps_geglu != 1:
         raise RuntimeError(f"GEGLU launches {n_geglu} over {calls_geglu} "
-                           f"device calls; expected {GEGLU_PER_UNET} per "
-                           f"UNet call")
+                           f"device calls and {caps_geglu} captures; "
+                           f"expected {GEGLU_PER_UNET} per UNet call")
     if not np.array_equal(results["geglu_cuda_repeat"][0][0], img_g):
         raise RuntimeError("the GEGLU route does not repeat its pixels")
     return ({"flash_attention_nhd": n_packed
-             + n_faces["flash_attention_nhd"],
+             + n_faces["flash_attention_nhd"]
+             + both_ways.pop("launches"),
              "flash_attention": n_per_head,
              "geglu_block": n_geglu["geglu_block"]},
-            {name: ms for name, (_, ms) in results.items()})
+            {**{name: ms for name, (_, ms) in results.items()},
+             "capture_s": capture_s, "graph_vs_eager": both_ways})
+
+
+def serve_graph_vs_eager(service, ask, results, faces_req, url):
+    """The same /txt2img and /faces2img requests through the daemon on its
+    graphs and on the eager functions (``fn.eager``), in turns (graph,
+    eager, eager, graph): every image the same bytes (/txt2img's also those
+    of the request served alone at the phase's start), one request's
+    launches the same both ways, request ms and peak memory of each way.
+    -> a record (``launches``: all launched here, for the kernels line)."""
+    real = service.fn, service.faces_fn
+    rec, launches = {}, 0
+    try:
+        for i, way in enumerate(("graph", "eager", "eager", "graph")):
+            service.fn, service.faces_fn = (
+                real if way == "graph" else (real[0].eager, real[1].eager))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_count()
+            ask(f"{way}{i}", "a photo of a sks person", 11)
+            n_txt = fa.launch_count()
+            code, body = post(url, faces_req, path="/faces2img")
+            if code != 200:
+                raise RuntimeError(f"/faces2img {way}: HTTP {code} {body}")
+            torch.cuda.synchronize()
+            n_all = fa.launch_count()
+            launches += n_all
+            r = rec.setdefault(way, {"txt2img_ms": [], "faces2img_ms": [],
+                                     "launches": [], "peak_gib": [],
+                                     "peak_reserved_gib": []})
+            imgs, ms = results.pop(f"{way}{i}")
+            if not np.array_equal(imgs[0], results["alone"][0][0]):
+                raise RuntimeError(f"serve: /txt2img on the {way} path "
+                                   f"gives other pixels than the request "
+                                   f"served alone")
+            r["txt2img_ms"].append(ms)
+            r["faces2img_ms"].append(body["ms"])
+            r["launches"].append((n_txt, n_all - n_txt))
+            r["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+            r["peak_reserved_gib"].append(
+                torch.cuda.max_memory_reserved() / 2**30)
+            rec.setdefault("images", []).append(body["images"])
+    finally:
+        service.fn, service.faces_fn = real
+    ref = rec.pop("images")
+    log("serve", f"graph vs eager, in turns: /txt2img ms "
+                 f"{rec['graph']['txt2img_ms']} vs "
+                 f"{rec['eager']['txt2img_ms']}, /faces2img ms "
+                 f"{rec['graph']['faces2img_ms']} vs "
+                 f"{rec['eager']['faces2img_ms']}; flash launches a request "
+                 f"{rec['graph']['launches']} vs {rec['eager']['launches']}; "
+                 f"peak allocated GiB {rec['graph']['peak_gib']} vs "
+                 f"{rec['eager']['peak_gib']}, reserved "
+                 f"{rec['graph']['peak_reserved_gib']} vs "
+                 f"{rec['eager']['peak_reserved_gib']}")
+    if any(images != ref[0] for images in ref):
+        raise RuntimeError("serve: /faces2img gives other bytes on its graph "
+                           "than eagerly")
+    want = (ATTN_PER_UNET * DDIM_STEPS, ATTN_PER_UNET * DDIM_STEPS)
+    if any(n != want for way in ("graph", "eager")
+           for n in rec[way]["launches"]):
+        raise RuntimeError(f"serve: launches a request graph "
+                           f"{rec['graph']['launches']}, eager "
+                           f"{rec['eager']['launches']}; expected {want}")
+    rec["latents"], n = chain_graph_vs_eager(service)
+    rec["launches"] = launches + n
+    return rec
+
+
+def chain_graph_vs_eager(service):
+    """The daemon's DDIM chain alone (DDIM_STEPS guided steps from given
+    x_T over its conditioning at batch 2, bf16), captured and eagerly: the
+    final latents bit for bit, and the launches of one replay equal to one
+    eager chain's.  -> (record, packed launches made here)."""
+    from celebbasis_tpu_torch.diffusion.sampler import (SamplerConfig,
+                                                        ddim_sample)
+    from celebbasis_tpu_torch.diffusion.schedules import make_ddim_schedule
+
+    asm = service.asm
+    pipe = asm.pipeline
+    ddim = make_ddim_schedule(pipe.schedule, DDIM_STEPS, 0.0)
+    scfg = SamplerConfig(guidance_scale=10.0)
+    as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int64)).cuda()
+
+    def chain(cond, uncond, x_T):
+        return ddim_sample(pipe.eps_model(), ddim, generators=None,
+                           shape=tuple(x_T.shape), cond=cond, uncond=uncond,
+                           cfg=scfg, x_T=x_T)
+
+    captured = graphs.Captured(chain)
+    with torch.inference_mode():
+        cond = pipe.conditioning(
+            as_dev(asm.tokenizer(["a photo of a sks person"] * 2)),
+            asm.manager_state, asm.basis, as_dev([[0, 1]] * 2),
+            as_dev([2, 2]))
+        uncond = pipe.conditioning(as_dev(asm.tokenizer([""] * 2)))
+        x_T = torch.randn(2, 64, 64, 4, device="cuda", generator=torch.
+                          Generator(device="cuda").manual_seed(17))
+        fa.reset_launch_count()
+        eager = chain(cond, uncond, x_T)
+        n_eager = fa.launch_count("flash_attention_nhd")
+        captured(cond, uncond, x_T)
+        fa.reset_launch_count()
+        graph = captured(cond, uncond, x_T)
+        torch.cuda.synchronize()
+        n_graph = fa.launch_count("flash_attention_nhd")
+    same = torch.equal(graph, eager)
+    diff = (graph - eager).abs().max().item()
+    log("serve", f"the DDIM chain alone ({DDIM_STEPS} steps, batch 2), "
+                 f"graph vs eager: final latents bit for bit {same} "
+                 f"(largest difference {diff:.3e}), std "
+                 f"{eager.std().item():.3f}; packed launches a chain "
+                 f"{n_graph} vs {n_eager}")
+    if not same or n_graph != n_eager or n_eager != ATTN_PER_UNET * \
+            DDIM_STEPS or not torch.isfinite(eager).all():
+        raise RuntimeError("serve: the captured DDIM chain does not give "
+                           "its eager latents or launches")
+    # launched here: the eager chain, the capture's warm-up, two replays
+    return {"equal": same, "launches": n_graph}, 4 * n_eager
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -2613,11 +2749,13 @@ def train_cli(keep_dir, checkpoints):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launch_count()
+            caps0 = graphs.captures()
             t0 = time.perf_counter()
             run = train.main(common + extra)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = fa.launch_counts()
+            caps = graphs.captures() - caps0
             with open(os.path.join(run, "metrics.jsonl")) as f:
                 lines = [json.loads(line) for line in f]
             steps = [r for r in lines if "loss" in r]
@@ -2651,17 +2789,25 @@ def train_cli(keep_dir, checkpoints):
                          f"launches {json.dumps(got)} (a step: "
                          f"{got['fwd_lse'] / CLI_STEPS:g} #3, "
                          f"{got['dq'] / CLI_STEPS:g} #4, "
-                         f"{got['dkv'] / CLI_STEPS:g} #5; #1: "
+                         f"{got['dkv'] / CLI_STEPS:g} #5, the warm-up of its "
+                         f"capture included; #1: "
                          f"{TRAIN_LAUNCHES['flash_attention_nhd'] * CLI_STEPS}"
                          f" in steps, {val_launches} in "
                          f"validation, {sample_launches} in the sample grid "
-                         f"expected); peak memory {rec['peak_gib']:.2f} GiB")
-            want = {n: c * CLI_STEPS for n, c in TRAIN_LAUNCHES.items()}
-            want["flash_attention_nhd"] += val_launches + sample_launches
+                         f"expected, each + one warm-up; {caps} graphs "
+                         f"captured); peak memory {rec['peak_gib']:.2f} GiB")
+            # one graph each for the train step, the eval step and the
+            # sample grid's sampler; each capture's warm-up launched one
+            # call's kernels besides the replays
+            want_caps = 2 + bool(sample_launches)
+            want = {n: c * (CLI_STEPS + 1) for n, c in TRAIN_LAUNCHES.items()}
+            want["flash_attention_nhd"] += val_launches + ATTN_PER_UNET \
+                + 2 * sample_launches
             ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
-            if got != want:
-                raise RuntimeError(f"train: {name} launched {got}; expected "
-                                   f"{want}")
+            if got != want or caps != want_caps:
+                raise RuntimeError(f"train: {name} launched {got} over "
+                                   f"{caps} captures; expected {want} over "
+                                   f"{want_caps}")
             if len(steps) != CLI_STEPS or len(val) != vals \
                     or not np.isfinite(rec["losses"] + val).all():
                 raise RuntimeError(f"train: {name} losses {rec['losses']}, "
@@ -2742,9 +2888,13 @@ def phase_train():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_count()
+        caps0 = graphs.captures()
         state = trainer.fit(state)
         torch.cuda.synchronize()
         launches = fa.launch_counts()
+        # the first step captures the step's graph: its warm-up launched a
+        # step's kernels besides the replays
+        caps = graphs.captures() - caps0
         peak = torch.cuda.max_memory_allocated()
         with open(trainer.metrics_path) as f:
             recs = [json.loads(line) for line in f]
@@ -2760,11 +2910,11 @@ def phase_train():
 
         if len(recs) != TRAIN_STEPS or not np.isfinite(losses).all():
             raise RuntimeError(f"train: losses {losses}")
-        if launches != {n: c * TRAIN_STEPS
-                        for n, c in TRAIN_LAUNCHES.items()}:
+        if caps != 1 or launches != {n: c * (TRAIN_STEPS + caps)
+                                     for n, c in TRAIN_LAUNCHES.items()}:
             raise RuntimeError(f"train: launches {launches} over "
-                               f"{TRAIN_STEPS} steps; expected per step "
-                               f"{TRAIN_LAUNCHES}")
+                               f"{TRAIN_STEPS} steps and {caps} captures; "
+                               f"expected per step {TRAIN_LAUNCHES}")
         if torch.equal(meta.mlp.layer_0.weight, w0):
             raise RuntimeError("train: the MLP did not move")
         for name, m in frozen.items():
@@ -2808,9 +2958,11 @@ def phase_train():
         ctrainer = Trainer(pipe, meta, asm.basis, loader, ccfg)
         cstate = ctrainer.init_state(new)
         fa.reset_launch_count()
+        caps0 = graphs.captures()
         ctrainer.fit(cstate)
         torch.cuda.synchronize()
         c_launches = fa.launch_counts()
+        c_caps = graphs.captures() - caps0
         with open(ctrainer.metrics_path) as f:
             crecs = [json.loads(line) for line in f]
         c_ms = [r["step_time_s"] * 1e3 for r in crecs]
@@ -2819,8 +2971,9 @@ def phase_train():
                      f"the first {float(np.median(c_ms[1:])):.1f}); losses "
                      f"{[round(r['loss'], 4) for r in crecs]}")
         # the cache's VAE encodes run no kernel of ours (head dim 512)
-        if c_launches != {n: c * (CACHED_STEPS + 1)
-                          for n, c in TRAIN_LAUNCHES.items()} \
+        if c_caps != 1 or c_launches != {
+                n: c * (CACHED_STEPS + 1 + c_caps)
+                for n, c in TRAIN_LAUNCHES.items()} \
                 or not np.isfinite([r["loss"] for r in crecs]).all():
             raise RuntimeError(f"train: cached steps launched {c_launches}")
 
@@ -2885,9 +3038,11 @@ def phase_train():
                 torch.cuda.reset_peak_memory_stats()
                 fa.reset_launch_count()
                 geglu.reset_launch_count()
+                caps0 = graphs.captures()
                 gtrainer.fit(gstate)
                 torch.cuda.synchronize()
                 got = {**fa.launch_counts(), **geglu.launch_counts()}
+                g_caps = graphs.captures() - caps0
                 if not cache:
                     geglu_ms["geglu_peak_gib"] = \
                         torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2900,10 +3055,11 @@ def phase_train():
                              f"{[round(x, 1) for x in g_ms]}; losses "
                              f"{[round(r['loss'], 4) for r in grecs]}; "
                              f"launches {json.dumps(got)}")
-                want = {**{n: c * steps for n, c in TRAIN_LAUNCHES.items()},
-                        "geglu_block": GEGLU_PER_UNET * steps,
+                runs = steps + g_caps
+                want = {**{n: c * runs for n, c in TRAIN_LAUNCHES.items()},
+                        "geglu_block": GEGLU_PER_UNET * runs,
                         "geglu_ffn": 0}
-                if got != want or len(grecs) != steps \
+                if got != want or len(grecs) != steps or g_caps != 1 \
                         or not np.isfinite([r["loss"] for r in grecs]).all():
                     raise RuntimeError(f"train: GEGLU route steps launched "
                                        f"{got}; expected {want}")
@@ -2917,12 +3073,126 @@ def phase_train():
                      f"{geglu_ms['geglu_cached_ms']:.1f}, peak memory "
                      f"{peak / 2**30:.2f} vs {geglu_ms['geglu_peak_gib']:.2f} "
                      f"GiB")
+        # each trainer keeps its step graphs (and their memory) while it
+        # lives
+        del trainer, ctrainer, gtrainer
+        torch.cuda.empty_cache()
+        both_ways, both_launches = steps_graph_vs_eager(pipe, meta, asm,
+                                                        loader[0])
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
+    for name, n in both_launches.items():
+        launches[name] = launches.get(name, 0) + n
     return ({**launches, "geglu_block": geglu_launches},
             {"uncached_ms": float(np.median(step_ms[1:])),
              "cached_ms": float(np.median(c_ms[1:])),
-             "peak_gib": peak / 2 ** 30, **geglu_ms})
+             "peak_gib": peak / 2 ** 30, **geglu_ms,
+             "graph_vs_eager": both_ways})
+
+
+GRAPH_STEPS = 4              # steps a run, graph against eager
+
+
+def steps_graph_vs_eager(pipe, meta, asm, batch):
+    """The uncached, cached and eval steps (``train.step``), each run on its
+    graph and eagerly (``.eager``) in turns (eager, graph, graph, eager),
+    GRAPH_STEPS steps a run from the same MLP, optimizer state, manager
+    state and generator: losses, MLP gradients, MLP parameters after AdamW
+    and the manager state bit for bit; launches a step, ms a step (median of
+    all but the first: a graph run's first step warms up and captures) and
+    peak memory each way.  -> (record, launches by kernel)."""
+    from celebbasis_tpu_torch.train import step as tstep
+
+    start = [p.detach().clone() for p in meta.mlp.parameters()]
+    cache = tstep.precompute_cache(pipe, meta, [batch], 1)[0]
+    record, total = {}, {}
+
+    def run(kind, way):
+        with torch.no_grad():
+            for p, p0 in zip(meta.mlp.parameters(), start):
+                p.copy_(p0)
+        trainable = tstep.build_trainable(meta)
+        opt = tstep.make_optimizer(trainable, 1e-2)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        state = tstep.init_train_state(gen, trainable, opt, asm.manager_state)
+        if kind == "eval":
+            step = tstep.make_eval_step(pipe, meta)
+            fn = step.eager if way == "eager" else step
+            call = lambda: (state, fn(state, asm.basis, batch, gen))
+        else:
+            step = (tstep.make_cached_train_step if kind == "cached"
+                    else tstep.make_train_step)(pipe, meta, opt)
+            fn = step.eager if way == "eager" else step
+            b = cache if kind == "cached" else batch
+            call = lambda: fn(state, asm.basis, b)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        caps0 = graphs.captures()
+        ms, outs = [], []
+        for _ in range(GRAPH_STEPS):
+            t0 = time.perf_counter()
+            state, logs = call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(logs["loss"].clone())
+        caps = graphs.captures() - caps0
+        counts = fa.launch_counts()
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        if kind != "eval":
+            outs += [p.grad.clone() for p in trainable["meta"]]
+            outs += [p.detach().clone() for p in trainable["meta"]]
+            outs += list(state.manager_state)
+        return outs, {"ms": float(np.median(ms[1:])), "first_ms": ms[0],
+                      "captures": caps,
+                      "launches_per_step": {n: c / (GRAPH_STEPS + caps)
+                                            for n, c in counts.items() if c},
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_reserved_gib":
+                          torch.cuda.max_memory_reserved() / 2**30}
+
+    for kind in ("uncached", "cached", "eval"):
+        outs, rec = {}, {"eager": [], "graph": []}
+        for i, way in enumerate(("eager", "graph", "graph", "eager")):
+            outs[i], r = run(kind, way)
+            rec[way].append(r)
+        same = all(len(outs[i]) == len(outs[0]) and all(
+            torch.equal(a, b) for a, b in zip(outs[i], outs[0]))
+            for i in range(1, 4))
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for i in range(1, 4) for a, b in zip(outs[i], outs[0]))
+        per_step = {way: [r["launches_per_step"] for r in rec[way]]
+                    for way in rec}
+        want = {n: float(c) for n, c in TRAIN_LAUNCHES.items() if c} \
+            if kind != "eval" else {"flash_attention_nhd":
+                                    float(ATTN_PER_UNET)}
+        what = "losses" if kind == "eval" else (
+            "losses, MLP gradients, MLP parameters after AdamW and the "
+            "manager state")
+        ms = {way: [round(r["ms"], 2) for r in rec[way]] for way in rec}
+        peaks = {way: [(round(r["peak_gib"], 2),
+                        round(r["peak_reserved_gib"], 2)) for r in rec[way]]
+                 for way in rec}
+        log("train", f"{kind} step, graph vs eager in turns: bit for bit "
+                     f"{same} (largest difference {diff:.3e} over {what}); "
+                     f"ms a step graph {ms['graph']} vs eager {ms['eager']} "
+                     f"(a graph run's first step, warm-up and capture "
+                     f"{[round(r['first_ms'], 1) for r in rec['graph']]}); "
+                     f"launches a step {json.dumps(per_step['graph'][0])} vs "
+                     f"{json.dumps(per_step['eager'][0])}; peak allocated / "
+                     f"reserved GiB graph {peaks['graph']} vs eager "
+                     f"{peaks['eager']}")
+        if not same:
+            raise RuntimeError(f"train: the {kind} step's graph does not "
+                               f"give its eager bits ({diff:.3e})")
+        if any(p != want for way in per_step for p in per_step[way]) or \
+                [r["captures"] for r in rec["graph"]] != [1, 1]:
+            raise RuntimeError(f"train: {kind} launches a step {per_step}; "
+                               f"expected {want}")
+        record[kind] = rec
+    return record, total
 
 
 # -- phase 11 -----------------------------------------------------------------
@@ -2977,16 +3247,19 @@ def measured(name, ctx, fn, phase="generate"):
     torch.cuda.reset_peak_memory_stats()
     calls0, asm0 = ctx.calls, ctx.assemble_s
     fa.reset_launch_count()
+    caps0 = graphs.captures()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
            "assemble_ms": (ctx.assemble_s - asm0) * 1e3,
            "unet_calls": ctx.calls - calls0,
+           "captures": graphs.captures() - caps0,
            "launches": {n: c for n, c in fa.launch_counts().items() if c},
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(phase, f"{name}: wall {rec['wall_ms']:.1f} ms (assembly "
-               f"{rec['assemble_ms']:.1f}), UNet calls "
+               f"{rec['assemble_ms']:.1f}), graphs captured "
+               f"{rec['captures']}, UNet calls (Python) "
                f"{rec['unet_calls']}, flash launches "
                f"{json.dumps(rec['launches'])}, peak memory "
                f"{rec['peak_gib']:.2f} GiB")
@@ -3052,6 +3325,11 @@ def phase_generate(work, ckpt):
                 imgs, recs[name] = measured(name, ctx, run)
                 check_images(name, imgs, 2, 512)
                 want[name] = calls
+            if [recs[n]["captures"] for n in runs] != [1, 1, 0]:
+                raise RuntimeError(f"generate: captures "
+                                   f"{[recs[n]['captures'] for n in runs]}; "
+                                   f"expected the two txt2img runs captured "
+                                   f"and img2img eager")
             plms_files = sorted(os.listdir(os.path.join(
                 work, "plms", os.listdir(os.path.join(work, "plms"))[0])))
             if plms_files != ["00000.jpg", "00001.jpg", "grid.jpg"]:
@@ -3102,12 +3380,17 @@ def phase_generate(work, ckpt):
         os.chdir(cwd)
     for name, calls in want.items():
         got = recs[name]
-        if got["unet_calls"] != calls or got["launches"] != {
-                "flash_attention_nhd": ATTN_PER_UNET * calls}:
+        # a captured run's Python runs twice (warm-up, capture) and its
+        # kernels twice (warm-up, replay); img2img and DDPM run eagerly
+        if got["captures"]:
+            expected = (graphed_unet_calls(calls, got),
+                        graphed_launches(calls, 1, got))
+        else:
+            expected = (calls, {"flash_attention_nhd": ATTN_PER_UNET * calls})
+        if (got["unet_calls"], got["launches"]) != expected:
             raise RuntimeError(f"generate: {name} made {got['unet_calls']} "
                                f"UNet calls and launched {got['launches']}; "
-                               f"expected {calls} calls, "
-                               f"{ATTN_PER_UNET * calls} packed launches")
+                               f"expected {expected}")
 
     load = lambda *p: torch.load(os.path.join(work, *p), weights_only=True)
     saved = torch.load(ckpt, weights_only=True)["id_coefficients"]
@@ -3254,7 +3537,9 @@ def phase_ti(work, checkpoints):
               f"{launches['dq'] / TI_STEPS:g} #4, "
               f"{launches['dkv'] / TI_STEPS:g} #5); peak memory "
               f"{peak:.2f} GiB")
-    want = {n: c * TI_STEPS for n, c in TRAIN_LAUNCHES.items()}
+    # the first step captures the step's graph; its warm-up launched one
+    # step's kernels besides the replays
+    want = {n: c * (TI_STEPS + 1) for n, c in TRAIN_LAUNCHES.items()}
     if launches != want:
         raise RuntimeError(f"ti: launched {launches}; expected {want}")
     if len(steps) != TI_STEPS or not np.isfinite(losses).all() \
@@ -3268,6 +3553,8 @@ def phase_ti(work, checkpoints):
             raise RuntimeError(f"ti: the frozen {name} changed or took a "
                                f"gradient")
 
+    rec["graph_vs_eager"], rec["graph_vs_eager_launches"] = \
+        ti_graph_vs_eager(pipe, vectors)
     loss_k, loss_p, cos, rel, n_k, n_p = ti_route_parity(pipe, vectors)
     rec.update(route_loss=(loss_k, loss_p), route_grad_cos=cos,
                route_grad_rel=rel)
@@ -3302,11 +3589,94 @@ def phase_ti(work, checkpoints):
         os.chdir(cwd)
     check_images("ti txt2img", imgs, 2, 512)
     got = rec["txt2img"]
-    if got["unet_calls"] != DDIM_STEPS or got["launches"] != {
-            "flash_attention_nhd": ATTN_PER_UNET * DDIM_STEPS}:
+    if got["unet_calls"] != graphed_unet_calls(DDIM_STEPS, got) \
+            or got["launches"] != graphed_launches(DDIM_STEPS, 1, got):
         raise RuntimeError(f"ti: txt2img made {got['unet_calls']} UNet calls "
                            f"and launched {got['launches']}")
     return rec
+
+
+def ti_graph_vs_eager(pipe, vectors):
+    """The TI step (``cli/train_ti.make_ti_train_step``) on its graph and
+    eagerly in turns (eager, graph, graph, eager), GRAPH_STEPS steps a run
+    from the same vectors and generator on one batch: losses, the vectors'
+    gradient and the vectors after AdamW bit for bit; ms a step, launches a
+    step and peak memory each way.  -> (record, launches by kernel)."""
+    from celebbasis_tpu_torch.cli import train_ti
+    from celebbasis_tpu_torch.core import textual_inversion as ti
+    from celebbasis_tpu_torch.train.step import make_optimizer
+
+    cfg = ti.TIConfig(("*",), vectors.shape[0], pipe.cfg.clip.width)
+    ph = ti.placeholder_token_ids(cfg, pipe.tokenizer)
+    r = np.random.default_rng(6)
+    batch = {"image": torch.from_numpy(r.uniform(
+        -1, 1, (2, 512, 512, 3)).astype(np.float32)).cuda(),
+        "tokens": torch.from_numpy(np.asarray(pipe.tokenizer(
+            ["a photo of a *", "a rendering of a *"]), np.int64)).cuda()}
+    outs, rec, total = {}, {"eager": [], "graph": []}, {}
+    for i, way in enumerate(("eager", "graph", "graph", "eager")):
+        param = torch.nn.Parameter(torch.from_numpy(vectors[None].copy())
+                                   .cuda())
+        step = train_ti.make_ti_train_step(
+            pipe, cfg, ph, make_optimizer({"ti": [param]}, lr=1e-2))
+        fn = step.eager if way == "eager" else step
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        caps0 = graphs.captures()
+        ms, losses = [], []
+        for _ in range(GRAPH_STEPS):
+            t0 = time.perf_counter()
+            logs = fn(param, batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(logs["loss"].clone())
+        runs = GRAPH_STEPS + graphs.captures() - caps0
+        counts = {n: c for n, c in fa.launch_counts().items() if c}
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        outs[i] = losses + [param.grad.clone(), param.detach().clone()]
+        rec[way].append({"ms": float(np.median(ms[1:])), "first_ms": ms[0],
+                         "launches_per_step": {n: c / runs for n, c in
+                                               counts.items()},
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "peak_reserved_gib":
+                             torch.cuda.max_memory_reserved() / 2**30})
+    same = all(torch.equal(a, b) for i in range(1, 4)
+               for a, b in zip(outs[i], outs[0]))
+    peaks = {way: [(round(x["peak_gib"], 2), round(x["peak_reserved_gib"], 2))
+                   for x in rec[way]] for way in rec}
+    log("ti", f"TI step, graph vs eager in turns: bit for bit {same} "
+              f"(losses, the vectors' gradient, the vectors after AdamW); "
+              f"ms a step graph {[round(x['ms'], 2) for x in rec['graph']]} "
+              f"vs eager {[round(x['ms'], 2) for x in rec['eager']]} (a "
+              f"graph run's first step "
+              f"{[round(x['first_ms'], 1) for x in rec['graph']]}); launches "
+              f"a step {json.dumps(rec['graph'][0]['launches_per_step'])} vs "
+              f"{json.dumps(rec['eager'][0]['launches_per_step'])}; peak "
+              f"allocated / reserved GiB graph {peaks['graph']} vs eager "
+              f"{peaks['eager']}")
+    want = {n: float(c) for n, c in TRAIN_LAUNCHES.items() if c}
+    if not same or any(x["launches_per_step"] != want
+                       for way in rec for x in rec[way]):
+        raise RuntimeError("ti: the TI step's graph does not give its eager "
+                           "bits or launches")
+    return rec, total
+
+
+def graphed_unet_calls(calls, rec):
+    """UNet calls a hook counts over a window of captured generation: the
+    warm-up and the capture run the Python (``calls`` each), replays do
+    not."""
+    return 2 * calls * rec["captures"]
+
+
+def graphed_launches(calls, runs, rec):
+    """Packed flash launches over a window of ``runs`` captured generation
+    calls of ``calls`` UNet calls each: the replays' and the warm-ups'."""
+    return {"flash_attention_nhd": ATTN_PER_UNET * calls
+            * (runs + rec["captures"])}
 
 
 # -- phase 13 -----------------------------------------------------------------
@@ -3449,9 +3819,11 @@ def phase_evaluate(work, ckpt, align_files):
                 str(DDIM_STEPS), "--H", "512"]), phase="evaluate")
     finally:
         os.chdir(cwd)
-    if made != items * EVAL_SAMPLES or gen_rec["unet_calls"] != \
-            items * DDIM_STEPS or gen_rec["launches"] != {
-                "flash_attention_nhd": items * DDIM_STEPS * ATTN_PER_UNET}:
+    if made != items * EVAL_SAMPLES or gen_rec["captures"] != 1 \
+            or gen_rec["unet_calls"] != graphed_unet_calls(DDIM_STEPS,
+                                                           gen_rec) \
+            or gen_rec["launches"] != graphed_launches(DDIM_STEPS, items,
+                                                       gen_rec):
         raise RuntimeError(f"evaluate: gen_imgs made {made} images, "
                            f"{gen_rec['unet_calls']} UNet calls, launched "
                            f"{gen_rec['launches']}")
@@ -3574,6 +3946,66 @@ def phase_evaluate(work, ckpt, align_files):
 
 # -----------------------------------------------------------------------------
 
+def graph_summary(request_ms, train_ms, ti):
+    """Medians of each path's ms on its graph and eagerly, from the serve,
+    train and ti phases' turns."""
+    med = lambda xs: round(float(np.median(xs)), 2)
+    serve = request_ms["graph_vs_eager"]
+    out = {f"{route}_{way}": med(serve[way][f"{route}_ms"])
+           for route in ("txt2img", "faces2img") for way in ("graph", "eager")}
+    for kind, rec in train_ms["graph_vs_eager"].items():
+        for way in ("graph", "eager"):
+            out[f"{kind}_step_{way}"] = med([r["ms"] for r in rec[way]])
+    for way in ("graph", "eager"):
+        out[f"ti_step_{way}"] = med([r["ms"] for r in
+                                     ti["graph_vs_eager"][way]])
+    return out
+
+
+# -- phase 14 -----------------------------------------------------------------
+
+def phase_warmup():
+    """``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults (the
+    JAX CLI's: ``configs/aigc_id.yaml``, 512x512, 50 DDIM steps at 8 samples
+    and guidance 10, the train step at batch 2) in a process of its own:
+    exit 0, every kernel library the paths load built, both graphs captured
+    and each capture's seconds printed.  -> its record."""
+    cache = tempfile.mkdtemp(prefix="chip_smoke_warmup_")
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "celebbasis_tpu_torch.cli.warmup",
+             "--cache_dir", cache], cwd=REPO, capture_output=True, text=True,
+            timeout=900)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("[warmup]")]
+        for ln in lines:
+            log("warmup", ln)
+        if proc.returncode != 0:
+            raise RuntimeError(f"warmup: exit {proc.returncode}\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(cache, "warmup.json")) as f:
+            rec = json.load(f)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    rec["wall_s"] = wall
+    log("warmup", f"cli/warmup.py: {wall:.1f} s in all (a process of its "
+                  f"own); kernels built in {rec.get('build_s', 0):.1f} s "
+                  f"(this process had built them: a finished build is "
+                  f"reused); train step graph {rec.get('train_s', 0):.1f} s, "
+                  f"txt2img graph {rec.get('txt2img_s', 0):.1f} s")
+    # lib<name>_<hash of source and flags>.so
+    libs = {lib[3:].rsplit("_", 1)[0] for lib in rec.get("libraries", [])}
+    want = set(fa.LIBRARIES + geglu.LIBRARIES)
+    if libs != want or not rec["device"].startswith("cuda") \
+            or "train_s" not in rec or "txt2img_s" not in rec \
+            or sum("captured in" in ln for ln in lines) != 2:
+        raise RuntimeError(f"warmup: record {rec}; libraries {libs}, "
+                           f"expected {want}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3608,6 +4040,8 @@ def main() -> int:
         evaluate = phase_evaluate(work, cli_ckpt, align_files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    warmup = phase_warmup()
 
     kernels = []
     for entry, replaces in KERNELS.items():
@@ -3619,7 +4053,8 @@ def main() -> int:
             by_path.update({f"train_{name}": c[entry]
                             for name, c in cli_launches.items()})
             by_path.update({
-                "ti_train": ti["launches"][entry],
+                "ti_train": ti["launches"][entry]
+                + ti["graph_vs_eager_launches"].get(entry, 0),
                 "ti_txt2img": ti["txt2img"]["launches"][entry],
                 "gen_imgs": evaluate["gen_imgs"]["launches"][entry],
                 "eval_vit": evaluate["launches"][entry]})
@@ -3652,7 +4087,8 @@ def main() -> int:
         by_path = {"train": train_launches[name],
                    **{f"train_{run}": c[name]
                       for run, c in cli_launches.items()},
-                   "ti_train": ti["launches"][name]}
+                   "ti_train": ti["launches"][name]
+                   + ti["graph_vs_eager_launches"].get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3740,7 +4176,12 @@ def main() -> int:
                 f"align_train ms a step: PIPNet ResNet-101 "
                 f"{align_train['pipnet_r101']['median_ms']:.1f}, GSSL "
                 f"ResNet-18 {align_train['gssl_r18']['median_ms']:.1f}; "
-                f"phase {align_train['phase_wall_s']:.1f} s")
+                f"phase {align_train['phase_wall_s']:.1f} s; ms on the graph "
+                f"vs eagerly "
+                f"{json.dumps(graph_summary(request_ms, train_ms, ti))}; "
+                f"cli/warmup.py {warmup['wall_s']:.1f} s (train step graph "
+                f"{warmup['train_s']:.1f} s, txt2img graph "
+                f"{warmup['txt2img_s']:.1f} s)")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

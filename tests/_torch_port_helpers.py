@@ -11,11 +11,9 @@ import torch
 
 from celebbasis_tpu_torch.utils.bridge_align import reference_layout  # noqa: F401
 
-# The suite runs several worker processes on one machine.  PyTorch's intra-op
-# pool would start one thread per core in each of them, and at these tiny
-# sizes the threads only get in each other's way (a file took 3-10 times as
-# long inside the suite as alone).
-torch.set_num_threads(1)
+# One thread for PyTorch (set on import) and for BLAS while a port test
+# module runs; a module that imports ``one_blas_thread`` gets the latter
+from _torch_threads import one_blas_thread  # noqa: F401
 
 
 def np_tree(tree):

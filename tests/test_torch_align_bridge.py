@@ -24,6 +24,7 @@ from celebbasis_tpu_torch.align import pipnet as tpip
 from celebbasis_tpu_torch.utils import bridge, bridge_align
 
 from _torch_port_helpers import reference_layout
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -38,6 +38,7 @@ from celebbasis_tpu_torch.align import pipnet as tpip
 from celebbasis_tpu_torch.cli import align as tcli
 
 from _torch_port_helpers import align_params, write_photos
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 JCFG = dataclasses.replace(jpip.PIPNetConfig.tiny(), num_lms=98)
 TCFG = tpip.PIPNetConfig(**JCFG.__dict__)

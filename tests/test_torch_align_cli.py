@@ -31,6 +31,7 @@ from celebbasis_tpu_torch.utils import bridge_align
 
 from _torch_port_helpers import align_params, reference_layout, \
     write_photos
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 JCFG = dataclasses.replace(jpip.PIPNetConfig.tiny(), num_lms=98)
 TCFG = tpip.PIPNetConfig(**JCFG.__dict__)

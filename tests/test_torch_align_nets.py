@@ -23,6 +23,7 @@ from celebbasis_tpu_torch.align import pipnet as tpip
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import np_tree, random_params, t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REL_TOL = 1e-4
 

@@ -34,6 +34,7 @@ from celebbasis_tpu_torch.align import nms as tnms
 from celebbasis_tpu_torch.align import pipnet as tpip
 
 from _torch_port_helpers import t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 
 def _image(rng, h, w, c=3):

@@ -27,6 +27,7 @@ from celebbasis_tpu_torch.utils import bridge_align
 import _pipnet_layouts as layouts
 from _torch_port_helpers import align_params, reference_layout, \
     write_photos
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 pytest.importorskip("cv2")          # the preprocessing's image codecs
 

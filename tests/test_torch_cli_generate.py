@@ -22,6 +22,7 @@ from celebbasis_tpu_torch.diffusion.sampler import sample_seed
 from celebbasis_tpu_torch.loader import assemble
 from celebbasis_tpu_torch.utils import pt_io
 from celebbasis_tpu_torch.utils.config import load_run_spec
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "configs", "tiny.yaml")

@@ -21,6 +21,7 @@ from celebbasis_tpu_torch.cli import train, txt2img
 from celebbasis_tpu_torch.utils.tb import read_scalars
 
 import _torch_port_helpers  # noqa: F401  (one PyTorch thread per worker)
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "configs", "tiny.yaml")

@@ -24,6 +24,7 @@ from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import (manifest_shapes, module_shapes, np_tree,
                                  randomize_zero_leaves, t)
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L, D, REPS = 77, 16, 2

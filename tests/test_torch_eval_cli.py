@@ -47,6 +47,7 @@ from celebbasis_tpu_torch.utils import bridge
 from celebbasis_tpu_torch.utils.config import load_run_spec
 
 from _torch_port_helpers import np_tree, random_params
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "configs", "tiny.yaml")

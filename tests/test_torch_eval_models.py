@@ -44,6 +44,7 @@ from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import hf_clip_state, np_tree, random_params, t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-4

@@ -18,6 +18,7 @@ from celebbasis_tpu.data import face_id as jface
 from celebbasis_tpu.text.tokenizer import CLIPTokenizer as JTokenizer
 from celebbasis_tpu_torch.data import face_id as tface
 from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 SIZE = 24
 

@@ -19,6 +19,7 @@ import celebbasis_tpu.ops.flash_attention as jfa
 from celebbasis_tpu_torch.ops import flash_attention as tfa
 
 from _torch_port_helpers import t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 
 @pytest.fixture(autouse=True)

@@ -6,6 +6,7 @@ one."""
 import pytest
 
 from celebbasis_tpu_torch.ops import flash_attention as fa
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 H100_SMS = 132
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from celebbasis_tpu_torch.ops import flash_attention as fa
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 H = 8
 # (B, N, M, D): the eight serving shapes (batch 4) of the UNet's levels

@@ -32,6 +32,7 @@ from celebbasis_tpu_torch.ops import geglu as tgeglu
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import np_tree, random_params, t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 ORDER = ("x", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2")
 

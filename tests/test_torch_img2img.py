@@ -19,6 +19,7 @@ from celebbasis_tpu.cli import img2img as jimg2img
 from celebbasis_tpu_torch.cli import img2img as timg2img
 
 from _torch_port_helpers import t, tiny_pipelines
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 NAMES = ["Anne Hathaway", "Barack Obama", "Elon Musk", "Robert Downey",
          "Taylor Swift", "Emma Watson", "Brad Pitt", "Scarlett Johansson",

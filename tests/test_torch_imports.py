@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = r"""

@@ -24,6 +24,7 @@ from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import (np_tree, random_params,
                                  randomize_all_leaves, t)
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 L = lambda a: t(a).long()
 

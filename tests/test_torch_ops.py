@@ -20,6 +20,7 @@ from celebbasis_tpu_torch.ops.resize import (upsample2x_nearest,
                                              upsample2x_nearest_nchw)
 
 from _torch_port_helpers import t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 
 def rng(seed=0):

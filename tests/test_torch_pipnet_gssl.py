@@ -33,6 +33,7 @@ from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import (assert_adam_step_close, assert_grads_close,
                                  np_tree, random_params, stash_grads)
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 JCFG = jpip.PIPNetConfig(num_lms=5, num_nb=2, input_size=128,
                          layers=(1, 1, 1, 1), width=8, block="basic")

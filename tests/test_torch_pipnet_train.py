@@ -36,6 +36,7 @@ from celebbasis_tpu_torch.utils import bridge, bridge_align
 
 from _torch_port_helpers import (assert_adam_step_close, assert_grads_close,
                                  np_tree, random_params, stash_grads)
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 JCFG = jpip.PIPNetConfig.tiny()
 TCFG = tpip.PIPNetConfig(**JCFG.__dict__)

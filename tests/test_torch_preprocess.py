@@ -22,6 +22,7 @@ from celebbasis_tpu.align import preprocess as jpp
 from celebbasis_tpu_torch.align import preprocess as tpp
 
 import _pipnet_layouts as layouts
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 cv2 = pytest.importorskip("cv2")
 

@@ -21,6 +21,7 @@ from celebbasis_tpu.ops import quant as jquant
 from celebbasis_tpu_torch.ops import quant as tquant
 
 from _torch_port_helpers import t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,7 @@ from celebbasis_tpu_torch.models import unet as tunet
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import np_tree, random_params, t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 
 @pytest.mark.parametrize("kind", ["linear", "cosine", "sqrt_linear", "sqrt"])

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import _torch_port_helpers  # noqa: F401  (one PyTorch thread per worker)
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -36,6 +36,7 @@ from celebbasis_tpu_torch.utils import tb as ttb
 from celebbasis_tpu_torch.utils.config import load_run_spec
 
 import _torch_port_helpers  # noqa: F401  (one PyTorch thread per worker)
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE, FACE, B = 32, 40, 2

@@ -37,6 +37,7 @@ from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 from celebbasis_tpu_torch.train.step import make_optimizer
 
 from _torch_port_helpers import t, tiny_pipelines, tiny_sd_checkpoint
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "configs", "tiny.yaml")

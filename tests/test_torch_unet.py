@@ -21,6 +21,7 @@ from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import (manifest_shapes, module_shapes, np_tree,
                                  random_params, t)
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,7 @@ from celebbasis_tpu_torch.ops import warp as twarp
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import np_tree, random_params, t
+from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 
 @pytest.mark.parametrize("align_corners", [True, False])

@@ -20,10 +20,14 @@ weights (bf16 compute, the UNet's output convs drawn) and runs
 ``thread`` and ``process`` load the host alike, but only ``thread`` shares
 this process's interpreter lock: if both slow the step, the host's cores
 are the contention; if only ``thread`` does, the lock is.  Each side copies
-its batches to the card in the step loop.  Prints, for the GPU it runs on,
-the median ms per step (``metrics.jsonl`` ``step_time_s``, steps 2 on) and
-ms waiting for the batch (``data_wait_s``) of every run, and one JSON line
-at the end.  Needs a CUDA device.
+its batches to the card in the step loop.  Every mode runs twice a round:
+with the trainer's captured step (a CUDA graph: a step is one replay, and
+the main thread waits on the card instead of launching kernels) and with
+its eager step (``step_fn.eager``), in turns.  Prints, for the GPU it runs
+on, the median ms per step (``metrics.jsonl`` ``step_time_s``, steps 2 on:
+a captured run's first step warms up and captures) and ms waiting for the
+batch (``data_wait_s``) of every run, and one JSON line at the end.  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -112,16 +116,20 @@ def main() -> int:
         it.close()
         modes = ("loader", "ready", "thread", "process")
         spawn = multiprocessing.get_context("spawn")
-        runs = {mode: [] for mode in modes}
+        runs = {f"{mode}_{way}": [] for mode in modes
+                for way in ("graph", "eager")}
         for r in range(args.rounds):
             order = modes[r % 4:] + modes[:r % 4]
-            for mode in order:
-                cfg = TrainerConfig(logdir=work, suffix=f"{mode}{r}",
+            ways = ("graph", "eager") if r % 2 == 0 else ("eager", "graph")
+            for mode, way in ((m, w) for m in order for w in ways):
+                cfg = TrainerConfig(logdir=work, suffix=f"{mode}{way}{r}",
                                     max_steps=args.steps, log_every=1,
                                     ckpt_every=10 ** 6, seed=23)
                 trainer = Trainer(asm.pipeline, asm.meta_net, asm.basis,
                                   loader() if mode == "loader" else ready,
                                   cfg)
+                if way == "eager":
+                    trainer.step_fn = trainer.step_fn.eager
                 side = None
                 if mode in ("thread", "process"):
                     lib = threading if mode == "thread" else spawn
@@ -140,9 +148,11 @@ def main() -> int:
                         stop.set()
                         side.join(60)
                 step_ms, wait_ms = medians(trainer.run_dir)
-                runs[mode].append({"step_ms": step_ms, "wait_ms": wait_ms})
-                print(f"round {r} {mode}: ms per step {step_ms:.1f}, ms "
-                      f"waiting for the batch {wait_ms:.2f}", flush=True)
+                runs[f"{mode}_{way}"].append({"step_ms": step_ms,
+                                              "wait_ms": wait_ms})
+                print(f"round {r} {mode} {way}: ms per step {step_ms:.1f}, "
+                      f"ms waiting for the batch {wait_ms:.2f}", flush=True)
+                del trainer
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"card": card, "steps": args.steps, "runs": runs,

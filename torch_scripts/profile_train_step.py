@@ -19,7 +19,13 @@ faces per sample, synthetic batches) and prints, for the GPU it runs on,
 * peak device memory of a step;
 * the uncached step (float32 storage) with the FF sub-blocks on the GEGLU
   kernel route against the plain route: wall time in turns, device time by
-  family and peak memory of each.
+  family and peak memory of each;
+* the uncached and the cached step (float32 storage) captured as CUDA graphs
+  (``train.step``'s default on a card) against the same steps run eagerly,
+  in turns: wall time, device busy time and idle share of each.
+
+Every section but the last runs the steps eagerly (``step.eager``), as
+earlier versions of this script did.
 
 Needs a CUDA device; prints one JSON line at the end.
 """
@@ -39,7 +45,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke  # noqa: E402  (synthetic_batch)
 from profile_unet import (device_ms_by_family, geglu_routes,  # noqa: E402
-                          wall_ms)
+                          graph_vs_eager, wall_ms)
 
 from celebbasis_tpu_torch.loader import assemble, init_weights  # noqa: E402
 from celebbasis_tpu_torch.ops import attention as attn_ops  # noqa: E402
@@ -84,6 +90,10 @@ def main() -> int:
 
     def step():
         calls["n"] += 1
+        uncached.eager(state, asm.basis, batches[calls["n"] % 2])
+
+    def graph_step():
+        calls["n"] += 1
         uncached(state, asm.basis, batches[calls["n"] % 2])
 
     result = {"card": card, "steps": args.steps}
@@ -123,12 +133,31 @@ def main() -> int:
 
     def cached_step():
         calls["n"] += 1
+        cached_fn.eager(state, asm.basis, cache[calls["n"] % 2])
+
+    def cached_graph_step():
+        calls["n"] += 1
         cached_fn(state, asm.basis, cache[calls["n"] % 2])
 
     ab("cached_fp32_storage", cached_step)
     cfams, _ = device_ms_by_family(cached_step, args.steps)
     result.update(cached_device_ms_by_family=cfams,
                   cached_device_busy_ms=sum(cfams.values()))
+
+    for label, eager, graph in (("uncached", step, graph_step),
+                                ("cached", cached_step, cached_graph_step)):
+        graph()                  # captures
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        graph()
+        torch.cuda.synchronize()
+        result[f"{label}_graph_peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        print(f"{label} step, graph vs eager (float32 storage):")
+        result.update({f"{label}_{k}": v for k, v in graph_vs_eager(
+            eager, graph, args.steps, "step").items()})
+    # the graphs read the weights where they lay at capture: none is
+    # replayed after the cast below, whose sections run eagerly
 
     # bf16 storage of the frozen nets (TrainerConfig.frozen_bf16)
     cast_float_params(pipe, torch.bfloat16)

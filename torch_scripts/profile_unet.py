@@ -16,7 +16,11 @@ latents, 77x768 context) on the GPU, and prints
   effect of the kernel;
 * the same forward with the FF sub-blocks on the GEGLU kernel route against
   the default plain route (attention on its kernel route on both sides): wall
-  time in turns, device time by family and peak memory of each.
+  time in turns, device time by family and peak memory of each;
+* the forward captured as a CUDA graph (``utils/graphs.py``, as the
+  pipeline runs it) against the eager forward, in turns (eager, graph,
+  graph, eager): wall time, device busy time and idle share of each, and
+  whether the two give the same bits.
 
 Needs a CUDA device; prints one JSON line at the end.
 """
@@ -39,6 +43,7 @@ from celebbasis_tpu_torch.loader import init_weights  # noqa: E402
 from celebbasis_tpu_torch.models.unet import UNetConfig, UNetModel  # noqa: E402
 from celebbasis_tpu_torch.ops import attention as attn_ops  # noqa: E402
 from celebbasis_tpu_torch.ops import geglu  # noqa: E402
+from celebbasis_tpu_torch.utils import graphs  # noqa: E402
 from celebbasis_tpu_torch.utils.precision import cast_float_params  # noqa: E402
 
 FAMILIES = (
@@ -143,8 +148,37 @@ def main() -> int:
     result.update(device_ms_by_family=fams, device_busy_ms=busy,
                   flash_kernels=flash)
     result.update(geglu_routes(step, args.steps, "forward"))
+    captured = graphs.Captured(lambda *a: guided_eps(unet, *a, 10.0))
+    graph = torch.inference_mode()(lambda: captured(x, t, cond, uncond))
+    same = torch.equal(graph(), step())
+    print(f"the captured forward gives the eager bits: {same}")
+    result.update(graph_equals_eager=same,
+                  **graph_vs_eager(step, graph, args.steps, "forward"))
     print(json.dumps(result))
     return 0
+
+
+def graph_vs_eager(eager, graph, iters, what):
+    """``eager()`` against ``graph()`` (a captured call; captured already):
+    wall ms in turns (eager, graph, graph, eager), then device busy ms and
+    idle share of each."""
+    out = {}
+    for way in ("eager", "graph", "graph", "eager"):
+        ms = wall_ms(eager if way == "eager" else graph, iters)
+        out.setdefault(f"{way}_wall_ms", []).append(ms)
+        print(f"{way}: {ms:.2f} ms per {what}")
+    for way, fn in (("eager", eager), ("graph", graph)):
+        fams, _ = device_ms_by_family(fn, iters)
+        busy = sum(fams.values())
+        wall = min(out[f"{way}_wall_ms"])
+        out[f"{way}_device_busy_ms"] = busy
+        out[f"{way}_device_ms_by_family"] = fams
+        out[f"{way}_idle_share"] = max(0.0, 1 - busy / wall) if busy else None
+        print(f"{way}: device busy {busy:.2f} ms of {wall:.2f} ms wall per "
+              f"{what}: idle share "
+              + (f"{100 * out[f'{way}_idle_share']:.1f}%" if busy else
+                 "not measured (the profiler saw no device time)"))
+    return {f"graph_vs_eager_{k}": v for k, v in out.items()}
 
 
 def geglu_routes(fn, iters, what):
