@@ -21,9 +21,12 @@ carried over by one generic walk (``utils.bridge.from_jax_params``).
 keeping its activations (``torch.utils.checkpoint``), as ``nn.remat`` does
 around the same blocks in the JAX module; the values are those without it.
 
-The legacy-LDM knobs of the JAX config (plain ``AttentionBlock``, FiLM
-conditioning, ``resblock_updown``, ``EncoderUNetModel``, ``AttentionPool2d``)
-are not ported yet; ``UNetConfig`` raises on them.
+The legacy-LDM knobs of the JAX config are here too: plain spatial
+self-attention (``AttentionBlock``, ``use_spatial_transformer=False``) with
+``num_head_channels`` pinning the head width, FiLM time conditioning
+(``use_scale_shift_norm``) and residual up/downsampling blocks
+(``resblock_updown``).  ``dropout`` (a training knob) and the classifier
+trunk (``EncoderUNetModel``, ``AttentionPool2d``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from celebbasis_tpu_torch.ops.attention import attention
+from celebbasis_tpu_torch.ops.attention import (attention,
+                                                attention_heads)
 from celebbasis_tpu_torch.ops.basic import (Conv, Dense, GroupNorm, LayerNorm,
                                             ZeroConv, from_tokens,
                                             timestep_embedding, to_nchw,
@@ -57,27 +61,26 @@ class UNetConfig:
     context_dim: int = 768
     dropout: float = 0.0
     remat: bool = False
-    # legacy-LDM knobs, kept so that configs read alike; only the defaults
-    # are supported so far
+    # legacy-LDM knobs (the reference openaimodel.UNetModel): plain spatial
+    # self-attention instead of the cross-attention transformer, per-head
+    # channel width, FiLM-style time conditioning, residual resampling
     use_spatial_transformer: bool = True
     num_head_channels: int = -1
     use_scale_shift_norm: bool = False
     resblock_updown: bool = False
 
     def __post_init__(self):
-        legacy = {"use_spatial_transformer": True, "num_head_channels": -1,
-                  "use_scale_shift_norm": False, "resblock_updown": False}
-        for name, default in legacy.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"UNetConfig.{name}={getattr(self, name)!r}: the legacy "
-                    f"LDM variants are not ported yet")
         if self.dropout:
             raise NotImplementedError("dropout is a training-side knob that "
-                                      "is not ported yet")
+                                      "is not ported yet (ROADMAP A9b)")
 
     def heads_for(self, ch: int) -> int:
-        return self.num_heads
+        """A fixed head count unless num_head_channels pins the head
+        width."""
+        if self.num_head_channels == -1:
+            return self.num_heads
+        assert ch % self.num_head_channels == 0, (ch, self.num_head_channels)
+        return ch // self.num_head_channels
 
     @staticmethod
     def sd_v1() -> "UNetConfig":
@@ -92,26 +95,68 @@ class UNetConfig:
 
 class ResBlock(nn.Module):
     """GN -> SiLU -> conv, + time-emb, GN -> SiLU -> zero-conv, residual.
+    ``scale_shift`` is the FiLM conditioning ``norm2(h) * (1 + scale) +
+    shift``; ``up`` / ``down`` put a parameter-free nearest 2x upsample or
+    2x2 average pool into both branches (resblock_updown).
     x: (B, C, H, W) view; emb: (B, E)."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, scale_shift: bool = False,
+                 up: bool = False, down: bool = False):
         super().__init__()
+        self.scale_shift, self.up, self.down = scale_shift, up, down
         self.norm1 = GroupNorm(in_ch)
         self.conv1 = Conv(in_ch, out_ch, 3, dtype=dtype)
-        self.emb_proj = Dense(emb_ch, out_ch, dtype=dtype)
+        self.emb_proj = Dense(emb_ch, 2 * out_ch if scale_shift else out_ch,
+                              dtype=dtype)
         self.norm2 = GroupNorm(out_ch)
         self.conv2 = ZeroConv(out_ch, out_ch, 3, dtype=dtype)
         if in_ch != out_ch:
             self.skip = Conv(in_ch, out_ch, 1, dtype=dtype)
 
     def forward(self, x, emb):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = h + self.emb_proj(F.silu(emb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = F.silu(self.norm1(x))
+        if self.up:
+            h, x = upsample2x_nearest_nchw(h), upsample2x_nearest_nchw(x)
+        elif self.down:
+            h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
+        h = self.conv1(h)
+        emb_out = self.emb_proj(F.silu(emb))[:, :, None, None]
+        if self.scale_shift:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = self.norm2(h) * (1 + scale) + shift
+        else:
+            h = self.norm2(h + emb_out)
+        h = self.conv2(F.silu(h))
         if hasattr(self, "skip"):
             x = self.skip(x)
         return x + h
+
+
+class AttentionBlock(nn.Module):
+    """Plain spatial self-attention: GN -> fused qkv projection whose
+    channels run [head][q|k|v][dh] (the reference's QKVAttentionLegacy
+    layout) -> softmax(q k^T / sqrt(dh)) v -> zero out-projection, residual.
+    q, k and v are strided views of the projection, handed to the per-head
+    attention entry as they are (no copy).  x: (B, C, H, W) view; the
+    context is ignored."""
+
+    def __init__(self, ch: int, heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.heads = heads
+        self.norm = GroupNorm(ch)
+        self.qkv = Dense(ch, 3 * ch, dtype=dtype)
+        self.proj_out = Dense(ch, ch, dtype=dtype)
+        nn.init.zeros_(self.proj_out.weight)
+        nn.init.zeros_(self.proj_out.bias)
+
+    def forward(self, x, context=None):
+        B, C, H, W = x.shape
+        qkv = self.qkv(to_tokens(self.norm(x)))
+        qkv = qkv.view(B, H * W, self.heads, 3, C // self.heads)
+        q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+        out = attention_heads(q, k, v).transpose(1, 2).reshape(B, H * W, C)
+        return x + from_tokens(self.proj_out(out), H, W)
 
 
 class CrossAttention(nn.Module):
@@ -207,8 +252,14 @@ class UNetModel(nn.Module):
         self.conv_in = Conv(cfg.in_channels, ch0, 3, dtype=dtype)
 
         def attn(ch):
+            if not cfg.use_spatial_transformer:
+                return AttentionBlock(ch, cfg.heads_for(ch), dtype)
             return SpatialTransformer(ch, cfg.context_dim, cfg.heads_for(ch),
                                       cfg.transformer_depth, dtype)
+
+        def res(in_ch, out_ch, **updown):
+            return ResBlock(in_ch, out_ch, emb_ch, dtype,
+                            cfg.use_scale_shift_norm, **updown)
 
         # the forward pass walks this plan: (kind, attribute name)
         plan = []
@@ -218,7 +269,7 @@ class UNetModel(nn.Module):
             ch = ch0 * mult
             for j in range(cfg.num_res_blocks):
                 name = f"down_{level}_res_{j}"
-                setattr(self, name, ResBlock(cur, ch, emb_ch, dtype))
+                setattr(self, name, res(cur, ch))
                 plan.append(("res", name))
                 cur = ch
                 if ds in cfg.attention_resolutions:
@@ -229,23 +280,26 @@ class UNetModel(nn.Module):
                 skip_chs.append(cur)
             if level != len(cfg.channel_mult) - 1:
                 name = f"down_{level}_downsample"
-                setattr(self, name, Conv(ch, ch, 3, stride=2, padding=1,
-                                         dtype=dtype))
-                plan.append(("conv", name))
+                if cfg.resblock_updown:
+                    setattr(self, name, res(ch, ch, down=True))
+                    plan.append(("res", name))
+                else:
+                    setattr(self, name, Conv(ch, ch, 3, stride=2, padding=1,
+                                             dtype=dtype))
+                    plan.append(("conv", name))
                 plan.append(("push", None))
                 skip_chs.append(cur)
                 ds *= 2
-        self.mid_res_0 = ResBlock(cur, cur, emb_ch, dtype)
+        self.mid_res_0 = res(cur, cur)
         self.mid_attn = attn(cur)
-        self.mid_res_1 = ResBlock(cur, cur, emb_ch, dtype)
+        self.mid_res_1 = res(cur, cur)
         plan += [("res", "mid_res_0"), ("attn", "mid_attn"),
                  ("res", "mid_res_1")]
         for level, mult in reversed(list(enumerate(cfg.channel_mult))):
             ch = ch0 * mult
             for j in range(cfg.num_res_blocks + 1):
                 name = f"up_{level}_res_{j}"
-                setattr(self, name,
-                        ResBlock(cur + skip_chs.pop(), ch, emb_ch, dtype))
+                setattr(self, name, res(cur + skip_chs.pop(), ch))
                 plan += [("pop", None), ("res", name)]
                 cur = ch
                 if ds in cfg.attention_resolutions:
@@ -254,8 +308,12 @@ class UNetModel(nn.Module):
                     plan.append(("attn", name))
             if level != 0:
                 name = f"up_{level}_upsample"
-                setattr(self, name, Conv(ch, ch, 3, dtype=dtype))
-                plan += [("up", None), ("conv", name)]
+                if cfg.resblock_updown:
+                    setattr(self, name, res(ch, ch, up=True))
+                    plan.append(("res", name))
+                else:
+                    setattr(self, name, Conv(ch, ch, 3, dtype=dtype))
+                    plan += [("up", None), ("conv", name)]
                 ds //= 2
         assert not skip_chs
         self._plan = tuple(plan)
@@ -263,14 +321,16 @@ class UNetModel(nn.Module):
         self.conv_out = ZeroConv(cur, cfg.out_channels, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+                context: torch.Tensor | None = None) -> torch.Tensor:
         """x: (B, H, W, C) latents; timesteps: (B,); context: (B, T, D)
-        cross-attention tokens.  Returns the eps prediction
-        (B, H, W, out_channels) in float32."""
+        cross-attention tokens (None for the legacy configs whose
+        ``AttentionBlock`` is self-attention only).  Returns the eps
+        prediction (B, H, W, out_channels) in float32."""
         dt = self.dtype
         t_emb = timestep_embedding(timesteps, self.cfg.model_channels)
         emb = self.time_fc2(F.silu(self.time_fc1(t_emb.to(dt))))
-        context = context.to(dt)
+        if context is not None:
+            context = context.to(dt)
         h = self.conv_in(to_nchw(x.to(dt)))
         skips = [h]
         remat = self.cfg.remat and torch.is_grad_enabled()

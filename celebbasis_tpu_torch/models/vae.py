@@ -12,8 +12,15 @@ plain core (``ops/attention.py``).
 
 ``encode``/``decode`` take and return channels-last ``(B, H, W, C)`` like the
 JAX module; the blocks inside work on the ``(B, C, H, W)`` channels_last
-view.  The legacy-LDM knobs (in-level attention, ``double_z=False``,
-``attn_type='none'``) are not ported yet; the config raises on them.
+view.
+
+The legacy-LDM first-stage knobs: in-level single-head attention at the
+listed *spatial resolutions* (``attn_resolutions``; ``resolution`` anchors
+the per-level ladder, ``resolution >> level``), single-moment encoders for
+the VQ stages (``double_z=False``), and ``attn_type='none'`` (no attention
+block anywhere, the mid block's included).  An attention block takes the
+flash kernel where its width is at most 256 and the plain core above, by
+``ops.attention``'s rule.
 """
 from __future__ import annotations
 
@@ -43,14 +50,21 @@ class VAEConfig:
     attn_resolutions: Tuple[int, ...] = ()
     double_z: bool = True
     resolution: int = 256
+    # 'vanilla' full attention, or 'none' (no attention block at all)
     attn_type: str = "vanilla"
 
-    def __post_init__(self):
-        if self.attn_resolutions or not self.double_z \
-                or self.attn_type != "vanilla":
-            raise NotImplementedError(
-                "the legacy-LDM first-stage variants (attn_resolutions, "
-                "double_z=False, attn_type) are not ported yet")
+    def level_res(self, level: int) -> int:
+        """Spatial resolution at `level`."""
+        return self.resolution >> level
+
+    def level_attn(self, level: int) -> bool:
+        return (self.level_res(level) in self.attn_resolutions
+                and self.attn_type != "none")
+
+    @property
+    def moments(self) -> int:
+        """The encoder's output channels."""
+        return (2 if self.double_z else 1) * self.z_channels
 
     @staticmethod
     def sd_v1() -> "VAEConfig":
@@ -98,6 +112,19 @@ class VAEAttnBlock(nn.Module):
         return x + self.proj_out(from_tokens(out, H, W))
 
 
+def _mid_block(owner: nn.Module, cfg: VAEConfig, ch: int,
+               dtype: torch.dtype) -> list:
+    """Sets res, attention (unless attn_type 'none') and res on `owner`;
+    -> their plan entries."""
+    owner.mid_res_0 = VAEResBlock(ch, ch, dtype)
+    plan = [("block", "mid_res_0")]
+    if cfg.attn_type != "none":
+        owner.mid_attn = VAEAttnBlock(ch, dtype)
+        plan.append(("block", "mid_attn"))
+    owner.mid_res_1 = VAEResBlock(ch, ch, dtype)
+    return plan + [("block", "mid_res_1")]
+
+
 class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig, dtype: torch.dtype):
         super().__init__()
@@ -112,19 +139,19 @@ class Encoder(nn.Module):
                 setattr(self, name, VAEResBlock(cur, ch, dtype))
                 plan.append(("block", name))
                 cur = ch
+                if cfg.level_attn(level):
+                    name = f"down_{level}_attn_{j}"
+                    setattr(self, name, VAEAttnBlock(ch, dtype))
+                    plan.append(("block", name))
             if level != len(cfg.ch_mult) - 1:
                 name = f"down_{level}_downsample"
                 setattr(self, name, Conv(ch, ch, 3, stride=2, padding=0,
                                          dtype=dtype))
                 plan.append(("down", name))
-        self.mid_res_0 = VAEResBlock(cur, cur, dtype)
-        self.mid_attn = VAEAttnBlock(cur, dtype)
-        self.mid_res_1 = VAEResBlock(cur, cur, dtype)
-        plan += [("block", "mid_res_0"), ("block", "mid_attn"),
-                 ("block", "mid_res_1")]
+        plan += _mid_block(self, cfg, cur, dtype)
         self._plan = tuple(plan)
         self.norm_out = GroupNorm(cur)
-        self.conv_out = Conv(cur, 2 * cfg.z_channels, 3, dtype=dtype)
+        self.conv_out = Conv(cur, cfg.moments, 3, dtype=dtype)
 
     def forward(self, x):
         h = self.conv_in(x.to(self.dtype))
@@ -141,11 +168,7 @@ class Decoder(nn.Module):
         self.cfg, self.dtype = cfg, dtype
         cur = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = Conv(cfg.z_channels, cur, 3, dtype=dtype)
-        self.mid_res_0 = VAEResBlock(cur, cur, dtype)
-        self.mid_attn = VAEAttnBlock(cur, dtype)
-        self.mid_res_1 = VAEResBlock(cur, cur, dtype)
-        plan = [("block", "mid_res_0"), ("block", "mid_attn"),
-                ("block", "mid_res_1")]
+        plan = _mid_block(self, cfg, cur, dtype)
         for level, mult in reversed(list(enumerate(cfg.ch_mult))):
             ch = cfg.ch * mult
             for j in range(cfg.num_res_blocks + 1):
@@ -153,6 +176,10 @@ class Decoder(nn.Module):
                 setattr(self, name, VAEResBlock(cur, ch, dtype))
                 plan.append(("block", name))
                 cur = ch
+                if cfg.level_attn(level):
+                    name = f"up_{level}_attn_{j}"
+                    setattr(self, name, VAEAttnBlock(ch, dtype))
+                    plan.append(("block", name))
             if level != 0:
                 name = f"up_{level}_upsample"
                 setattr(self, name, Conv(ch, ch, 3, dtype=dtype))
@@ -179,7 +206,7 @@ class AutoencoderKL(nn.Module):
         self.cfg, self.dtype = cfg, dtype
         self.encoder = Encoder(cfg, dtype)
         self.decoder = Decoder(cfg, dtype)
-        self.quant_conv = Conv(2 * cfg.z_channels, 2 * cfg.embed_dim, 1,
+        self.quant_conv = Conv(cfg.moments, 2 * cfg.embed_dim, 1,
                                dtype=dtype)
         self.post_quant_conv = Conv(cfg.embed_dim, cfg.z_channels, 1,
                                     dtype=dtype)

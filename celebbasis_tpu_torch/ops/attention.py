@@ -34,6 +34,11 @@ without ``impl`` take, and the serving daemon reports it at start-up and in
 ``CELEBBASIS_FLASH_LAYOUT=bhnd`` routes through the per-head entry point
 ``flash_attention`` instead of the packed ``flash_attention_nhd``; both reach
 the same kernel, the per-head one through permuted views (no copy).
+
+``attention_heads`` takes per-head ``(B, H, N, D)`` tensors, views with any
+(batch, head, row) strides and a contiguous last dim, and goes to the
+per-head entry on the kernel route: the legacy UNet's ``AttentionBlock``
+hands it strided slices of its interleaved qkv projection that way.
 """
 from __future__ import annotations
 
@@ -97,6 +102,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = _plain_attention(qh, kh, vh, mask)
     return out.permute(0, 2, 1, 3).reshape(B, N, C)
+
+
+def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    impl: str | None = None) -> torch.Tensor:
+    """Unmasked attention over per-head tensors: q (B, H, N, D), k and v
+    (B, H, M, D), any strides with a contiguous last dim -> (B, H, N, D).
+    The same routes and head-dim rule as :func:`attention`."""
+    impl = impl or resolved_impl(q.device)
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}; got {impl!r}")
+    if impl == "cuda" and q.shape[-1] <= _flash.MAX_HEAD_DIM:
+        return _flash.flash_attention(q, k, v)
+    return _plain_attention(q, k, v, None)
 
 
 def _plain_attention(q, k, v, mask):

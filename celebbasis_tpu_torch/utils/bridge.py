@@ -9,10 +9,12 @@ model:
 * a conv kernel HWIO ``(kh, kw, in, out)`` -> OIHW ``(out, in, kh, kw)``;
 * a dense kernel ``(in, out)`` -> ``(out, in)``;
 * ``scale`` -> ``weight`` (norms, FrozenBN), ``embedding`` -> ``weight`` (the
-  token table); ``bias``, ``position_embedding``, FrozenBN's ``mean`` / ``var``
-  (buffers in the port), PReLU's ``alpha``, ``coef_table`` and the CLIP
-  towers' ``class_embedding`` and ``proj`` (used as ``x @ proj`` on both
-  sides) as they are;
+  token table, the VQ codebook, ``ClassEmbedder``); ``bias``,
+  ``position_embedding``, FrozenBN's ``mean`` / ``var`` (buffers in the
+  port), PReLU's ``alpha``, ``coef_table``, the CLIP towers'
+  ``class_embedding`` and ``proj`` (used as ``x @ proj`` on both sides),
+  BERT's ``token_emb`` / ``pos_emb``, and the leaves ``keep`` names (as
+  ``utils.bridge_xt`` does for the x-transformers leaves) as they are;
   a leaf already called ``weight`` (EqualLinear) is stored ``(out, in)`` in
   both packages and is **not** transposed;
 * IResNet's ``fc`` follows a flatten in ``(H, W, C)`` order in both packages
@@ -30,7 +32,13 @@ raises.
 The pretrained checkpoints map straight onto the port's names (torch's
 layouts are the port's, so nothing is transposed): ``convert_unet`` and
 ``convert_vae`` read the CompVis keys of ``sd-v1-4.ckpt``
-(``model.diffusion_model.*``, ``first_stage_model.*``), ``convert_clip_text``
+(``model.diffusion_model.*``, ``first_stage_model.*``) and of the legacy
+latent-diffusion checkpoints (the ``AttentionBlock``'s 1x1 conv1d ``qkv`` and
+``proj_out`` become ``Dense`` weights, residual resampling blocks, in-level
+first-stage attention), ``convert_vq`` a ``VQModel(Interface)`` first stage
+with its codebook, ``convert_bert_text`` the x-transformers
+``TransformerWrapper`` of ``BERTEmbedder``
+(``cond_stage_model.transformer.*``), ``convert_clip_text``
 the HF CLIP text keys (``cond_stage_model.transformer.[text_model.]*``),
 ``convert_iresnet`` an insightface ``backbone.pth``; ``load_sd_checkpoint``
 and ``load_iresnet_checkpoint`` read the files (``utils.pt_io.load_pt``) and
@@ -40,7 +48,8 @@ raises; values come back float32 (the CosFace file is fp16), and
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Set, Tuple)
 
 import numpy as np
 import torch
@@ -57,7 +66,8 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "position_embedding": "position_embedding",
                "weight": "weight", "mean": "mean", "var": "var",
                "alpha": "alpha", "coef_table": "coef_table",
-               "class_embedding": "class_embedding", "proj": "proj"}
+               "class_embedding": "class_embedding", "proj": "proj",
+               "token_emb": "token_emb", "pos_emb": "pos_emb"}
 _COLLECTIONS = ("params", "batch_stats")
 
 
@@ -73,10 +83,13 @@ def _convert_leaf(path, name: str, value) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))      # a writable, contiguous copy
 
 
-def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+def from_jax_params(tree: Mapping,
+                    keep: Callable[[str], bool] = lambda key: False
+                    ) -> Dict[str, torch.Tensor]:
     """Flax params tree -> state_dict.  A tree of several models
     (``{"unet": ..., "vae": ..., "clip": ...}``) gives keys prefixed by the
-    model's name, which is what ``CelebBasisPipeline.state_dict()`` has."""
+    model's name, which is what ``CelebBasisPipeline.state_dict()`` has.
+    A leaf name for which ``keep`` is true is taken as it is."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -85,10 +98,11 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
                 skip = key in _WRAPPER_LEVELS or key in _COLLECTIONS
                 walk(val, path if skip else path + (key,))
                 continue
-            if key not in _LEAF_NAMES:
+            leaf = _LEAF_NAMES.get(key) or (key if keep(key) else None)
+            if leaf is None:
                 raise KeyError(f"{'.'.join(path + (key,))}: unknown leaf "
                                f"name {key!r}")
-            name = ".".join(path + (_LEAF_NAMES[key],))
+            name = ".".join(path + (leaf,))
             if name in out:
                 raise KeyError(f"two leaves map to {name!r}")
             out[name] = _convert_leaf(path, key, val)
@@ -176,6 +190,15 @@ def _map_resblock(rd: _Reader, dst: str, src: str) -> None:
         rd.weight(f"{dst}.skip", f"{src}.skip_connection")
 
 
+def _map_attnblock(rd: _Reader, dst: str, src: str) -> None:
+    """The legacy ``AttentionBlock``: its 1x1 conv1d ``qkv`` and ``proj_out``
+    (out, in, 1) are ``Dense`` weights (out, in) here."""
+    rd.norm(f"{dst}.norm", f"{src}.norm")
+    for p in ("qkv", "proj_out"):
+        rd.put(f"{dst}.{p}.weight", rd.take(f"{src}.{p}.weight")[:, :, 0])
+        rd.put(f"{dst}.{p}.bias", rd.take(f"{src}.{p}.bias"))
+
+
 def _map_spatial(rd: _Reader, dst: str, src: str, depth: int) -> None:
     rd.norm(f"{dst}.norm", f"{src}.norm")
     rd.weight(f"{dst}.proj_in", f"{src}.proj_in")
@@ -202,20 +225,31 @@ def convert_unet(state: Mapping[str, torch.Tensor],
     rd.weight("time_fc1", "time_embed.0")
     rd.weight("time_fc2", "time_embed.2")
     rd.weight("conv_in", "input_blocks.0.0")
+
+    def attn(dst, src):
+        if cfg.use_spatial_transformer:
+            _map_spatial(rd, dst, src, cfg.transformer_depth)
+        else:
+            _map_attnblock(rd, dst, src)
+
     levels = len(cfg.channel_mult)
     idx, ds = 1, 1
     for level in range(levels):
         for j in range(cfg.num_res_blocks):
             _map_resblock(rd, f"down_{level}_res_{j}", f"input_blocks.{idx}.0")
             if ds in cfg.attention_resolutions:
-                _map_spatial(rd, f"down_{level}_attn_{j}",
-                             f"input_blocks.{idx}.1", cfg.transformer_depth)
+                attn(f"down_{level}_attn_{j}", f"input_blocks.{idx}.1")
             idx += 1
         if level != levels - 1:
-            rd.weight(f"down_{level}_downsample", f"input_blocks.{idx}.0.op")
+            if cfg.resblock_updown:
+                _map_resblock(rd, f"down_{level}_downsample",
+                              f"input_blocks.{idx}.0")
+            else:
+                rd.weight(f"down_{level}_downsample",
+                          f"input_blocks.{idx}.0.op")
             idx, ds = idx + 1, ds * 2
     _map_resblock(rd, "mid_res_0", "middle_block.0")
-    _map_spatial(rd, "mid_attn", "middle_block.1", cfg.transformer_depth)
+    attn("mid_attn", "middle_block.1")
     _map_resblock(rd, "mid_res_1", "middle_block.2")
     idx = 0
     for level in reversed(range(levels)):
@@ -223,13 +257,15 @@ def convert_unet(state: Mapping[str, torch.Tensor],
             _map_resblock(rd, f"up_{level}_res_{j}", f"output_blocks.{idx}.0")
             sub = 1
             if ds in cfg.attention_resolutions:
-                _map_spatial(rd, f"up_{level}_attn_{j}",
-                             f"output_blocks.{idx}.{sub}",
-                             cfg.transformer_depth)
+                attn(f"up_{level}_attn_{j}", f"output_blocks.{idx}.{sub}")
                 sub += 1
             if j == cfg.num_res_blocks and level != 0:
-                rd.weight(f"up_{level}_upsample",
-                          f"output_blocks.{idx}.{sub}.conv")
+                if cfg.resblock_updown:
+                    _map_resblock(rd, f"up_{level}_upsample",
+                                  f"output_blocks.{idx}.{sub}")
+                else:
+                    rd.weight(f"up_{level}_upsample",
+                              f"output_blocks.{idx}.{sub}.conv")
                 ds //= 2
             idx += 1
     rd.norm("norm_out", "out.0")
@@ -246,13 +282,55 @@ def _map_vae_res(rd: _Reader, dst: str, src: str) -> None:
         rd.weight(f"{dst}.nin_shortcut", f"{src}.nin_shortcut")
 
 
-def _map_vae_mid(rd: _Reader, side: str) -> None:
-    """The mid block of the encoder or the decoder: res, attention, res."""
-    _map_vae_res(rd, f"{side}.mid_res_0", f"{side}.mid.block_1")
-    rd.norm(f"{side}.mid_attn.norm", f"{side}.mid.attn_1.norm")
+def _map_vae_attn(rd: _Reader, dst: str, src: str) -> None:
+    rd.norm(f"{dst}.norm", f"{src}.norm")
     for p in ("q", "k", "v", "proj_out"):
-        rd.weight(f"{side}.mid_attn.{p}", f"{side}.mid.attn_1.{p}")
+        rd.weight(f"{dst}.{p}", f"{src}.{p}")
+
+
+def _map_vae_mid(rd: _Reader, side: str, cfg: VAEConfig) -> None:
+    """The mid block of the encoder or the decoder: res, attention (unless
+    ``attn_type`` is 'none'), res."""
+    _map_vae_res(rd, f"{side}.mid_res_0", f"{side}.mid.block_1")
+    if cfg.attn_type != "none":
+        _map_vae_attn(rd, f"{side}.mid_attn", f"{side}.mid.attn_1")
     _map_vae_res(rd, f"{side}.mid_res_1", f"{side}.mid.block_2")
+
+
+def _map_ldm_backbone(rd: _Reader, cfg: VAEConfig) -> None:
+    """The ldm Encoder / Decoder shared by the KL and VQ first stages, with
+    the in-level attention of ``attn_resolutions``."""
+    n_levels = len(cfg.ch_mult)
+    rd.weight("encoder.conv_in", "encoder.conv_in")
+    for lv in range(n_levels):
+        for j in range(cfg.num_res_blocks):
+            _map_vae_res(rd, f"encoder.down_{lv}_res_{j}",
+                         f"encoder.down.{lv}.block.{j}")
+            if cfg.level_attn(lv):
+                _map_vae_attn(rd, f"encoder.down_{lv}_attn_{j}",
+                              f"encoder.down.{lv}.attn.{j}")
+        if lv != n_levels - 1:
+            rd.weight(f"encoder.down_{lv}_downsample",
+                      f"encoder.down.{lv}.downsample.conv")
+    _map_vae_mid(rd, "encoder", cfg)
+    rd.norm("encoder.norm_out", "encoder.norm_out")
+    rd.weight("encoder.conv_out", "encoder.conv_out")
+    rd.weight("decoder.conv_in", "decoder.conv_in")
+    _map_vae_mid(rd, "decoder", cfg)
+    for lv in range(n_levels):        # torch's ``up`` is indexed by level
+        for j in range(cfg.num_res_blocks + 1):
+            _map_vae_res(rd, f"decoder.up_{lv}_res_{j}",
+                         f"decoder.up.{lv}.block.{j}")
+            if cfg.level_attn(lv):
+                _map_vae_attn(rd, f"decoder.up_{lv}_attn_{j}",
+                              f"decoder.up.{lv}.attn.{j}")
+        if lv != 0:
+            rd.weight(f"decoder.up_{lv}_upsample",
+                      f"decoder.up.{lv}.upsample.conv")
+    rd.norm("decoder.norm_out", "decoder.norm_out")
+    rd.weight("decoder.conv_out", "decoder.conv_out")
+    rd.weight("quant_conv", "quant_conv")
+    rd.weight("post_quant_conv", "post_quant_conv")
 
 
 def convert_vae(state: Mapping[str, torch.Tensor],
@@ -262,31 +340,44 @@ def convert_vae(state: Mapping[str, torch.Tensor],
     """CompVis ``AutoencoderKL`` keys (``ldm.modules.diffusionmodules.model``
     Encoder / Decoder) -> ``models.vae.AutoencoderKL``'s state dict."""
     rd = _Reader(state, prefix, used)
-    n_levels = len(cfg.ch_mult)
-    rd.weight("encoder.conv_in", "encoder.conv_in")
-    for lv in range(n_levels):
-        for j in range(cfg.num_res_blocks):
-            _map_vae_res(rd, f"encoder.down_{lv}_res_{j}",
-                         f"encoder.down.{lv}.block.{j}")
-        if lv != n_levels - 1:
-            rd.weight(f"encoder.down_{lv}_downsample",
-                      f"encoder.down.{lv}.downsample.conv")
-    _map_vae_mid(rd, "encoder")
-    rd.norm("encoder.norm_out", "encoder.norm_out")
-    rd.weight("encoder.conv_out", "encoder.conv_out")
-    rd.weight("decoder.conv_in", "decoder.conv_in")
-    _map_vae_mid(rd, "decoder")
-    for lv in range(n_levels):        # torch's ``up`` is indexed by level
-        for j in range(cfg.num_res_blocks + 1):
-            _map_vae_res(rd, f"decoder.up_{lv}_res_{j}",
-                         f"decoder.up.{lv}.block.{j}")
-        if lv != 0:
-            rd.weight(f"decoder.up_{lv}_upsample",
-                      f"decoder.up.{lv}.upsample.conv")
-    rd.norm("decoder.norm_out", "decoder.norm_out")
-    rd.weight("decoder.conv_out", "decoder.conv_out")
-    rd.weight("quant_conv", "quant_conv")
-    rd.weight("post_quant_conv", "post_quant_conv")
+    _map_ldm_backbone(rd, cfg)
+    return rd.out
+
+
+def convert_vq(state: Mapping[str, torch.Tensor], cfg: VAEConfig,
+               prefix: str = "first_stage_model.",
+               used: Optional[Set[str]] = None) -> Dict[str, torch.Tensor]:
+    """A ``VQModel(Interface)`` first stage -> ``models.vq.VQModel``'s state
+    dict: the KL backbone's keys plus the codebook
+    (``quantize.embedding.weight``, taming's ``VectorQuantizer2``)."""
+    rd = _Reader(state, prefix, used)
+    _map_ldm_backbone(rd, cfg)
+    rd.put("quantize.weight", rd.take("quantize.embedding.weight"))
+    return rd.out
+
+
+def convert_bert_text(state: Mapping[str, torch.Tensor], depth: int,
+                      prefix: str = "cond_stage_model.transformer.",
+                      used: Optional[Set[str]] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """x-transformers ``TransformerWrapper`` keys (``BERTEmbedder``) ->
+    ``models.bert_text.BERTTextEncoder``'s state dict.  The layer list
+    alternates attention and feed-forward entries, each a ``ModuleList([norm,
+    block, residual])``; ``to_logits`` is not read (the embedder returns
+    embeddings)."""
+    rd = _Reader(state, prefix, used)
+    rd.put("token_emb", rd.take("token_emb.weight"))
+    rd.put("pos_emb", rd.take("pos_emb.emb.weight"))
+    for i in range(depth):
+        a, f = f"attn_layers.layers.{2 * i}", f"attn_layers.layers.{2 * i + 1}"
+        rd.norm(f"attn_ln_{i}", f"{a}.0")
+        for p in ("to_q", "to_k", "to_v"):
+            rd.weight(f"attn_{i}.{p}", f"{a}.1.{p}", bias=False)
+        rd.weight(f"attn_{i}.to_out", f"{a}.1.to_out")
+        rd.norm(f"ff_ln_{i}", f"{f}.0")
+        rd.weight(f"ff_{i}.fc1", f"{f}.1.net.0.0")
+        rd.weight(f"ff_{i}.fc2", f"{f}.1.net.2")
+    rd.norm("norm_out", "norm")
     return rd.out
 
 

@@ -15,6 +15,7 @@ matmul precision in ``cli/eval_imgs.py``.
 from __future__ import annotations
 
 import contextlib
+from typing import Iterable
 
 import torch
 import torch.nn as nn
@@ -36,11 +37,15 @@ def no_tf32():
 
 
 def cast_float_params(module: nn.Module,
-                      dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+                      dtype: torch.dtype = torch.bfloat16,
+                      keep: Iterable[nn.Module] = ()) -> nn.Module:
     """Cast every float32 parameter and buffer of ``module`` to ``dtype``, in
-    place; other types are left untouched, so a second call is a no-op."""
+    place, except those of the submodules in ``keep``; other types are left
+    untouched, so a second call is a no-op."""
+    kept = {id(t) for m in keep
+            for t in list(m.parameters()) + list(m.buffers())}
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
-            if t.dtype == torch.float32:
+            if t.dtype == torch.float32 and id(t) not in kept:
                 t.data = t.data.to(dtype)
     return module

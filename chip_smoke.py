@@ -10,10 +10,11 @@ live faces), personalisation training (``celebbasis_tpu_torch.train``, and
 generation through the CLIs (``cli/{txt2img,img2img,build_basis,extract}``,
 and the DDPM chain), the textual-inversion baseline (``cli/train_ti``,
 ``cli/merge``, ``txt2img --ti_embedding``), the evaluation
-(``cli/gen_imgs``, ``cli/eval_imgs``), face alignment (``cli/align``) and
-the landmark trainers (``cli/preprocess_pipnet``, ``cli/train_pipnet``,
-``cli/train_pipnet_gssl``) -- and holds every hand-written kernel against
-its plain PyTorch version.  Phases:
+(``cli/gen_imgs``, ``cli/eval_imgs``), face alignment (``cli/align``), the
+landmark trainers (``cli/preprocess_pipnet``, ``cli/train_pipnet``,
+``cli/train_pipnet_gssl``) and the legacy latent-diffusion family
+(``cli/evaluate_model``, ``cli/sample_diffusion``, ``cli/inpaint``) -- and
+holds every hand-written kernel against its plain PyTorch version.  Phases:
 
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
 2. ``build``   builds the kernel libraries from ``celebbasis_tpu_torch/csrc``,
@@ -35,9 +36,17 @@ its plain PyTorch version.  Phases:
                serving and training shapes in bf16 and fp32, and
                ``int8_matmul`` at the UNet's projection shapes and two ragged
                ones, in every mode that can run each shape, bit for bit, and
-               on every bf16 value its quantisation tells apart; and the
+               on every bf16 value its quantisation tells apart; the
                packed forward at the scorer's ViT-B/32 shape (12 heads, 50
-               tokens, D = 64; batches 2 and 32; fp32 and bf16, timed);
+               tokens, D = 64; batches 2 and 32; fp32 and bf16, timed); and
+               both forward entries at the legacy family's shapes (timed):
+               the CelebA-HQ UNet's AttentionBlocks (D = 32, 14, 21 and 28
+               heads at 1024, 256 and 64 tokens; the per-head entry on
+               strided slices of one interleaved qkv projection, as the
+               block hands them over, here and below), BERT's attention (8
+               heads, D = 64, 77 tokens) and the tiny inpainting UNet's
+               mid-block AttentionBlock (one image, 8 heads, D = 8, 64
+               tokens), with a peaked softmax too at 21 heads and at D = 8;
 4. ``parity``  the norms' bf16 branch with float32 parameters against the
                float32 formula rounded once (within one bf16 unit); the tiny
                pipeline in fp32 through the kernel route and through the
@@ -146,7 +155,26 @@ its plain PyTorch version.  Phases:
                then ``eval_imgs`` with ``--detector_ckpt`` / ``--pipnet_ckpt``
                (the align phase's files): scores finite, the cropper
                launching no hand-written kernel;
-14. ``warmup`` ``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults
+14. ``legacy`` the legacy family at full width, bf16, random weights from a
+               seed with the output convs drawn: ``cli/evaluate_model.py`` on
+               ``txt2img-1p4B-eval.yaml`` (BERT 32 x 1280, 4 samples, CFG
+               5.0, 50 DDIM steps, a textual-inversion vector injected into
+               BERT, random ViT-B/32 CLIP scoring in fp32),
+               ``cli/sample_diffusion.py`` on ``celebahq-ldm-vq-4.yaml``
+               (VQ-f4, 4 samples, 50 DDIM steps; each of its three
+               attention levels' AttentionBlock in fp32 against the
+               reference's arithmetic written out) and ``cli/inpaint.py`` at
+               the tiny concat configuration: wall, peak memory, launches
+               of the flash forward per chain, per UNet call and per BERT
+               encode, device ms per (guided) UNet forward, the CLI's images
+               equal to a replay of its graph, the captured chain's bits
+               equal to the eager chain's, the unmasked pixels of the
+               inpainting bit for bit, the card's VQ indices against the
+               CPU quantizer's (the share that differs, each a near-tie);
+               and the tiny fp32 legacy configs on the kernel route against
+               the plain route (float images within 1e-3, pixels within one
+               level);
+15. ``warmup`` ``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults
                in a process of its own: the kernel libraries built, the
                train-step and txt2img graphs captured, seconds of each.
 
@@ -334,6 +362,24 @@ ALIGN_TRAIN_BATCH = 16
 ALIGN_TRAIN_TOL = {"loss": 1e-4, "grad_rel_l2_median": 1e-3,
                    "grad_rel_l2_max": 1e-2, "param_lr_max": 2.01,
                    "param_lr_mean": 1e-3, "param_share_over_half_lr": 1e-3}
+# the legacy phase: the legacy family's full-width configurations, and each
+# CLI run's samples, DDIM steps and guidance
+LEGACY_CONFIGS = os.path.join(REPO, "celebbasis_tpu_torch", "configs")
+LEGACY_SAMPLES, LEGACY_STEPS, LEGACY_SCALE = 4, 50, 5.0
+BERT_ATTN = 32               # one attention a layer of BERT's 32
+CELEBAHQ_ATTN = 16           # AttentionBlocks of the CelebA-HQ UNet
+# (B, H, N = M, D) of the legacy paths: the CelebA-HQ AttentionBlocks at 32^2,
+# 16^2 and 8^2 latents (D = 32 padded to 48) and BERT's 77-token attention
+# (D = 64 padded to 80), at the CLIs' batch of 4; the tiny inpainting UNet's
+# mid-block AttentionBlock (one image, 8 heads of 8 padded to 48, 8^2 tokens)
+LEGACY_ATTN_SHAPES = ((4, 14, 1024, 32), (4, 21, 256, 32), (4, 28, 64, 32),
+                      (4, 8, 77, 64), (1, 8, 64, 8))
+# head dims of the legacy AttentionBlocks, which hand the per-head entry
+# strided slices of their interleaved q/k/v projection
+LEGACY_BLOCK_HEAD_DIMS = (32, 8)
+# a VQ index on the card may differ from the CPU quantizer's only where the
+# two codes' float32 distances lie within this of the row's largest distance
+VQ_TIE_REL = 1e-5
 SCORE_KEYS = {"image_sim", "text_sim", "id_cos_sim", "id_mse_dist",
               "id_l2_dist", "num_has_face", "num_no_face", "n_items",
               "n_id_items", "fid"}
@@ -601,16 +647,27 @@ def bound(B, H, N, M, D, dtype):
                                        else "bytes")
 
 
-def check_shape(entry, B, H, N, M, D, dtype, timed, q_scale=1.0):
+def check_shape(entry, B, H, N, M, D, dtype, timed, q_scale=1.0,
+                interleaved=False):
     """`q_scale` 1 gives logits of unit variance (a nearly flat softmax over
     many keys, outputs of a few hundredths); 4 gives a peaked softmax and
-    outputs of unit scale at any M."""
+    outputs of unit scale at any M.  `interleaved` (the per-head entry, N =
+    M) hands over q, k and v as the legacy UNet's AttentionBlock does:
+    strided slices of one (B, N, H, 3, D) projection."""
     g = torch.Generator(device="cuda").manual_seed(N * 131 + M * 7 + D)
-    mk = lambda L, scale=1.0: (torch.randn(B, L, H * D, device="cuda",
-                                           generator=g) * scale).to(dtype)
-    q, k, v = mk(N, q_scale), mk(M), mk(M)
-    heads = lambda x: x.reshape(B, x.shape[1], H, D).permute(0, 2, 1, 3)
-    q4, k4, v4 = heads(q), heads(k), heads(v)
+    if interleaved:
+        if entry != "flash_attention" or N != M:
+            raise ValueError("interleaved q/k/v: per-head entry, N = M")
+        gain = torch.tensor([q_scale, 1.0, 1.0], device="cuda")[:, None]
+        qkv = (torch.randn(B, N, H, 3, D, device="cuda", generator=g)
+               * gain).to(dtype)
+        q4, k4, v4 = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+    else:
+        mk = lambda L, scale=1.0: (torch.randn(B, L, H * D, device="cuda",
+                                               generator=g) * scale).to(dtype)
+        q, k, v = mk(N, q_scale), mk(M), mk(M)
+        heads = lambda x: x.reshape(B, x.shape[1], H, D).permute(0, 2, 1, 3)
+        q4, k4, v4 = heads(q), heads(k), heads(v)
     if entry == "flash_attention_nhd":
         run = lambda: fa.flash_attention_nhd(q, k, v, H)
         plain = lambda: fa.flash_attention_nhd_plain(q, k, v, H)
@@ -628,6 +685,7 @@ def check_shape(entry, B, H, N, M, D, dtype, timed, q_scale=1.0):
                            f"vs plain {ref.shape} {ref.dtype}")
     err = (out.float() - ref.float()).abs().max().item()
     rec = {"B": B, "H": H, "N": N, "M": M, "D": D, "q_scale": q_scale,
+           "interleaved": interleaved,
            "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": err, "tol": TOL[dtype],
            "ref_rms": ref.float().square().mean().sqrt().item(),
@@ -713,6 +771,18 @@ def phase_kernels():
                         shapes.append(check_shape(
                             entry, B, VIT_HEADS, VIT_TOKENS, VIT_TOKENS,
                             VIT_HEAD_DIM, dtype, timed=True))
+        # the legacy phase's shapes: the per-head entry on the
+        # AttentionBlocks' interleaved slices, as they hand them over; and
+        # once each with a peaked softmax
+        for B, H, N, D in LEGACY_ATTN_SHAPES:
+            shapes.append(check_shape(
+                entry, B, H, N, N, D, torch.bfloat16, timed=True,
+                interleaved=entry == "flash_attention"
+                and D in LEGACY_BLOCK_HEAD_DIMS))
+        for B, H, N, D in ((4, 21, 256, 32), (1, 8, 64, 8)):
+            shapes.append(check_shape(
+                entry, B, H, N, N, D, torch.bfloat16, timed=False,
+                q_scale=4.0, interleaved=entry == "flash_attention"))
         records[entry] = shapes
     return records
 
@@ -3964,6 +4034,455 @@ def graph_summary(request_ms, train_ms, ti):
 
 # -- phase 14 -----------------------------------------------------------------
 
+class LegacyRuns:
+    """While entered, every ``legacy.prepare`` (the one the legacy CLIs call)
+    draws the UNet's zero-initialised output convs too (its random weights
+    otherwise predict eps = 0) and counts the UNet's calls; the models it
+    prepares and the sample functions they make are kept (``models``,
+    ``samplers``); ``calls`` and ``assemble_s`` add up over the window."""
+
+    def __enter__(self):
+        import functools
+
+        from celebbasis_tpu_torch import legacy
+        self.calls, self.assemble_s = 0, 0.0
+        self.models, self.samplers = [], []
+        self._legacy = legacy
+        self._saved = (legacy.init_weights, legacy.prepare,
+                       legacy.LegacyLDM.make_sample_fn)
+        real_init, real_prepare, real_make = self._saved
+        legacy.init_weights = functools.partial(real_init, zero_convs=False)
+
+        def prepare(*args, **kw):
+            t0 = time.perf_counter()
+            ldm = real_prepare(*args, **kw)
+            ldm.unet.register_forward_pre_hook(self._count)
+            self.models.append(ldm)
+            self.assemble_s += time.perf_counter() - t0
+            return ldm
+
+        def make_sample_fn(ldm, *args, **kw):
+            fn = real_make(ldm, *args, **kw)
+            self.samplers.append(fn)
+            return fn
+
+        legacy.prepare = prepare
+        legacy.LegacyLDM.make_sample_fn = make_sample_fn
+        return self
+
+    def _count(self, module, args):
+        self.calls += 1
+
+    def __exit__(self, *exc):
+        legacy = self._legacy
+        (legacy.init_weights, legacy.prepare,
+         legacy.LegacyLDM.make_sample_fn) = self._saved
+
+
+def legacy_gens(seed, n):
+    from celebbasis_tpu_torch.diffusion.sampler import sample_seed
+    return [torch.Generator(device="cuda").manual_seed(sample_seed(seed, j))
+            for j in range(n)]
+
+
+def legacy_unet_probe(ldm, x, ctx):
+    """One UNet forward on (x, ctx) at t = 500: -> (its flash launches,
+    device ms per forward on a replayed graph)."""
+    t = torch.full((x.shape[0],), 500, device="cuda")
+    with torch.inference_mode():
+        fa.reset_launch_count()
+        ldm.unet(x, t, ctx)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in fa.launch_counts().items() if c}
+        ms = time_ms(lambda: ldm.unet(x, t, ctx), 5)[0]
+    return launches, ms
+
+
+def legacy_chain(name, rec, fn, cond, per_replay):
+    """The CLI's sample function after its run: one replay's launches are
+    ``per_replay``, the window held one capture and its launches were
+    ``per_replay`` for the warm-up and for the replay, the UNet hook saw
+    the warm-up's and the capture's calls; a replay and the same function
+    uncaptured give the same bits.  -> the replayed images."""
+    got = fn.captured.launches_per_replay()
+    if rec["captures"] != 1 or got != per_replay \
+            or rec["unet_calls"] != graphed_unet_calls(LEGACY_STEPS, rec):
+        raise RuntimeError(f"legacy: {name} captured {rec['captures']} "
+                           f"graphs, {got} launches a replay (expected "
+                           f"{per_replay}), {rec['unet_calls']} UNet calls")
+    for entry, n in per_replay.items():
+        if rec["launches"].get(entry, 0) < 2 * n:
+            raise RuntimeError(f"legacy: {name} launched {rec['launches']}")
+    replay = fn(cond, LEGACY_SAMPLES, legacy_gens(7, LEGACY_SAMPLES))
+    eager = fn.eager(cond, LEGACY_SAMPLES, legacy_gens(7, LEGACY_SAMPLES))
+    torch.cuda.synchronize()
+    rec["graph_equals_eager"] = bool(torch.equal(replay, eager))
+    log("legacy", f"{name}: {LEGACY_STEPS}-step chain on its graph and "
+                  f"eagerly: bits equal {rec['graph_equals_eager']}")
+    if not rec["graph_equals_eager"]:
+        raise RuntimeError(f"legacy: {name}'s captured chain differs from "
+                           f"the eager chain")
+    return replay
+
+
+def check_attention_block(block, side, batch=2):
+    """One AttentionBlock of a UNet, copied to fp32, on the card (the
+    per-head kernel entry) against the reference's arithmetic written out
+    (openaimodel.py's QKVAttentionLegacy on the 1x1 projection's (B, 3C, T)
+    output: reshaped to (B * heads, 3 dh, T) and split into q, k, v along
+    the channels), TF32 off: within 1e-4 of the largest entry of the
+    attention branch.  A wrong split of the interleaved channels keeps every
+    shape; this check does not share the block's code for it.  -> a
+    record."""
+    import copy
+    blk = copy.deepcopy(block).float()
+    for m in blk.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float32
+    C, heads = blk.qkv.in_features, blk.heads
+    dh, T = C // heads, side * side
+    g = torch.Generator(device="cuda").manual_seed(C + side)
+    x = torch.randn(batch, side, side, C, device="cuda",
+                    generator=g).permute(0, 3, 1, 2)
+    with no_tf32(), torch.inference_mode():
+        before = fa.launch_count("flash_attention")
+        got = blk(x) - x
+        launched = fa.launch_count("flash_attention") - before
+        h = blk.norm(x).permute(0, 2, 3, 1).reshape(batch, T, C)
+        qkv = (h @ blk.qkv.weight.t() + blk.qkv.bias).transpose(1, 2)
+        q, k, v = qkv.reshape(batch * heads, 3 * dh, T).split(dh, dim=1)
+        s = dh ** -0.25
+        w = torch.einsum("bct,bcs->bts", q * s, k * s).softmax(-1)
+        a = torch.einsum("bts,bcs->bct", w, v).reshape(batch, C, T)
+        ref = (a.transpose(1, 2) @ blk.proj_out.weight.t()
+               + blk.proj_out.bias)
+        ref = ref.reshape(batch, side, side, C).permute(0, 3, 1, 2)
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    rec = {"C": C, "heads": heads, "tokens": T, "rel_err": err,
+           "launches": launched}
+    log("legacy", f"AttentionBlock {C} channels, {heads} heads of {dh}, "
+                  f"{T} tokens, fp32: relative error {err:.2e} against the "
+                  f"reference's arithmetic ({launched} launch)")
+    if launched != 1 or not err <= 1e-4:
+        raise RuntimeError(f"legacy: AttentionBlock disagrees with the "
+                           f"reference's arithmetic: {rec}")
+    return rec
+
+
+def celebahq_attention_blocks(ldm):
+    """(block, latent side) of each attention level of the CelebA-HQ
+    UNet: 32^2, 16^2 and the 8^2 mid block."""
+    u = ldm.unet
+    return [(u.down_1_attn_0, 32), (u.down_2_attn_0, 16), (u.mid_attn, 8)]
+
+
+def vq_flips(ldm, images_u8):
+    """The VQ quantizer on the card against the same quantizer on the CPU,
+    on the pre-quant latents of `images_u8`: -> (rows, rows whose index
+    differs, all of them near-ties)."""
+    import copy
+    with torch.inference_mode():
+        x = torch.from_numpy(images_u8).cuda().float() / 127.5 - 1.0
+        h = ldm.first_stage.encode(x)
+        idx_card = ldm.first_stage.quantize(h)[2].reshape(-1).cpu()
+        quant = copy.deepcopy(ldm.first_stage.quantize).cpu()
+        d = quant.distances(h.cpu())
+    idx_cpu = d.argmin(1)
+    rows = torch.nonzero(idx_card != idx_cpu).flatten()
+    gap = (d[rows, idx_card[rows]] - d[rows, idx_cpu[rows]]).abs()
+    ties = bool((gap <= VQ_TIE_REL * d[rows].abs().amax(1)).all())
+    return len(idx_cpu), len(rows), ties
+
+
+def legacy_route_parity():
+    """The tiny legacy configs in fp32 (``configs/tiny_legacy.yaml``: VQ
+    first stage, AttentionBlocks of head dim 8 on the per-head entry;
+    ``tiny_legacy_bert.yaml``: BERT on the packed entry, CFG 5), 3 DDIM
+    steps, kernel route against plain route as ``check_generation_parity``
+    holds txt2img: float images within 1e-3, pixels within one level.  The
+    VQ config decodes without quantizing, so that a flipped code index
+    does not stand for the attention routes' difference."""
+    import yaml
+
+    from celebbasis_tpu_torch import legacy
+    from celebbasis_tpu_torch.pipeline import finish_images
+
+    out = {}
+    for name, scale in (("tiny_legacy", 1.0),
+                        ("tiny_legacy_bert", LEGACY_SCALE)):
+        with open(os.path.join(REPO, "configs", f"{name}.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        with LegacyRuns():
+            ldm = legacy.prepare(cfg, seed=3, device="cuda",
+                                 precision="fp32")
+        fn = ldm.make_sample_fn(num_steps=3, guidance_scale=scale,
+                                force_not_quantize=True)
+        cond = None if ldm.cond_kind == "uncond" else \
+            ["a painting of a dog", "a photo of a cat"]
+        x_T = torch.randn(2, ldm.image_size, ldm.image_size, ldm.channels,
+                          device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(4))
+        img_k, n_k, img_p, n_p = kernel_vs_plain(
+            lambda: fn(cond, 2, None, x_T=x_T))
+        dfloat = (img_k - img_p).abs().max().item()
+        dpix = (finish_images(img_k, "uint8").int()
+                - finish_images(img_p, "uint8").int()).abs().max().item()
+        out[name] = {"kernel_launches": n_k, "plain_launches": n_p,
+                     "max_float_diff": dfloat, "max_pixel_diff": dpix}
+        log("legacy", f"{name} fp32, 3 steps: kernel route launches {n_k} "
+                      f"(plain route {n_p}), max |float diff| {dfloat:.3e}, "
+                      f"max pixel diff {dpix} levels, image std "
+                      f"{img_k.std().item():.3f}")
+        if not torch.isfinite(img_k).all() or img_k.std().item() < 1e-3:
+            raise RuntimeError(f"legacy: the {name} image is not finite or "
+                               f"is constant")
+        if n_k == 0 or n_p != 0:
+            raise RuntimeError(f"legacy: {name}'s routes did not go where "
+                               f"they should ({n_k} / {n_p})")
+        if dfloat > 1e-3 or dpix > 1:
+            raise RuntimeError(f"legacy: {name}'s routes differ by "
+                               f"{dfloat:.3e} (> 1e-3) or {dpix} levels (> 1)")
+    return out
+
+
+def legacy_evaluate_model(work):
+    """``cli/evaluate_model.py`` on txt2img-1p4B-eval.yaml (module
+    docstring, phase 14).  -> its record."""
+    from celebbasis_tpu_torch.cli import evaluate_model
+    from celebbasis_tpu_torch.pipeline import finish_images
+    from celebbasis_tpu_torch.text.bert_tokenizer import \
+        default_bert_tokenizer
+
+    data = os.path.join(work, "legacy_subject")
+    write_pngs(data, ["s0.png", "s1.png"], 71)
+    emb = os.path.join(work, "legacy_ti.pt")
+    star = default_bert_tokenizer().tokenize("*")[0]
+    vec = torch.randn(1, 1280, generator=torch.Generator().manual_seed(8))
+    torch.save({"string_to_token": {"*": torch.tensor(star)},
+                "string_to_param": {"*": vec}}, emb)
+    prompt = "a painting of a * monster playing guitar"
+    out = os.path.join(work, "legacy_eval")
+    with LegacyRuns() as runs:
+        scores, rec = measured("evaluate_model", runs,
+                               lambda: evaluate_model.main([
+                                   "--config", os.path.join(
+                                       LEGACY_CONFIGS,
+                                       "txt2img-1p4B-eval.yaml"),
+                                   "--data-dir", data, "--out-dir", out,
+                                   "--embedding-path", emb, "--prompt",
+                                   prompt, "--n-samples",
+                                   str(LEGACY_SAMPLES), "--batch-size",
+                                   str(LEGACY_SAMPLES), "--steps",
+                                   str(LEGACY_STEPS), "--scale",
+                                   str(LEGACY_SCALE)]), phase="legacy")
+    (ldm,), fn = runs.models, runs.samplers[-1]
+    folder = os.path.join(out, prompt.replace(" ", "-"))
+    from PIL import Image
+    pngs = np.stack([np.asarray(Image.open(os.path.join(folder,
+                                                        f"{i:03}.png")))
+                     for i in range(LEGACY_SAMPLES)])
+    if pngs.shape != (LEGACY_SAMPLES, 256, 256, 3) \
+            or min(im.std() for im in pngs) < 1.0 \
+            or not all(np.isfinite(scores[k]) and -1 <= scores[k] <= 1
+                       for k in ("sim_img", "sim_text")):
+        raise RuntimeError(f"legacy: evaluate_model wrote {pngs.shape}, "
+                           f"scores {scores}")
+    chain = {"flash_attention_nhd": 2 * BERT_ATTN
+             + LEGACY_STEPS * ATTN_PER_UNET}
+    vit = rec["launches"].get("flash_attention_nhd", 0) \
+        - 2 * chain["flash_attention_nhd"]
+    if vit <= 0 or vit % VIT_LAYERS or rec["launches"].get("flash_attention"):
+        raise RuntimeError(f"legacy: evaluate_model launched "
+                           f"{rec['launches']}; the chain's warm-up and "
+                           f"replay account for {chain} each")
+    rec["vit_launches"] = vit
+    replay = legacy_chain("evaluate_model", rec, fn,
+                          [prompt] * LEGACY_SAMPLES, chain)
+    # the CLI's images are its graph's: image j of batch 0 from
+    # sample_seed(17, j), evaluate_model's default seed
+    again = fn([prompt] * LEGACY_SAMPLES, LEGACY_SAMPLES,
+               legacy_gens(17, LEGACY_SAMPLES))
+    if not np.array_equal(finish_images(again, "uint8").cpu().numpy(),
+                          pngs):
+        raise RuntimeError("legacy: evaluate_model's images are not its "
+                           "graph's")
+    n = LEGACY_SAMPLES
+    ids = ldm.conditioning_input([prompt] * n)
+    with torch.inference_mode():
+        fa.reset_launch_count()
+        ctx = ldm.learned_conditioning(ids)
+        torch.cuda.synchronize()
+        rec["launches_per_bert"] = {k: c for k, c in fa.launch_counts()
+                                    .items() if c}
+        x = torch.randn(2 * n, 32, 32, 4, device="cuda")
+        rec["launches_per_unet"], rec["unet_ms"] = legacy_unet_probe(
+            ldm, x, torch.cat([ctx, ctx]))
+    if rec["launches_per_bert"] != {"flash_attention_nhd": BERT_ATTN} \
+            or rec["launches_per_unet"] != {
+                "flash_attention_nhd": ATTN_PER_UNET}:
+        raise RuntimeError(f"legacy: a BERT encode launched "
+                           f"{rec['launches_per_bert']}, a UNet call "
+                           f"{rec['launches_per_unet']}")
+    rec.update(scores=scores, image_std=float(replay.std()))
+    log("legacy", f"evaluate_model: a guided UNet forward (batch {2 * n}, "
+                  f"32^2 latents, context 77x1280) {rec['unet_ms']:.3f} ms "
+                  f"on the device; launches a UNet call "
+                  f"{json.dumps(rec['launches_per_unet'])}, a BERT encode "
+                  f"{json.dumps(rec['launches_per_bert'])}, the ViT scorer "
+                  f"{vit}; scores {json.dumps(scores)}")
+    del ldm, runs, fn
+    return rec
+
+
+def legacy_sample_diffusion(work):
+    """``cli/sample_diffusion.py`` on celebahq-ldm-vq-4.yaml (module
+    docstring, phase 14).  -> its record."""
+    from celebbasis_tpu_torch.cli import sample_diffusion
+
+    out = os.path.join(work, "legacy_samples")
+    with LegacyRuns() as runs:
+        imgs, rec = measured("sample_diffusion", runs,
+                             lambda: sample_diffusion.main([
+                                 "--config", os.path.join(
+                                     LEGACY_CONFIGS,
+                                     "celebahq-ldm-vq-4.yaml"),
+                                 "--logdir", out, "-n", str(LEGACY_SAMPLES),
+                                 "--batch-size", str(LEGACY_SAMPLES),
+                                 "--custom-steps", str(LEGACY_STEPS)]),
+                             phase="legacy")
+    (ldm,), fn = runs.models, runs.samplers[-1]
+    check_images("sample_diffusion", imgs, LEGACY_SAMPLES, 256)
+    chain = {"flash_attention": LEGACY_STEPS * CELEBAHQ_ATTN}
+    if rec["launches"] != {"flash_attention": 2 * chain["flash_attention"]}:
+        raise RuntimeError(f"legacy: sample_diffusion launched "
+                           f"{rec['launches']}; expected the chain's "
+                           f"{chain} twice (warm-up and replay)")
+    legacy_chain("sample_diffusion", rec, fn, None, chain)
+    x = torch.randn(LEGACY_SAMPLES, 64, 64, 3, device="cuda")
+    rec["launches_per_unet"], rec["unet_ms"] = legacy_unet_probe(ldm, x,
+                                                                 None)
+    if rec["launches_per_unet"] != {"flash_attention": CELEBAHQ_ATTN}:
+        raise RuntimeError(f"legacy: a CelebA-HQ UNet call launched "
+                           f"{rec['launches_per_unet']}")
+    rec["attention_blocks"] = [check_attention_block(blk, side) for
+                               blk, side in celebahq_attention_blocks(ldm)]
+    rows, flips, ties = vq_flips(ldm, imgs)
+    rec["vq"] = {"rows": rows, "flips": flips, "flip_share": flips / rows,
+                 "all_near_ties": ties, "tie_rel": VQ_TIE_REL}
+    log("legacy", f"sample_diffusion: a UNet forward (batch "
+                  f"{LEGACY_SAMPLES}, 64^2x3 latents) {rec['unet_ms']:.3f} "
+                  f"ms on the device; launches a UNet call "
+                  f"{json.dumps(rec['launches_per_unet'])}; VQ indices on "
+                  f"the card vs the CPU quantizer: {flips} of {rows} differ "
+                  f"({flips / rows:.2e}), all near-ties {ties}")
+    if not ties:
+        raise RuntimeError("legacy: a VQ index differs from the CPU's "
+                           "beyond a near-tie")
+    del ldm, runs, fn
+    return rec
+
+
+def legacy_inpaint(work):
+    """``cli/inpaint.py`` at the tiny concat configuration (module
+    docstring, phase 14).  -> its record."""
+    import yaml
+
+    from celebbasis_tpu_torch.cli import inpaint
+    from celebbasis_tpu_torch.pipeline import finish_images
+
+    z = 3
+    cfg = {"model": {"params": {
+        "linear_start": 0.0015, "linear_end": 0.0195, "timesteps": 16,
+        "image_size": 16, "channels": z, "concat_mode": True,
+        "cond_stage_config": "__is_first_stage__",
+        "unet_config": {"params": {
+            "in_channels": 2 * z + 1, "out_channels": z,
+            "model_channels": 32, "attention_resolutions": [],
+            "num_res_blocks": 1, "channel_mult": [1, 2],
+            "num_head_channels": 8}},
+        "first_stage_config": {
+            "target": "ldm.models.autoencoder.VQModelInterface",
+            "params": {"embed_dim": z, "n_embed": 32, "ddconfig": {
+                "double_z": False, "z_channels": z, "resolution": 32,
+                "in_channels": 3, "out_ch": 3, "ch": 32, "ch_mult": [1, 2],
+                "num_res_blocks": 1, "attn_resolutions": [],
+                "attn_type": "none"}}}}}}
+    config = os.path.join(work, "inpaint_tiny.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    indir = os.path.join(work, "legacy_inpaint_in")
+    from celebbasis_tpu_torch.cli.serve import encode_png
+    os.makedirs(indir, exist_ok=True)
+    photo = face_crops(32, 91, k=1)[0]
+    mask = np.zeros((32, 32, 3), np.uint8)
+    mask[8:24, 4:28] = 255
+    for name, img in (("a.png", photo), ("a_mask.png", mask)):
+        with open(os.path.join(indir, name), "wb") as f:
+            f.write(encode_png(img))
+    with LegacyRuns() as runs:
+        (got,), rec = measured("inpaint", runs, lambda: inpaint.main([
+            "--indir", indir, "--outdir", os.path.join(work, "legacy_inp"),
+            "--config", config, "--steps", str(LEGACY_STEPS)]),
+            phase="legacy")
+    (ldm,) = runs.models
+    batch = {k: torch.from_numpy(v).cuda() for k, v in inpaint.make_batch(
+        os.path.join(indir, "a.png"), os.path.join(indir, "a_mask.png"))
+        .items()}
+    src = finish_images(batch["image"], "uint8")[0].cpu().numpy()
+    keep = mask[..., 0] == 0
+    fn = inpaint.make_inpaint_fn(ldm, steps=LEGACY_STEPS)
+    args = (batch["image"], batch["mask"], batch["masked_image"])
+    replay = fn(*args, legacy_gens(42, 1))
+    eager = fn.eager(*args, legacy_gens(42, 1))
+    rec.update(
+        unmasked_equal=bool(np.array_equal(got[keep], src[keep])),
+        masked_changed=bool((got[~keep] != src[~keep]).any()),
+        cli_is_replay=bool(np.array_equal(replay[0].cpu().numpy(), got)),
+        graph_equals_eager=bool(torch.equal(replay, eager)))
+    log("legacy", f"inpaint: unmasked pixels bit for bit "
+                  f"{rec['unmasked_equal']}, masked pixels generated "
+                  f"{rec['masked_changed']}, the CLI's image a replay's "
+                  f"{rec['cli_is_replay']}, graph bits = eager bits "
+                  f"{rec['graph_equals_eager']}")
+    # the mid block's AttentionBlock (8 heads of 8) is the UNet's only
+    # attention: one per-head launch a call, for the warm-up and the replay
+    if not all(rec[k] for k in ("unmasked_equal", "masked_changed",
+                                "cli_is_replay", "graph_equals_eager")) \
+            or rec["captures"] != 1 \
+            or rec["launches"] != {"flash_attention": 2 * LEGACY_STEPS}:
+        raise RuntimeError(f"legacy: inpaint {rec}")
+    return rec
+
+
+def legacy_summary(legacy):
+    """The legacy phase's walls, device ms per UNet forward and peaks."""
+    out = {"phase_s": round(legacy["phase_wall_s"], 1)}
+    for name in ("evaluate_model", "sample_diffusion", "inpaint"):
+        rec = legacy[name]
+        out[name] = {k: round(rec[k], 3) for k in ("wall_ms", "unet_ms",
+                                                   "peak_gib") if k in rec}
+    out["vq_flip_share"] = legacy["sample_diffusion"]["vq"]["flip_share"]
+    return out
+
+
+def phase_legacy(work):
+    """The legacy family at full width (module docstring, phase 14)."""
+    import gc
+    t0 = time.perf_counter()
+    out = {"route_parity": legacy_route_parity()}
+    for name, run in (("evaluate_model", legacy_evaluate_model),
+                      ("sample_diffusion", legacy_sample_diffusion),
+                      ("inpaint", legacy_inpaint)):
+        gc.collect()                  # the last run's model and graphs
+        torch.cuda.empty_cache()
+        out[name] = run(work)
+    out["phase_wall_s"] = time.perf_counter() - t0
+    log("legacy", f"phase {out['phase_wall_s']:.1f} s")
+    return out
+
+
+# -- phase 15 -----------------------------------------------------------------
+
 def phase_warmup():
     """``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults (the
     JAX CLI's: ``configs/aigc_id.yaml``, 512x512, 50 DDIM steps at 8 samples
@@ -4038,6 +4557,8 @@ def main() -> int:
         cli_ckpt = os.path.join(work, f"embeddings_gs-{CLI_STEPS}.pt")
         generate = phase_generate(work, cli_ckpt)
         evaluate = phase_evaluate(work, cli_ckpt, align_files)
+        torch.cuda.empty_cache()
+        legacy = phase_legacy(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4058,6 +4579,9 @@ def main() -> int:
                 "ti_txt2img": ti["txt2img"]["launches"][entry],
                 "gen_imgs": evaluate["gen_imgs"]["launches"][entry],
                 "eval_vit": evaluate["launches"][entry]})
+        by_path.update({f"legacy_{name}": legacy[name]["launches"].get(
+            entry, 0) for name in ("evaluate_model", "sample_diffusion",
+                                   "inpaint")})
         kernels.append({
             "name": entry, "route": "cuda", "source": FWD_SOURCE,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -4079,6 +4603,13 @@ def main() -> int:
                 "bound_ms", "bound_by", "max_abs_err")}
                 for s in shapes[entry] if s["N"] == VIT_TOKENS
                 and s["D"] == VIT_HEAD_DIM and "kernel_ms" in s],
+            # the legacy family's shapes (CelebA-HQ AttentionBlocks, BERT)
+            "legacy": [{k: s[k] for k in (
+                "B", "H", "N", "D", "interleaved", "kernel_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                "err_ratio")}
+                for s in shapes[entry] if (s["B"], s["H"], s["N"], s["D"])
+                in LEGACY_ATTN_SHAPES and "kernel_ms" in s],
             "shapes": shapes[entry]})
     main_shape = train_shapes[0]     # B = 2, N = M = 4096, D = 40, bf16, packed
     outputs = {"fwd_lse": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
@@ -4181,7 +4712,8 @@ def main() -> int:
                 f"{json.dumps(graph_summary(request_ms, train_ms, ti))}; "
                 f"cli/warmup.py {warmup['wall_s']:.1f} s (train step graph "
                 f"{warmup['train_s']:.1f} s, txt2img graph "
-                f"{warmup['txt2img_s']:.1f} s)")
+                f"{warmup['txt2img_s']:.1f} s); legacy "
+                f"{json.dumps(legacy_summary(legacy))}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

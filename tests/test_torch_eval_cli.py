@@ -10,9 +10,11 @@
 * ``scores.json`` holds the JAX key set, and ``IDCLIPScoreCalculator`` on
   that folder gives the JAX scores to 1e-4 (absolute, the scores are
   cosines and distances of unit vectors) with one set of tiny weights;
-* ``cli/evaluate_model.py`` raises, naming ROADMAP A9 (the alignment
-  cropper is ported: ``test_torch_align_cli``); the plain-Python copies
-  (templates, grid, survey) equal JAX's.
+* the legacy family's training (``LegacyLDM.make_train_step``) raises,
+  naming ROADMAP A9b; ``cli/evaluate_model.py`` is ported and asks for its
+  ``--data-dir`` (``test_torch_legacy_eval_cli``; the alignment cropper:
+  ``test_torch_align_cli``); the plain-Python copies (templates, grid,
+  survey) equal JAX's.
 """
 import json
 import os
@@ -167,7 +169,16 @@ def test_score_calculator_matches_jax(folder):
 
 
 def test_what_is_not_ported_raises(folder):
+    # the legacy family's training side is not ported (ROADMAP A9b); its
+    # sampling side is, evaluate_model included (tests/test_torch_legacy_*)
+    import yaml
+
+    from celebbasis_tpu_torch import legacy
+    with open(os.path.join(REPO, "configs", "tiny_legacy.yaml")) as f:
+        ldm = legacy.build_legacy_ldm(yaml.safe_load(f), torch.float32)
     with pytest.raises(NotImplementedError, match="A9"):
+        ldm.make_train_step(None)
+    with pytest.raises(SystemExit):          # it needs --data-dir
         evaluate_model.main([])
     # the cropper is ported: building it does not raise
     assert callable(tev.face_cropper_from_nets(None, None))

@@ -45,6 +45,10 @@ print("TI_EVAL", sorted(n for n in names if n.endswith(
 print("ALIGN", sorted(n for n in names if ".align" in n
                       or n.endswith((".bridge_align", "_pipnet",
                                      "_pipnet_gssl"))))
+print("LEGACY", sorted(n for n in names if n.endswith(
+    (".legacy", ".bert_text", ".bert_tokenizer", ".vq", ".cond_stages",
+     ".xtransformer", ".bridge_xt", ".sample_diffusion", ".inpaint",
+     ".evaluate_model"))))
 print("KERNEL_MODULES", sorted(n for n in names if n.endswith(
     (".flash_attention", ".geglu", ".quant"))))
 print("BAD", bad)
@@ -77,6 +81,12 @@ def test_imports_pull_in_no_jax_and_build_nothing():
             "cli.evaluate_model", "eval.base", "eval.evaluators", "eval.fid",
             "eval.inception", "eval.prompt_templates", "eval.sphere",
             "eval.survey")))
+    # and those of the legacy latent-diffusion family
+    assert lines["LEGACY"] == str(sorted(
+        f"celebbasis_tpu_torch.{m}" for m in (
+            "legacy", "models.bert_text", "text.bert_tokenizer", "models.vq",
+            "models.cond_stages", "models.xtransformer", "utils.bridge_xt",
+            "cli.sample_diffusion", "cli.inpaint", "cli.evaluate_model")))
     # and those of W0 alignment
     assert lines["ALIGN"] == str(sorted(
         f"celebbasis_tpu_torch.{m}" for m in (
@@ -111,9 +121,12 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TxtToImgService(build_argparser().parse_args(
             ["--config", os.path.join(REPO, "configs", "tiny.yaml")]))
-    from celebbasis_tpu_torch.cli import align, eval_imgs, gen_imgs, train_ti
+    from celebbasis_tpu_torch.cli import (align, eval_imgs, gen_imgs,
+                                          inpaint, train_ti)
     cfg = os.path.join(REPO, "configs", "tiny.yaml")
     for cli, argv in (
+            (inpaint, ["--indir", REPO, "--outdir", "unused", "--config",
+                       os.path.join(REPO, "configs", "tiny_legacy.yaml")]),
             (align, ["--in_folder", "unused", "--out_folder", "unused"]),
             (train_ti, ["--base", cfg, "--data_root", "unused"]),
             (gen_imgs, ["--config", cfg, "--embedding_path", "e.pt",

@@ -130,8 +130,17 @@ def test_sd_v1_shapes_match_manifest():
 
 
 def test_legacy_knobs_raise():
-    for kw in (dict(use_spatial_transformer=False),
-               dict(num_head_channels=64), dict(use_scale_shift_norm=True),
-               dict(resblock_updown=True)):
-        with pytest.raises(NotImplementedError):
-            tunet.UNetConfig(**kw)
+    """The training-side knob still raises; the legacy-LDM knobs build
+    their blocks (their parity: tests/test_torch_legacy_models.py)."""
+    with pytest.raises(NotImplementedError):
+        tunet.UNetConfig(dropout=0.1)
+    cfg = tunet.UNetConfig(
+        model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+        attention_resolutions=(2,), use_spatial_transformer=False,
+        num_head_channels=16, use_scale_shift_norm=True, resblock_updown=True)
+    with torch.device("meta"):
+        m = tunet.UNetModel(cfg, torch.float32)
+    assert isinstance(m.mid_attn, tunet.AttentionBlock)
+    assert m.mid_attn.heads == 4 and m.down_1_attn_0.heads == 4
+    assert m.mid_res_0.emb_proj.out_features == 2 * 64
+    assert m.down_0_downsample.down and m.up_1_upsample.up

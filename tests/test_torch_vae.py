@@ -88,7 +88,20 @@ def test_sd_v1_decoder_shapes_match_manifest():
 
 
 def test_legacy_knobs_raise():
-    for kw in (dict(attn_resolutions=(16,)), dict(double_z=False),
-               dict(attn_type="none")):
-        with pytest.raises(NotImplementedError):
-            tvae.VAEConfig(**kw)
+    """The legacy first-stage knobs build their blocks (their parity:
+    tests/test_torch_legacy_models.py); a VQ stage refuses double_z."""
+    from celebbasis_tpu_torch.models.vq import VQModel
+    with torch.device("meta"):
+        m = tvae.AutoencoderKL(tvae.VAEConfig(
+            ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=16,
+            attn_resolutions=(16,), double_z=False), torch.float32)
+        none = tvae.Encoder(tvae.VAEConfig(ch=32, ch_mult=(1, 2),
+                                           num_res_blocks=1,
+                                           attn_type="none"), torch.float32)
+        with pytest.raises(ValueError, match="double_z"):
+            VQModel(tvae.VAEConfig(), n_embed=8)
+    assert hasattr(m.encoder, "down_0_attn_0")
+    assert hasattr(m.decoder, "up_0_attn_1")
+    assert not hasattr(m.encoder, "down_1_attn_0")
+    assert m.encoder.conv_out.out_channels == 4      # one moment
+    assert not hasattr(none, "mid_attn")

@@ -30,7 +30,14 @@
 #             i8order the dequantisation taken as acc * (xs * ws) instead of
 #                     (acc * xs) * ws;
 #             i8stage the second ring stage of every block read from the
-#                     stage after it, whose full barrier was not waited on.
+#                     stage after it, whose full barrier was not waited on;
+#   model     qkvswap the legacy UNet's AttentionBlock takes its q and k
+#                     slices of the interleaved [head][q|k|v][dh] projection
+#                     the wrong way round (models/unet.py: every shape
+#                     stays right).  On the CPU,
+#                     tests/test_torch_legacy_models.py::
+#                     test_attention_block_and_legacy_resblocks fails on the
+#                     same edit (run it in a copy: the case's sed below).
 # Each copy runs the bf16 check of chip_smoke.py at three shapes: the forward
 # check at the serving shapes, the training check (forward with logsumexp,
 # dq, dk/dv) at the train step's shapes with a peaked softmax (for "split":
@@ -41,7 +48,9 @@
 # "gsplit": the 16^2 and mid serving levels and the 16^2 training level,
 # whose inner dimension the plan splits), and the int8 check (every mode
 # that can run the shape) at the serving shapes of the 64^2 FF-in
-# projection and the 32^2 and 16^2 q/k/v/out ones.  The unchanged copy must print no "CAUGHT", each broken copy
+# projection and the 32^2 and 16^2 q/k/v/out ones, and for "qkvswap" the
+# legacy phase's AttentionBlock check (chip_smoke.check_attention_block) on
+# the CelebA-HQ UNet's blocks at 32^2, 16^2 and 8^2.  The unchanged copy must print no "CAUGHT", each broken copy
 # three; the script fails otherwise.  The repository itself is never
 # modified.
 set -euo pipefail
@@ -94,6 +103,16 @@ for a in [(1024, 1280), (256, 1280), (512, 1280)]:
     except RuntimeError:
         print("CAUGHT", a)
 '
+check_qkv='import chip_smoke as c, os, torch, yaml
+from celebbasis_tpu_torch import legacy
+with open(os.path.join(c.LEGACY_CONFIGS, "celebahq-ldm-vq-4.yaml")) as f:
+    ldm = legacy.prepare(yaml.safe_load(f), seed=0)
+for blk, side in c.celebahq_attention_blocks(ldm):
+    try:
+        c.check_attention_block(blk, side)
+    except RuntimeError:
+        print("CAUGHT", side)
+'
 check_int8='import chip_smoke as c, torch
 for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     try:
@@ -101,7 +120,7 @@ for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     except RuntimeError:
         print("CAUGHT", a)
 '
-cases="${*:-none scale stale rescale dqscale delta dvp split erf residual peer gsplit rowscale i8order i8stage}"
+cases="${*:-none scale stale rescale dqscale delta dvp split erf residual peer gsplit rowscale i8order i8stage qkvswap}"
 for mutation in $cases; do
   work="$(mktemp -d)"
   cp -r "$repo/." "$work"
@@ -121,6 +140,7 @@ for mutation in $cases; do
     gsplit) src=$ffn; sed -i 's/float acc = p.part\[i\];/float acc = 0.f;/' "$work/$src" ;;
     rowscale) src=$i8; sed -i 's/if (vi < vend) amax = fmaxf(amax, absmax_vec<T>(v\[j\]));/if (vi < vend \&\& vi * (16 \/ (int)sizeof(T)) < 64) amax = fmaxf(amax, absmax_vec<T>(v[j]));/' "$work/$src" ;;
     i8order) src=$i8; sed -i 's/((float)(int)(acc\[0\]\[e\] + acc\[1\]\[e\]) \* sx\[h\]) \* ws\[j\]\.x/(float)(int)(acc[0][e] + acc[1][e]) * (sx[h] * ws[j].x)/' "$work/$src" ;;
+    qkvswap) src=celebbasis_tpu_torch/models/unet.py; sed -i 's/for i in range(3))/for i in (1, 0, 2))/' "$work/$src" ;;
     i8stage) src=$i8; sed -i 's/const unsigned char\* st = ring + s \* p.stage_bytes;/const unsigned char* st = ring + (it == 1 ? (s + 1) % S : s) * p.stage_bytes;/' "$work/$src" ;;
   esac
   echo "== mutation: $mutation"
@@ -128,7 +148,8 @@ for mutation in $cases; do
     echo "the mutation did not apply"; exit 1
   fi
   case $mutation in
-    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_split" && python3 -c "$check_geglu" && python3 -c "$check_peer" && python3 -c "$check_gsplit" && python3 -c "$check_int8")" ;;
+    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_split" && python3 -c "$check_geglu" && python3 -c "$check_peer" && python3 -c "$check_gsplit" && python3 -c "$check_int8" && python3 -c "$check_qkv")" ;;
+    qkvswap) out="$(cd "$work" && python3 -c "$check_qkv")" ;;
     scale|stale|rescale) out="$(cd "$work" && python3 -c "$check_fwd")" ;;
     erf|residual) out="$(cd "$work" && python3 -c "$check_geglu")" ;;
     peer) out="$(cd "$work" && python3 -c "$check_peer")" ;;
