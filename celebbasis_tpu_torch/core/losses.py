@@ -10,7 +10,9 @@ Counterpart of ``celebbasis_tpu/core/losses.py``:
   embeddings through a trainable g-net, enabled by ``loss_type: 'contra'``;
 * ``EmaState`` / ``ema_init`` / ``ema_update`` -- the ``LitEma``-style
   exponential moving average of a tree of tensors (dicts, lists and tuples
-  of tensors), off by default in the reference.
+  of tensors), off by default in the reference; ``ema_update_`` is the same
+  update in place and on the device, which a captured train step runs (the
+  legacy trainer's EMA).
 
 Margin math runs in float32.
 """
@@ -160,13 +162,31 @@ def ema_init(params, decay: float = 0.9999,
 
 def ema_update(state: EmaState, new_params) -> EmaState:
     """One LitEma step: decay ``min(decay, (1 + n) / (10 + n))`` while the
-    count runs, ``decay`` otherwise."""
-    n = state.num_updates + 1 if state.num_updates >= 0 \
-        else state.num_updates
-    decay = torch.tensor(state.decay, dtype=torch.float32)
-    if n >= 0:
-        decay = torch.minimum(decay, (1.0 + n) / (10.0 + n))
-    ema = _tree_map(lambda e, p: e * decay.to(e.device)
-                    + (1.0 - decay.to(e.device)) * p.detach(),
-                    state.params, new_params)
-    return EmaState(ema, state.decay, n)
+    count runs, ``decay`` otherwise; a new state (:func:`ema_update_` on a
+    copy)."""
+    out = EmaState(_tree_map(lambda e: e.clone(), state.params), state.decay,
+                   state.num_updates.clone())
+    ema_update_(out, new_params)
+    return out
+
+
+def _leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+@torch.no_grad()
+def ema_update_(state: EmaState, new_params) -> None:
+    """:func:`ema_update` in place: ``state``'s copies and its count are
+    written where they lie and nothing is read back to the host, so that a
+    captured train step can run it (the count then on the card too)."""
+    n = state.num_updates
+    live = n >= 0
+    n.copy_(torch.where(live, n + 1, n))
+    ramp = (1.0 + n) / (10.0 + n)
+    ema, new = _leaves(state.params), _leaves(new_params)
+    decay = torch.where(live, ramp.clamp(max=state.decay),
+                        torch.full_like(ramp, state.decay)).to(ema[0].device)
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, torch._foreach_mul(new, 1.0 - decay))

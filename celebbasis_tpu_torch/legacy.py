@@ -9,8 +9,9 @@ legacy knobs.  ``build_legacy_ldm`` maps such a YAML dict onto the port's
 modules and returns a :class:`LegacyLDM`, an ``nn.Module`` that owns
 ``unet``, ``first_stage`` and ``cond_stage`` (so its ``state_dict`` carries
 what the JAX package keeps in its ``{"unet", "first_stage", "cond_stage"}``
-params tree) and can encode, decode, condition and sample.  Training
-(``make_train_step``) is not ported yet (ROADMAP A9b).
+params tree) and can encode, decode, condition, sample and take a training
+step (``make_train_step``; the trainer of ``cli/train_legacy.py`` builds on
+its loss).
 
 ``make_sample_fn`` behaves like the JAX function under ``jax.jit``: the
 generators' draws come first (x_T, and the DDIM step noise at eta > 0), then
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from celebbasis_tpu_torch.diffusion.ddpm import ScheduleArrays, q_sample
 from celebbasis_tpu_torch.diffusion.sampler import (SamplerConfig,
                                                     batched_normal,
                                                     ddim_sample, ddpm_sample,
@@ -202,10 +204,61 @@ class LegacyLDM(nn.Module):
         return lambda x, t, ctx: self.unet(x, t, ctx)
 
     # -- training ---------------------------------------------------------
+    def schedule_arrays(self) -> ScheduleArrays:
+        """The linear beta schedule's arrays on the model's device."""
+        return ScheduleArrays.from_schedule(
+            make_schedule("linear", self.timesteps,
+                          linear_start=self.linear_start,
+                          linear_end=self.linear_end), device=self.device)
+
+    def eps_loss(self, sched: ScheduleArrays, z: torch.Tensor,
+                 ctx: Optional[torch.Tensor], t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """The reference's ``p_losses`` with eps prediction: noise ``z`` to
+        ``t``, predict eps (ctx as attention context, or appended to the
+        channels in concat mode) and take the config's l1 or l2 mean."""
+        x_t = q_sample(sched, z, t, noise)
+        if self.cond_mode == "concat" and ctx is not None:
+            eps = self.unet(torch.cat([x_t, ctx.to(x_t.dtype)], dim=-1), t,
+                            None)
+        else:
+            eps = self.unet(x_t, t, ctx)
+        if self.loss_type == "l1":
+            return (eps - noise).abs().mean()
+        return ((eps - noise) ** 2).mean()
+
+    def draw_t_noise(self, z: torch.Tensor, generator: torch.Generator):
+        """A step's draws, t then eps, from ``generator``."""
+        t = torch.randint(0, self.timesteps, (z.shape[0],),
+                          generator=generator,
+                          device=generator.device).to(z.device)
+        noise = torch.randn(z.shape, generator=generator,
+                            device=generator.device).to(z.device)
+        return t, noise
+
     def make_train_step(self, optimizer) -> Callable:
-        raise NotImplementedError(
-            "LegacyLDM.make_train_step: the legacy family's training side is "
-            "not ported yet (ROADMAP A9b)")
+        """-> ``step(batch_z, ctx, generator=None, override_t=None,
+        override_noise=None) -> loss``: the eps-prediction loss at the
+        config's ``loss_type``, its backward and one step of ``optimizer``,
+        which holds the UNet's parameters (and the cond stage's, when the
+        caller computes ``ctx`` with grad through a trainable cond stage).
+        t and eps come from ``generator`` unless given; the parameters are
+        updated in place."""
+        sched = self.schedule_arrays()
+
+        def step(batch_z, ctx, generator=None, override_t=None,
+                 override_noise=None):
+            t, noise = override_t, override_noise
+            if t is None or noise is None:
+                t_d, n_d = self.draw_t_noise(batch_z, generator)
+                t = t_d if t is None else t
+                noise = n_d if noise is None else noise
+            loss = self.eps_loss(sched, batch_z, ctx, t, noise)
+            optimizer.zero_grad(set_to_none=False)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+        return step
 
     # -- sampling ---------------------------------------------------------
     def _uncond_input(self, n: int, guidance_scale: float,

@@ -25,8 +25,25 @@ The legacy-LDM knobs of the JAX config are here too: plain spatial
 self-attention (``AttentionBlock``, ``use_spatial_transformer=False``) with
 ``num_head_channels`` pinning the head width, FiLM time conditioning
 (``use_scale_shift_norm``) and residual up/downsampling blocks
-(``resblock_updown``).  ``dropout`` (a training knob) and the classifier
-trunk (``EncoderUNetModel``, ``AttentionPool2d``) are not ported yet.
+(``resblock_updown``).
+
+``dropout`` (a config's ``dropout``) drops the ``ResBlock``'s hidden
+activations before its output conv, as ``nn.Dropout`` does there in the JAX
+module.  It applies only in training mode with grad enabled (never in
+``eval()`` nor under ``no_grad``), and its masks are drawn from the
+``torch.Generator`` the caller hands ``set_dropout_generator``: a captured
+train step registers that generator with its graph (``utils.graphs``), so
+each replay draws new masks.  The JAX UNet runs its dropout deterministic
+(it never passes ``deterministic=False``), so a UNet in ``eval()`` is the one
+the JAX package computes, whatever ``dropout`` says.  A training step with
+both ``remat`` and dropout raises: a recomputed block would draw another
+mask.
+
+``EncoderUNetModel`` is the half-UNet classifier trunk (the encoder levels
+and the middle block, then an ``'adaptive'``, ``'attention'``
+(``AttentionPool2d``, through ``ops.attention.attention``) or
+``'spatial'`` / ``'spatial_v2'`` head), which the noisy-latent classifier
+(``train/classifier.py``) trains.
 """
 from __future__ import annotations
 
@@ -69,11 +86,6 @@ class UNetConfig:
     use_scale_shift_norm: bool = False
     resblock_updown: bool = False
 
-    def __post_init__(self):
-        if self.dropout:
-            raise NotImplementedError("dropout is a training-side knob that "
-                                      "is not ported yet (ROADMAP A9b)")
-
     def heads_for(self, ch: int) -> int:
         """A fixed head count unless num_head_channels pins the head
         width."""
@@ -93,18 +105,30 @@ class UNetConfig:
                           attention_resolutions=(1, 2))
 
 
+def dropout(h: torch.Tensor, p: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: zero each entry with probability ``p`` (a mask drawn
+    from ``generator`` on h's device) and scale the rest by 1 / (1 - p)."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs the generator "
+                         "handed to set_dropout_generator")
+    keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
+    return h * keep.to(h.dtype) * (1.0 / (1.0 - p))
+
+
 class ResBlock(nn.Module):
-    """GN -> SiLU -> conv, + time-emb, GN -> SiLU -> zero-conv, residual.
-    ``scale_shift`` is the FiLM conditioning ``norm2(h) * (1 + scale) +
-    shift``; ``up`` / ``down`` put a parameter-free nearest 2x upsample or
-    2x2 average pool into both branches (resblock_updown).
+    """GN -> SiLU -> conv, + time-emb, GN -> SiLU -> [dropout] -> zero-conv,
+    residual.  ``scale_shift`` is the FiLM conditioning ``norm2(h) * (1 +
+    scale) + shift``; ``up`` / ``down`` put a parameter-free nearest 2x
+    upsample or 2x2 average pool into both branches (resblock_updown).
     x: (B, C, H, W) view; emb: (B, E)."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int,
                  dtype: torch.dtype, scale_shift: bool = False,
-                 up: bool = False, down: bool = False):
+                 up: bool = False, down: bool = False, p_drop: float = 0.0):
         super().__init__()
         self.scale_shift, self.up, self.down = scale_shift, up, down
+        self.p_drop, self.generator = p_drop, None
         self.norm1 = GroupNorm(in_ch)
         self.conv1 = Conv(in_ch, out_ch, 3, dtype=dtype)
         self.emb_proj = Dense(emb_ch, 2 * out_ch if scale_shift else out_ch,
@@ -127,7 +151,10 @@ class ResBlock(nn.Module):
             h = self.norm2(h) * (1 + scale) + shift
         else:
             h = self.norm2(h + emb_out)
-        h = self.conv2(F.silu(h))
+        h = F.silu(h)
+        if self.p_drop and self.training and torch.is_grad_enabled():
+            h = dropout(h, self.p_drop, self.generator)
+        h = self.conv2(h)
         if hasattr(self, "skip"):
             x = self.skip(x)
         return x + h
@@ -259,7 +286,8 @@ class UNetModel(nn.Module):
 
         def res(in_ch, out_ch, **updown):
             return ResBlock(in_ch, out_ch, emb_ch, dtype,
-                            cfg.use_scale_shift_norm, **updown)
+                            cfg.use_scale_shift_norm, p_drop=cfg.dropout,
+                            **updown)
 
         # the forward pass walks this plan: (kind, attribute name)
         plan = []
@@ -334,6 +362,10 @@ class UNetModel(nn.Module):
         h = self.conv_in(to_nchw(x.to(dt)))
         skips = [h]
         remat = self.cfg.remat and torch.is_grad_enabled()
+        if remat and self.training and self.cfg.dropout:
+            raise NotImplementedError(
+                "remat with dropout in training: a block recomputed in the "
+                "backward would draw another mask")
         for kind, name in self._plan:
             if kind in ("res", "attn"):
                 block = getattr(self, name)
@@ -355,3 +387,155 @@ class UNetModel(nn.Module):
         assert not skips
         h = self.conv_out(F.silu(self.norm_out(h)))
         return to_nhwc(h).float()
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: torch.Generator | None) -> None:
+    """Hand every ``ResBlock`` of ``model`` the generator its dropout masks
+    are drawn from (None takes it away)."""
+    for m in model.modules():
+        if isinstance(m, ResBlock):
+            m.generator = generator
+
+
+def dropout_generators(model: nn.Module) -> list:
+    """The generators the dropout of ``model`` draws from in training mode
+    (what a captured step registers with its graph)."""
+    gens = []
+    for m in model.modules():
+        if isinstance(m, ResBlock) and m.p_drop and m.training \
+                and m.generator is not None \
+                and all(g is not m.generator for g in gens):
+            gens.append(m.generator)
+    return gens
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling: the spatial mean prepended as a query
+    token, a learned positional table, one multi-head attention round
+    through ``ops.attention.attention``, the pooled token projected.  The
+    fused qkv projection is chunked q|k|v along channels before the heads
+    split (the reference's QKVAttention, new order).  x: (B, C, H, W) view
+    -> (B, out_channels) float32."""
+
+    def __init__(self, ch: int, tokens: int, num_head_channels: int,
+                 out_channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.heads = ch // num_head_channels
+        self.pos_emb = nn.Parameter(torch.randn(tokens + 1, ch) * ch ** -0.5)
+        self.qkv = Dense(ch, 3 * ch, dtype=dtype)
+        self.c_proj = Dense(ch, out_channels, dtype=dtype)
+
+    def forward(self, x):
+        t = to_tokens(x)
+        t = torch.cat([t.mean(dim=1, keepdim=True), t], dim=1)
+        t = t.float() + self.pos_emb[None].float()
+        q, k, v = self.qkv(t).chunk(3, dim=-1)
+        out = attention(q, k, v, num_heads=self.heads)
+        return self.c_proj(out)[:, 0].float()
+
+
+class EncoderUNetModel(nn.Module):
+    """The half-UNet classifier trunk: the encoder levels and middle block
+    of :class:`UNetModel` (plain ``AttentionBlock``s at the attention
+    resolutions), then a pooling head -- ``'adaptive'`` (GN -> SiLU ->
+    global mean -> zero 1x1 conv), ``'attention'`` (``AttentionPool2d``) or
+    ``'spatial'`` / ``'spatial_v2'`` (each block's spatial mean concatenated
+    -> MLP).  ``cfg.out_channels`` is the number of classes; ``image_size``
+    (the latent side) sizes the attention pool's positional table.  x: (B,
+    H, W, C) latents, timesteps (B,) -> (B, classes) float32 logits."""
+
+    def __init__(self, cfg: UNetConfig, image_size: int = 64,
+                 pool: str = "adaptive", dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cfg, self.pool, self.dtype = cfg, pool, dtype
+        ch0 = cfg.model_channels
+        emb_ch = ch0 * 4
+        self.time_fc1 = Dense(ch0, emb_ch, dtype=dtype)
+        self.time_fc2 = Dense(emb_ch, emb_ch, dtype=dtype)
+        self.conv_in = Conv(cfg.in_channels, ch0, 3, dtype=dtype)
+
+        def res(in_ch, out_ch, **updown):
+            return ResBlock(in_ch, out_ch, emb_ch, dtype,
+                            cfg.use_scale_shift_norm, p_drop=cfg.dropout,
+                            **updown)
+
+        plan, cur, ds, widths = [], ch0, 1, [ch0]
+        for level, mult in enumerate(cfg.channel_mult):
+            ch = ch0 * mult
+            for j in range(cfg.num_res_blocks):
+                name = f"down_{level}_res_{j}"
+                setattr(self, name, res(cur, ch))
+                plan.append(("res", name))
+                cur = ch
+                if ds in cfg.attention_resolutions:
+                    name = f"down_{level}_attn_{j}"
+                    setattr(self, name,
+                            AttentionBlock(ch, cfg.heads_for(ch), dtype))
+                    plan.append(("attn", name))
+                plan.append(("mean", None))
+                widths.append(ch)
+            if level != len(cfg.channel_mult) - 1:
+                name = f"down_{level}_downsample"
+                if cfg.resblock_updown:
+                    setattr(self, name, res(ch, ch, down=True))
+                    plan.append(("res", name))
+                else:
+                    setattr(self, name, Conv(ch, ch, 3, stride=2, padding=1,
+                                             dtype=dtype))
+                    plan.append(("conv", name))
+                plan.append(("mean", None))
+                widths.append(ch)
+                ds *= 2
+        self.mid_res_0 = res(cur, cur)
+        self.mid_attn = AttentionBlock(cur, cfg.heads_for(cur), dtype)
+        self.mid_res_1 = res(cur, cur)
+        plan += [("res", "mid_res_0"), ("attn", "mid_attn"),
+                 ("res", "mid_res_1")]
+        self._plan = tuple(plan)
+        if pool.startswith("spatial"):
+            widths.append(cur)
+            self.fc1 = Dense(sum(widths), 2048, dtype=torch.float32)
+            if pool == "spatial_v2":
+                # torch's GroupNorm eps (1e-5), as in the JAX head
+                self.fc_norm = GroupNorm(2048, epsilon=1e-5)
+            self.fc2 = Dense(2048, cfg.out_channels, dtype=torch.float32)
+        elif pool in ("adaptive", "attention"):
+            self.norm_out = GroupNorm(cur)
+            if pool == "adaptive":
+                self.conv_out = ZeroConv(cur, cfg.out_channels, 1,
+                                         dtype=dtype)
+            else:
+                assert cfg.num_head_channels != -1
+                side = image_size // ds
+                self.attn_pool = AttentionPool2d(
+                    cur, side * side, cfg.num_head_channels,
+                    cfg.out_channels, dtype)
+        else:
+            raise NotImplementedError(f"Unexpected {pool} pooling")
+
+    def forward(self, x: torch.Tensor,
+                timesteps: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        t_emb = timestep_embedding(timesteps, self.cfg.model_channels)
+        emb = self.time_fc2(F.silu(self.time_fc1(t_emb.to(dt))))
+        h = self.conv_in(to_nchw(x.to(dt)))
+        means = [h.float().mean(dim=(2, 3))]
+        for kind, name in self._plan:
+            if kind == "res":
+                h = getattr(self, name)(h, emb)
+            elif kind in ("attn", "conv"):
+                h = getattr(self, name)(h)
+            else:   # "mean"
+                means.append(h.float().mean(dim=(2, 3)))
+        if self.pool.startswith("spatial"):
+            means.append(h.float().mean(dim=(2, 3)))
+            hid = self.fc1(torch.cat(means, dim=-1))
+            hid = (F.silu(self.fc_norm(hid)) if self.pool == "spatial_v2"
+                   else F.relu(hid))
+            return self.fc2(hid).float()
+        h = F.silu(self.norm_out(h))
+        if self.pool == "adaptive":
+            h = self.conv_out(h.mean(dim=(2, 3), keepdim=True))
+            return h.reshape(h.shape[0], -1).float()
+        return self.attn_pool(h)

@@ -22,7 +22,7 @@ Which kernel a call launches on CUDA tensors:
   In bf16 both are TMA-fed ``wgmma`` kernels; where the key tiles alone leave
   SMs idle, ``dkv`` splits each key tile's query stream over several blocks
   (``dkv_split_plan``) whose fp32 partial sums a second small kernel adds in
-  a fixed order.  The backward uses no atomics: the same inputs give the same
+  a fixed order (counted apart: ``reduce_launch_count``).  The backward uses no atomics: the same inputs give the same
   bits.
 
 Each kernel has its plain PyTorch version beside it
@@ -48,6 +48,9 @@ HEAD_DIM_MULTIPLE = 8   # 16-byte rows for bf16 vector loads
 
 _launches = {"flash_attention_nhd": 0, "flash_attention": 0,
              "fwd_lse": 0, "dq": 0, "dkv": 0}
+# the dk/dv entry's second kernel, the reduction of a split query stream:
+# apart from _launches, which counts one entry per kernel of the port
+_reduce_launches = {"dkv_reduce": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
@@ -84,9 +87,16 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def reduce_launch_count() -> int:
+    """Launches of the dk/dv split reduction since the last reset: one with
+    each dk/dv launch whose query stream ``dkv_split_plan`` splits."""
+    return _reduce_launches["dkv_reduce"]
+
+
 def reset_launch_count() -> None:
     for entry in _launches:
         _launches[entry] = 0
+    _reduce_launches["dkv_reduce"] = 0
 
 
 def supports(head_dim: int) -> bool:
@@ -409,6 +419,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, num_heads: int | None = None,
             code, B, H, N, M, D, splits,
             _stride_array((q, k, v, do, dk, dv), num_heads), D ** -0.5)
         _launches["dkv"] += 1
+        if splits > 1:
+            _reduce_launches["dkv_reduce"] += 1
     return dq, dk, dv
 
 

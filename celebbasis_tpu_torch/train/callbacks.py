@@ -13,7 +13,10 @@ the trainer a new state (``ModeSwap``).
 * ``Profiler`` -- ``torch.profiler`` over steps [start, stop), its trace in
   ``<run>/profile``;
 * ``ModeSwap`` -- unfreezes the UNet at ``swap_step``
-  (``Trainer.unfreeze_unet``).
+  (``Trainer.unfreeze_unet``);
+* ``Resume`` -- the legacy trainers' crash recovery: their whole state in
+  ``<run>/resume/step_{step:08d}.pt`` every ``every`` steps, and the latest
+  file read back (the JAX package's ``OrbaxResume``, with ``torch.save``).
 """
 from __future__ import annotations
 
@@ -140,3 +143,39 @@ class ModeSwap:
         print(f"[ModeSwap] step {step}: unfreezing the UNet "
               f"(model_lr={self.model_lr})")
         return trainer.unfreeze_unet(state, self.model_lr)
+
+
+class Resume:
+    """Save and restore a legacy trainer's whole state -- the trained
+    modules, the optimizer(s), the EMA copies, the step, the generator --
+    as one ``torch.save`` file a step, under ``<run_dir>/resume``.
+    Counterpart of the JAX package's ``train/callbacks.py::OrbaxResume``;
+    the state is whatever dict of tensors, state dicts and numbers the
+    caller hands over (``cli/train_legacy.py``, ``cli/train_ae.py``)."""
+
+    def __init__(self, run_dir: str, every: int = 200):
+        self.every = every
+        self.dir = os.path.abspath(os.path.join(run_dir, "resume"))
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:08d}.pt")
+
+    def maybe_save(self, step: int, state: dict) -> None:
+        if step % self.every != 0:
+            return
+        os.makedirs(self.dir, exist_ok=True)
+        tmp = self.path(step) + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, self.path(step))
+
+    def latest_step(self) -> Optional[int]:
+        if not os.path.isdir(self.dir):
+            return None
+        steps = [int(f[5:13]) for f in os.listdir(self.dir)
+                 if f.startswith("step_") and f.endswith(".pt")]
+        return max(steps) if steps else None
+
+    def restore(self, step: int, device=None) -> dict:
+        return torch.load(self.path(step), map_location=device,
+                          weights_only=True)
+

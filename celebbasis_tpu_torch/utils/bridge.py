@@ -13,7 +13,9 @@ model:
   ``position_embedding``, FrozenBN's ``mean`` / ``var`` (buffers in the
   port), PReLU's ``alpha``, ``coef_table``, the CLIP towers'
   ``class_embedding`` and ``proj`` (used as ``x @ proj`` on both sides),
-  BERT's ``token_emb`` / ``pos_emb``, and the leaves ``keep`` names (as
+  BERT's ``token_emb`` / ``pos_emb`` (and the attention pool's ``pos_emb``),
+  ActNorm's ``loc``, the KL loss's ``logvar``, the LPIPS heads ``lin_0`` ...
+  ``lin_4``, and the leaves ``keep`` names (as
   ``utils.bridge_xt`` does for the x-transformers leaves) as they are;
   a leaf already called ``weight`` (EqualLinear) is stored ``(out, in)`` in
   both packages and is **not** transposed;
@@ -40,9 +42,16 @@ with its codebook, ``convert_bert_text`` the x-transformers
 ``TransformerWrapper`` of ``BERTEmbedder``
 (``cond_stage_model.transformer.*``), ``convert_clip_text``
 the HF CLIP text keys (``cond_stage_model.transformer.[text_model.]*``),
-``convert_iresnet`` an insightface ``backbone.pth``; ``load_sd_checkpoint``
-and ``load_iresnet_checkpoint`` read the files (``utils.pt_io.load_pt``) and
-report the keys they did not use.  A key the module needs and the file lacks
+``convert_iresnet`` an insightface ``backbone.pth``,
+``convert_encoder_unet`` the classifier trunk (``EncoderUNetModel``, every
+pooling head), ``convert_vgg16`` / ``convert_lpips`` torchvision's VGG16
+and the LPIPS heads; ``load_sd_checkpoint`` and ``load_iresnet_checkpoint``
+read the files (``utils.pt_io.load_pt``) and report the keys they did not
+use.  The maps are written once for both ways: ``export_unet``,
+``export_vae``, ``export_vq``, ``export_bert_text`` and
+``export_encoder_unet`` walk them over the port's state dict and write the
+reference's keys (what the legacy trainers' ``--export-torch`` writes),
+raising on an entry they did not write.  A key the module needs and the file lacks
 raises; values come back float32 (the CosFace file is fp16), and
 ``load_state_dict(strict=True)`` refuses a shape that differs.
 """
@@ -67,7 +76,10 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "weight": "weight", "mean": "mean", "var": "var",
                "alpha": "alpha", "coef_table": "coef_table",
                "class_embedding": "class_embedding", "proj": "proj",
-               "token_emb": "token_emb", "pos_emb": "pos_emb"}
+               "token_emb": "token_emb", "pos_emb": "pos_emb",
+               # ActNorm's shift, the KL loss's logvar, the LPIPS heads
+               "loc": "loc", "logvar": "logvar",
+               **{f"lin_{i}": f"lin_{i}" for i in range(5)}}
 _COLLECTIONS = ("params", "batch_stats")
 
 
@@ -179,6 +191,68 @@ class _Reader:
         self.put(f"{dst}.mean", self.take(f"{src}.running_mean"))
         self.put(f"{dst}.var", self.take(f"{src}.running_var"))
 
+    # the calls the maps shared with ``_Writer`` make
+    def copy(self, dst: str, src: str) -> None:
+        self.put(dst, self.take(src))
+
+    def has_layer(self, dst: str, src: str) -> bool:
+        """Whether the optional layer ``src`` (a skip conv) is there."""
+        return self.has(f"{src}.weight")
+
+    def conv1d(self, dst: str, src: str) -> None:
+        """A 1x1 conv1d (out, in, 1) held as a ``Dense`` (out, in)."""
+        self.put(f"{dst}.weight", self.take(f"{src}.weight")[:, :, 0])
+        self.put(f"{dst}.bias", self.take(f"{src}.bias"))
+
+    def transposed(self, dst: str, src: str) -> None:
+        self.put(dst, self.take(src).t().contiguous())
+
+
+class _Writer:
+    """The way back: the maps that read a checkpoint into the port's names
+    (``_map_unet``, ``_map_ldm_backbone``, ...) walked over the port's state
+    dict, writing the checkpoint's keys (under ``prefix``) as float32 CPU
+    tensors.  ``finish`` raises unless every entry of the state was
+    written."""
+
+    def __init__(self, state: Mapping[str, torch.Tensor], prefix: str = ""):
+        self.state, self.prefix = state, prefix
+        self.used: Set[str] = set()
+        self.out: Dict[str, torch.Tensor] = {}
+
+    def _get(self, dst: str) -> torch.Tensor:
+        self.used.add(dst)
+        return self.state[dst].detach().float().cpu().clone()
+
+    def copy(self, dst: str, src: str) -> None:
+        self.out[self.prefix + src] = self._get(dst)
+
+    def has_layer(self, dst: str, src: str) -> bool:
+        return f"{dst}.weight" in self.state
+
+    def weight(self, dst: str, src: str, bias: bool = True) -> None:
+        self.copy(f"{dst}.weight", f"{src}.weight")
+        if bias and f"{dst}.bias" in self.state:
+            self.copy(f"{dst}.bias", f"{src}.bias")
+
+    def norm(self, dst: str, src: str) -> None:
+        self.copy(f"{dst}.weight", f"{src}.weight")
+        self.copy(f"{dst}.bias", f"{src}.bias")
+
+    def conv1d(self, dst: str, src: str) -> None:
+        self.out[f"{self.prefix}{src}.weight"] = \
+            self._get(f"{dst}.weight")[:, :, None]
+        self.copy(f"{dst}.bias", f"{src}.bias")
+
+    def transposed(self, dst: str, src: str) -> None:
+        self.out[self.prefix + src] = self._get(dst).t().contiguous()
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        left = sorted(set(self.state) - self.used)
+        if left:
+            raise KeyError(f"not exported: {left[:8]}")
+        return self.out
+
 
 def _map_resblock(rd: _Reader, dst: str, src: str) -> None:
     rd.norm(f"{dst}.norm1", f"{src}.in_layers.0")
@@ -186,7 +260,7 @@ def _map_resblock(rd: _Reader, dst: str, src: str) -> None:
     rd.weight(f"{dst}.emb_proj", f"{src}.emb_layers.1")
     rd.norm(f"{dst}.norm2", f"{src}.out_layers.0")
     rd.weight(f"{dst}.conv2", f"{src}.out_layers.3")
-    if rd.has(f"{src}.skip_connection.weight"):
+    if rd.has_layer(f"{dst}.skip", f"{src}.skip_connection"):
         rd.weight(f"{dst}.skip", f"{src}.skip_connection")
 
 
@@ -195,8 +269,7 @@ def _map_attnblock(rd: _Reader, dst: str, src: str) -> None:
     (out, in, 1) are ``Dense`` weights (out, in) here."""
     rd.norm(f"{dst}.norm", f"{src}.norm")
     for p in ("qkv", "proj_out"):
-        rd.put(f"{dst}.{p}.weight", rd.take(f"{src}.{p}.weight")[:, :, 0])
-        rd.put(f"{dst}.{p}.bias", rd.take(f"{src}.{p}.bias"))
+        rd.conv1d(f"{dst}.{p}", f"{src}.{p}")
 
 
 def _map_spatial(rd: _Reader, dst: str, src: str, depth: int) -> None:
@@ -222,16 +295,27 @@ def convert_unet(state: Mapping[str, torch.Tensor],
     """CompVis ``openaimodel.UNetModel`` keys -> ``models.unet.UNetModel``'s
     state dict; the keys taken are added to ``used``."""
     rd = _Reader(state, prefix, used)
+    _map_unet(rd, cfg)
+    return rd.out
+
+
+def export_unet(state: Mapping[str, torch.Tensor],
+                cfg: UNetConfig = UNetConfig.sd_v1(),
+                prefix: str = "model.diffusion_model."
+                ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`convert_unet`: a ``UNetModel``'s state dict ->
+    the CompVis keys."""
+    wr = _Writer(state, prefix)
+    _map_unet(wr, cfg)
+    return wr.finish()
+
+
+def _map_encoder_half(rd, cfg: UNetConfig, attn) -> None:
+    """The time embedding, the input blocks and the middle block, shared by
+    the UNet and the classifier trunk."""
     rd.weight("time_fc1", "time_embed.0")
     rd.weight("time_fc2", "time_embed.2")
     rd.weight("conv_in", "input_blocks.0.0")
-
-    def attn(dst, src):
-        if cfg.use_spatial_transformer:
-            _map_spatial(rd, dst, src, cfg.transformer_depth)
-        else:
-            _map_attnblock(rd, dst, src)
-
     levels = len(cfg.channel_mult)
     idx, ds = 1, 1
     for level in range(levels):
@@ -247,10 +331,23 @@ def convert_unet(state: Mapping[str, torch.Tensor],
             else:
                 rd.weight(f"down_{level}_downsample",
                           f"input_blocks.{idx}.0.op")
-            idx, ds = idx + 1, ds * 2
+            idx += 1
+            ds *= 2
     _map_resblock(rd, "mid_res_0", "middle_block.0")
     attn("mid_attn", "middle_block.1")
     _map_resblock(rd, "mid_res_1", "middle_block.2")
+
+
+def _map_unet(rd, cfg: UNetConfig) -> None:
+    def attn(dst, src):
+        if cfg.use_spatial_transformer:
+            _map_spatial(rd, dst, src, cfg.transformer_depth)
+        else:
+            _map_attnblock(rd, dst, src)
+
+    _map_encoder_half(rd, cfg, attn)
+    levels = len(cfg.channel_mult)
+    ds = 2 ** (levels - 1)
     idx = 0
     for level in reversed(range(levels)):
         for j in range(cfg.num_res_blocks + 1):
@@ -270,7 +367,83 @@ def convert_unet(state: Mapping[str, torch.Tensor],
             idx += 1
     rd.norm("norm_out", "out.0")
     rd.weight("conv_out", "out.2")
+
+
+def convert_encoder_unet(state: Mapping[str, torch.Tensor], cfg: UNetConfig,
+                         pool: str = "adaptive", prefix: str = "model.",
+                         used: Optional[Set[str]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """An ``EncoderUNetModel`` checkpoint (the reference's classifier trunk)
+    -> ``models.unet.EncoderUNetModel``'s state dict: the UNet's encoder
+    half with plain ``AttentionBlock``s, then the pooling head (the
+    attention pool's ``positional_embedding`` (C, T) taken as (T, C), its
+    1x1 conv1d projections as ``Dense`` weights)."""
+    rd = _Reader(state, prefix, used)
+    _map_encoder_unet(rd, cfg, pool)
     return rd.out
+
+
+def export_encoder_unet(state: Mapping[str, torch.Tensor], cfg: UNetConfig,
+                        pool: str = "adaptive", prefix: str = "model."
+                        ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`convert_encoder_unet`."""
+    wr = _Writer(state, prefix)
+    _map_encoder_unet(wr, cfg, pool)
+    return wr.finish()
+
+
+def _map_encoder_unet(rd, cfg: UNetConfig, pool: str) -> None:
+    _map_encoder_half(rd, cfg, lambda dst, src: _map_attnblock(rd, dst, src))
+    if pool in ("adaptive", "attention"):
+        rd.norm("norm_out", "out.0")
+    if pool == "adaptive":
+        rd.weight("conv_out", "out.3")
+    elif pool == "attention":
+        rd.transposed("attn_pool.pos_emb", "out.2.positional_embedding")
+        rd.conv1d("attn_pool.qkv", "out.2.qkv_proj")
+        rd.conv1d("attn_pool.c_proj", "out.2.c_proj")
+    elif pool == "spatial":
+        rd.weight("fc1", "out.0")
+        rd.weight("fc2", "out.2")
+    elif pool == "spatial_v2":
+        rd.weight("fc1", "out.0")
+        rd.norm("fc_norm", "out.1")
+        rd.weight("fc2", "out.3")
+    else:
+        raise NotImplementedError(f"Unexpected {pool} pooling")
+
+
+# conv indices inside torchvision's vgg16().features (ReLUs and pools
+# interleave)
+_VGG16_FEATURE_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def convert_vgg16(state: Mapping[str, torch.Tensor], prefix: str = "",
+                  used: Optional[Set[str]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """torchvision ``vgg16()`` keys (``features.{i}``) ->
+    ``models.lpips.VGG16Features``' state dict; the classifier head is not
+    read (LPIPS never uses it)."""
+    rd = _Reader(state, prefix, used)
+    for j, i in enumerate(_VGG16_FEATURE_IDX):
+        rd.weight(f"conv_{j}", f"features.{i}")
+    return rd.out
+
+
+def convert_lpips(state: Mapping[str, torch.Tensor],
+                  vgg_state: Mapping[str, torch.Tensor], prefix: str = "",
+                  used: Optional[Set[str]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """A taming / LPIPS checkpoint (heads ``lin{i}.model.1.weight``, 1x1
+    no-bias convs (1, C, 1, 1)) and a torchvision VGG16 state dict ->
+    ``models.lpips.LPIPS``' state dict: each head a per-channel weight
+    vector (the same contraction)."""
+    rd = _Reader(state, prefix, used)
+    for i in range(5):
+        rd.put(f"lin_{i}", rd.take(f"lin{i}.model.1.weight")[0, :, 0, 0])
+    out = dict(rd.out)
+    out.update({f"vgg.{k}": v for k, v in convert_vgg16(vgg_state).items()})
+    return out
 
 
 def _map_vae_res(rd: _Reader, dst: str, src: str) -> None:
@@ -278,7 +451,7 @@ def _map_vae_res(rd: _Reader, dst: str, src: str) -> None:
     rd.weight(f"{dst}.conv1", f"{src}.conv1")
     rd.norm(f"{dst}.norm2", f"{src}.norm2")
     rd.weight(f"{dst}.conv2", f"{src}.conv2")
-    if rd.has(f"{src}.nin_shortcut.weight"):
+    if rd.has_layer(f"{dst}.nin_shortcut", f"{src}.nin_shortcut"):
         rd.weight(f"{dst}.nin_shortcut", f"{src}.nin_shortcut")
 
 
@@ -344,6 +517,15 @@ def convert_vae(state: Mapping[str, torch.Tensor],
     return rd.out
 
 
+def export_vae(state: Mapping[str, torch.Tensor],
+               cfg: VAEConfig = VAEConfig.sd_v1(),
+               prefix: str = "first_stage_model.") -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`convert_vae`."""
+    wr = _Writer(state, prefix)
+    _map_ldm_backbone(wr, cfg)
+    return wr.finish()
+
+
 def convert_vq(state: Mapping[str, torch.Tensor], cfg: VAEConfig,
                prefix: str = "first_stage_model.",
                used: Optional[Set[str]] = None) -> Dict[str, torch.Tensor]:
@@ -351,9 +533,21 @@ def convert_vq(state: Mapping[str, torch.Tensor], cfg: VAEConfig,
     dict: the KL backbone's keys plus the codebook
     (``quantize.embedding.weight``, taming's ``VectorQuantizer2``)."""
     rd = _Reader(state, prefix, used)
-    _map_ldm_backbone(rd, cfg)
-    rd.put("quantize.weight", rd.take("quantize.embedding.weight"))
+    _map_vq(rd, cfg)
     return rd.out
+
+
+def export_vq(state: Mapping[str, torch.Tensor], cfg: VAEConfig,
+              prefix: str = "first_stage_model.") -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`convert_vq`."""
+    wr = _Writer(state, prefix)
+    _map_vq(wr, cfg)
+    return wr.finish()
+
+
+def _map_vq(rd, cfg: VAEConfig) -> None:
+    _map_ldm_backbone(rd, cfg)
+    rd.copy("quantize.weight", "quantize.embedding.weight")
 
 
 def convert_bert_text(state: Mapping[str, torch.Tensor], depth: int,
@@ -366,8 +560,22 @@ def convert_bert_text(state: Mapping[str, torch.Tensor], depth: int,
     block, residual])``; ``to_logits`` is not read (the embedder returns
     embeddings)."""
     rd = _Reader(state, prefix, used)
-    rd.put("token_emb", rd.take("token_emb.weight"))
-    rd.put("pos_emb", rd.take("pos_emb.emb.weight"))
+    _map_bert(rd, depth)
+    return rd.out
+
+
+def export_bert_text(state: Mapping[str, torch.Tensor], depth: int,
+                     prefix: str = "cond_stage_model.transformer."
+                     ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`convert_bert_text`."""
+    wr = _Writer(state, prefix)
+    _map_bert(wr, depth)
+    return wr.finish()
+
+
+def _map_bert(rd, depth: int) -> None:
+    rd.copy("token_emb", "token_emb.weight")
+    rd.copy("pos_emb", "pos_emb.emb.weight")
     for i in range(depth):
         a, f = f"attn_layers.layers.{2 * i}", f"attn_layers.layers.{2 * i + 1}"
         rd.norm(f"attn_ln_{i}", f"{a}.0")
@@ -378,7 +586,6 @@ def convert_bert_text(state: Mapping[str, torch.Tensor], depth: int,
         rd.weight(f"ff_{i}.fc1", f"{f}.1.net.0.0")
         rd.weight(f"ff_{i}.fc2", f"{f}.1.net.2")
     rd.norm("norm_out", "norm")
-    return rd.out
 
 
 def convert_clip_text(state: Mapping[str, torch.Tensor],

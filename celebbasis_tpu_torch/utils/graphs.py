@@ -44,7 +44,11 @@ point around one):
   many warm-ups a window held).
 
 Everything random is drawn before the call and passed in: a generator draw
-inside a capture would be frozen into the graph.
+inside a capture would be frozen into the graph.  The one exception is a
+draw whose number and shapes only the captured function knows (the UNet's
+dropout masks): ``generators`` returns the CUDA generators ``fn`` draws from,
+and each is registered with the graph (``register_generator_state``), so
+that every replay draws anew from it.
 """
 from __future__ import annotations
 
@@ -68,7 +72,8 @@ def captures() -> int:
 
 def _launch_tables() -> List[dict]:
     from celebbasis_tpu_torch.ops import flash_attention, geglu, quant
-    return [flash_attention._launches, geglu._launches, quant._launches]
+    return [flash_attention._launches, flash_attention._reduce_launches,
+            geglu._launches, quant._launches]
 
 
 def _counts() -> List[Dict[str, int]]:
@@ -96,7 +101,8 @@ class _Graph:
     """One captured signature: static buffers, pool, graph, outputs."""
 
     def __init__(self, fn: Callable, spec, leaves: list, device,
-                 restore: Optional[Callable[[], Sequence[torch.Tensor]]]):
+                 restore: Optional[Callable[[], Sequence[torch.Tensor]]],
+                 generators: Callable[[], Sequence[torch.Generator]]):
         t0 = time.perf_counter()
         self.static = [
             torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -118,6 +124,8 @@ class _Graph:
         before = _counts()
         self.pool = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph()
+        for g in generators():
+            self.graph.register_generator_state(g)
         with torch.cuda.graph(self.graph, pool=self.pool):
             out = fn(*args)
         after = _counts()
@@ -150,9 +158,9 @@ class Captured:
     ``capture_s`` maps each captured signature to the seconds its first call
     took (warm-up, capture and the first replay)."""
 
-    def __init__(self, fn: Callable, restore=None):
+    def __init__(self, fn: Callable, restore=None, generators=lambda: ()):
         self.eager = fn
-        self._restore = restore
+        self._restore, self._generators = restore, generators
         self._graphs: Dict[tuple, _Graph] = {}
 
     @property
@@ -187,17 +195,18 @@ class Captured:
         with torch.cuda.device(device):
             if graph is None:
                 graph = _Graph(self.eager, spec, leaves, device,
-                               self._restore)
+                               self._restore, self._generators)
                 self._graphs[key] = graph
             return graph.replay(leaves)
 
 
-def entry(make: Callable, body: Callable, restore=None) -> Callable:
+def entry(make: Callable, body: Callable, restore=None,
+          generators=lambda: ()) -> Callable:
     """An entry point whose work is a captured ``body``: ``make(run)``
     returns the entry point, which calls ``run`` as the eager code would call
-    ``body``.  -> ``make(Captured(body, restore))``, with ``eager`` set to
-    ``make(body)`` and ``captured`` to the ``Captured``."""
-    captured = Captured(body, restore)
+    ``body``.  -> ``make(Captured(body, restore, generators))``, with
+    ``eager`` set to ``make(body)`` and ``captured`` to the ``Captured``."""
+    captured = Captured(body, restore, generators)
     fn = make(captured)
     fn.eager, fn.captured = make(body), captured
     return fn

@@ -13,7 +13,9 @@ and the DDPM chain), the textual-inversion baseline (``cli/train_ti``,
 (``cli/gen_imgs``, ``cli/eval_imgs``), face alignment (``cli/align``), the
 landmark trainers (``cli/preprocess_pipnet``, ``cli/train_pipnet``,
 ``cli/train_pipnet_gssl``) and the legacy latent-diffusion family
-(``cli/evaluate_model``, ``cli/sample_diffusion``, ``cli/inpaint``) -- and
+(``cli/evaluate_model``, ``cli/sample_diffusion``, ``cli/inpaint``, and its
+training side: ``cli/train_legacy``, ``cli/train_ae``, the noisy-latent
+classifier) -- and
 holds every hand-written kernel against its plain PyTorch version.  Phases:
 
 1. ``env``     the card, its power limit, torch / CUDA / nvcc versions;
@@ -47,6 +49,14 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
                heads, D = 64, 77 tokens) and the tiny inpainting UNet's
                mid-block AttentionBlock (one image, 8 heads, D = 8, 64
                tokens), with a peaked softmax too at 21 heads and at D = 8;
+               and the training forward, dq and dk/dv at the legacy train
+               steps' shapes (timed): the CelebA-HQ AttentionBlocks' views
+               at batch 48 (interleaved q/k/v, the incoming gradient a
+               per-head view too), BERT's 77 tokens and the 1p4B UNet's
+               self- and cross-attention at each level at batch 4, with a
+               peaked softmax at 21 heads, and the tiny classifier's
+               AttentionBlock and AttentionPool2d (untimed); each split
+               dk/dv launching its reduction;
 4. ``parity``  the norms' bf16 branch with float32 parameters against the
                float32 formula rounded once (within one bf16 unit); the tiny
                pipeline in fp32 through the kernel route and through the
@@ -174,7 +184,35 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
                and the tiny fp32 legacy configs on the kernel route against
                the plain route (float images within 1e-3, pixels within one
                level);
-15. ``warmup`` ``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults
+15. ``legacy_train`` the legacy family's training side: ``cli/train_legacy.py
+               --fake-data`` on ``celebahq-ldm-vq-4.yaml`` at full width and
+               the published batch (48), bf16 compute over float32
+               parameters, the output convs drawn: three steps on the step's
+               CUDA graph (the VQ-f4 encode, q_sample, the UNet with its 16
+               AttentionBlocks, the eps MSE, AdamW, EMA), a 5-step sample
+               grid, the export read back by ``load_reference_checkpoint``
+               bit for bit; launches a step equal to the prediction
+               (``celebahq_step_launches``, the dk/dv split reductions
+               included), capture seconds, peak memory;
+               the step on its graph and eagerly in turns (losses, UNet
+               after AdamW and EMA bit for bit, ms a step); one step's UNet
+               gradient on the kernel route against the plain route at
+               batch 8 (cosine >= 0.99, |diff| / |grad| <= 0.1); the tiny
+               fp32 configs' step (AttentionBlocks; BERT trainable) kernel
+               route against plain route (loss 1e-5, gradients 1e-4 of the
+               largest entry); the tiny step with dropout on its graph
+               (two replays from one state draw other masks);
+               ``cli/train_legacy.py`` on
+               ``txt2img-1p4B-eval.yaml`` with BERT trainable (batch 4, two
+               steps and two timed, remat on; launches a step equal to
+               ``step_1p4b_launches``); ``cli/train_ae.py`` on
+               ``autoencoder_kl_32x32x4.yaml`` at 256^2 (batch 12, eager),
+               then one step of the same model with the discriminator on
+               (``disc_start`` 0: its loss positive, its parameters moved,
+               the adaptive weight below its clamp and equal to its value
+               recomputed from the same pass); a tiny noisy-latent
+               classifier step (#3-#5 launched);
+16. ``warmup`` ``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults
                in a process of its own: the kernel libraries built, the
                train-step and txt2img graphs captured, seconds of each.
 
@@ -377,6 +415,38 @@ LEGACY_ATTN_SHAPES = ((4, 14, 1024, 32), (4, 21, 256, 32), (4, 28, 64, 32),
 # head dims of the legacy AttentionBlocks, which hand the per-head entry
 # strided slices of their interleaved q/k/v projection
 LEGACY_BLOCK_HEAD_DIMS = (32, 8)
+# the legacy_train phase: the CelebA-HQ step at the published batch
+# (celebahq-ldm-vq-4.yaml's data.params.batch_size), its runs graph against
+# eager, the 1p4B step's batch (its config has no data block) and steps, the
+# KL-f8 autoencoder's batch (the published 12) at 256^2
+LEGACY_TRAIN_BATCH, LEGACY_TRAIN_STEPS = 48, 3
+LEGACY_1P4B_BATCH, LEGACY_AE_BATCH = 4, 12
+# the batch of the full-width kernel-route vs plain-route step: the plain
+# route keeps every (B, H, N, N) fp32 attention matrix for its backward
+LEGACY_PARITY_BATCH = 8
+# (tokens, head dim, SpatialTransformers) of the 1p4B UNet's attention
+# levels at its 32^2 latents: two down and three up at 32^2, 16^2 and 8^2,
+# the middle block at 4^2; 8 heads each, self-attention and cross-attention
+# against BERT's 77 tokens
+LEGACY_1P4B_LEVELS = ((1024, 40, 5), (256, 80, 5), (64, 160, 5), (16, 160, 1))
+BERT_HEADS, BERT_HEAD_DIM, BERT_TOKENS = 8, 64, 77
+# (B, H, N, M, D, layout) of the legacy train steps' attention: the CelebA-HQ
+# AttentionBlocks at 32^2, 16^2 and 8^2 latents (interleaved views, D = 32
+# padded to 48) at the step's batch; at the 1p4B step's, BERT's and the
+# UNet's levels (packed)
+LEGACY_TRAIN_SHAPES = (
+    (LEGACY_TRAIN_BATCH, 14, 1024, 1024, 32, "interleaved"),
+    (LEGACY_TRAIN_BATCH, 21, 256, 256, 32, "interleaved"),
+    (LEGACY_TRAIN_BATCH, 28, 64, 64, 32, "interleaved"),
+    (LEGACY_1P4B_BATCH, BERT_HEADS, BERT_TOKENS, BERT_TOKENS, BERT_HEAD_DIM,
+     "nhd"),
+    *((LEGACY_1P4B_BATCH, 8, N, M, D, "nhd")
+      for N, D, _ in LEGACY_1P4B_LEVELS for M in (N, BERT_TOKENS)))
+# the tiny classifier step's (legacy_train_classifier, batch 4): its
+# AttentionBlock at 8^2 (4 heads of 32, interleaved) and its AttentionPool2d
+# (8^2 tokens and their mean; q, k and v column chunks of one projection)
+CLASSIFIER_TRAIN_SHAPES = ((4, 4, 64, 64, 32, "interleaved"),
+                           (4, 4, 65, 65, 32, "chunked"))
 # a VQ index on the card may differ from the CPU quantizer's only where the
 # two codes' float32 distances lie within this of the row's largest distance
 VQ_TIE_REL = 1e-5
@@ -819,10 +889,16 @@ def _agreement(name, got, ref, dtype, rec):
 
 def check_train_shape(layout, B, H, N, M, D, dtype, timed, q_scale=1.0):
     """The training forward (o, lse), dq and dk/dv against their plain
-    versions on one shape, `layout` "nhd" (packed) or "bhnd" (per-head views
-    of packed buffers).  The backward is compared on the kernels' own o and
-    lse, run twice (the bits must repeat), and o must equal the inference
-    forward's bit for bit."""
+    versions on one shape, `layout` "nhd" (packed), "bhnd" (per-head views
+    of packed buffers), "interleaved" (N = M: q, k and v per-head views of
+    one (B, N, H, 3, D) projection and the incoming gradient a per-head view
+    of a (B, N, H, D) buffer, as the legacy UNet's AttentionBlock hands them
+    over forward and backward) or "chunked" (N = M: q, k and v packed column
+    chunks of one (B, N, 3 H D) projection, as AttentionPool2d hands them
+    over).  The backward is compared on the kernels' own o and lse, run
+    twice (the bits must repeat), and o must equal the inference forward's
+    bit for bit; each dk/dv launch whose query stream ``dkv_split_plan``
+    splits must launch the split reduction too."""
     g = torch.Generator(device="cuda").manual_seed(N * 131 + M * 7 + D + 1)
     mk = lambda L, scale=1.0: (torch.randn(B, L, H * D, device="cuda",
                                            generator=g) * scale).to(dtype)
@@ -831,11 +907,27 @@ def check_train_shape(layout, B, H, N, M, D, dtype, timed, q_scale=1.0):
     if layout == "bhnd":
         q, k, v, do = (fa._split(x, H) for x in (q, k, v, do))
         heads = None
+    elif layout == "interleaved":
+        if N != M:
+            raise ValueError("interleaved q/k/v: N = M")
+        gain = torch.tensor([q_scale, 1.0, 1.0], device="cuda")[:, None]
+        qkv = (torch.randn(B, N, H, 3, D, device="cuda", generator=g)
+               * gain).to(dtype)
+        q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+        do = fa._split(do, H)
+        heads = None
+    elif layout == "chunked":
+        if N != M:
+            raise ValueError("chunked q/k/v: N = M")
+        gain = torch.tensor([q_scale, 1.0, 1.0], device="cuda")
+        qkv = (torch.randn(B, N, 3, H * D, device="cuda", generator=g)
+               * gain[:, None]).to(dtype).flatten(2)
+        q, k, v = qkv.chunk(3, dim=-1)
     to4 = (lambda x: x) if heads is None else (lambda x: fa._split(x, H))
     rec = {"layout": layout, "B": B, "H": H, "N": N, "M": M, "D": D,
            "q_scale": q_scale, "dtype": str(dtype).replace("torch.", "")}
 
-    before = fa.launch_counts()
+    before, reduces = fa.launch_counts(), fa.reduce_launch_count()
     o, lse = fa.flash_attention_lse(q, k, v, heads)
     infer = fa.flash_attention_nhd(q, k, v, H) if heads else \
         fa.flash_attention(q, k, v)
@@ -845,9 +937,15 @@ def check_train_shape(layout, B, H, N, M, D, dtype, timed, q_scale=1.0):
     torch.cuda.synchronize()
     after = fa.launch_counts()
     launched = {n: after[n] - before[n] for n in TRAIN_KERNELS}
-    if launched != {"fwd_lse": 1, "dq": 2, "dkv": 2}:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = dtype == torch.bfloat16 \
+        and fa.dkv_split_plan(B, H, N, M, D, sms)[0] > 1
+    launched["dkv_reduce"] = fa.reduce_launch_count() - reduces
+    if launched != {"fwd_lse": 1, "dq": 2, "dkv": 2,
+                    "dkv_reduce": 2 if split else 0}:
         raise RuntimeError(f"the wrappers did not launch their kernels: "
                            f"{launched}")
+    rec["dkv_reduce_launches"] = launched["dkv_reduce"]
     o_ref, lse_ref = fa.flash_attention_lse_plain(to4(q), to4(k), to4(v))
     refs = fa.flash_attention_bwd_plain(to4(q), to4(k), to4(v), to4(o), lse,
                                         to4(do))
@@ -902,7 +1000,6 @@ def check_train_shape(layout, B, H, N, M, D, dtype, timed, q_scale=1.0):
                          "library_ms": lib_fwd if name == "fwd_lse"
                          else lib_bwd}
         if dtype == torch.bfloat16:
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
             rec["fwd_lse"]["grid"] = fwd_grid(B, H, N, M, D)
             rec["dq"]["instantiation"] = rec["dkv"]["instantiation"] = "wgmma"
             rec["dkv"]["splits"] = fa.dkv_split_plan(B, H, N, M, D, sms)[0]
@@ -941,6 +1038,18 @@ def phase_train_kernels():
         shapes.append(check_train_shape("nhd", B_TRAIN, H_SERVE, N, N, D,
                                         torch.bfloat16, timed=False,
                                         q_scale=4.0))
+    # the legacy train steps' attention: the CelebA-HQ AttentionBlocks'
+    # interleaved views, BERT's and the 1p4B UNet's packed levels, timed;
+    # peaked once; the tiny classifier's
+    for B, H, N, M, D, layout in LEGACY_TRAIN_SHAPES:
+        shapes.append(check_train_shape(layout, B, H, N, M, D,
+                                        torch.bfloat16, timed=True))
+    B, H, N, M, D, layout = LEGACY_TRAIN_SHAPES[1]
+    shapes.append(check_train_shape(layout, B, H, N, M, D, torch.bfloat16,
+                                    timed=False, q_scale=4.0))
+    for B, H, N, M, D, layout in CLASSIFIER_TRAIN_SHAPES:
+        shapes.append(check_train_shape(layout, B, H, N, M, D,
+                                        torch.bfloat16, timed=False))
     return shapes
 
 
@@ -4483,6 +4592,608 @@ def phase_legacy(work):
 
 # -- phase 15 -----------------------------------------------------------------
 
+class DrawnOutputConvs:
+    """While entered, ``init_weights`` as the module ``module`` (a trainer
+    CLI) calls it draws the zero-initialised output convs too: a random UNet
+    with zero output convs predicts eps = 0, and its attention then gets no
+    gradient in the backward."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        import functools
+        self.saved = self.module.init_weights
+        self.module.init_weights = functools.partial(self.saved,
+                                                     zero_convs=False)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.init_weights = self.saved
+
+
+def flash_counts():
+    """The flash launch counters that are not zero, the dk/dv split
+    reduction's (``dkv_reduce``) among them."""
+    counts = {**fa.launch_counts(), "dkv_reduce": fa.reduce_launch_count()}
+    return {n: c for n, c in counts.items() if c}
+
+
+def splits_of(calls):
+    """How many of the bf16 dk/dv calls (B, H, N, M, D, calls) split their
+    query stream (``dkv_split_plan`` on this card), each launching the
+    split reduction besides."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sum(n for B, H, N, M, D, n in calls
+               if fa.dkv_split_plan(B, H, N, M, D, sms)[0] > 1)
+
+
+def celebahq_step_launches(batch):
+    """The predicted flash launches of one CelebA-HQ train step: each of the
+    16 AttentionBlocks (5 at 32^2 with 14 heads, 5 at 16^2 with 21, 6 at
+    8^2 with 28; D = 32) runs the training forward once and the backward's
+    dq and dk/dv once (every q, k and v requires grad: the UNet trains);
+    the first stage's one-head D = 512 attention takes the plain core.  ->
+    the counters that are not zero, as ``flash_counts``."""
+    levels = ((14, 1024, 5), (21, 256, 5), (28, 64, 6))
+    blocks = sum(n for _, _, n in levels)
+    want = {"fwd_lse": blocks, "dq": blocks, "dkv": blocks,
+            "dkv_reduce": splits_of([(batch, h, tok, tok, 32, n)
+                                     for h, tok, n in levels])}
+    return {n: c for n, c in want.items() if c}
+
+
+def step_1p4b_launches(batch):
+    """The predicted flash launches of one 1p4B train step with BERT
+    trainable: the UNet's 16 SpatialTransformers (LEGACY_1P4B_LEVELS) each
+    run self-attention and cross-attention; with ``use_checkpoint`` the
+    backward recomputes each block's forward, so 64 training forwards, and
+    32 dq and dk/dv; BERT's 32 layers one training forward, dq and dk/dv
+    each (every q, k and v requires grad).  -> the counters that are not
+    zero, as ``flash_counts``."""
+    unet = [(batch, 8, N, M, D, n) for N, D, n in LEGACY_1P4B_LEVELS
+            for M in (N, BERT_TOKENS)]
+    bert = [(batch, BERT_HEADS, BERT_TOKENS, BERT_TOKENS, BERT_HEAD_DIM,
+             BERT_ATTN)]
+    calls = sum(c[-1] for c in unet)
+    want = {"fwd_lse": 2 * calls + BERT_ATTN, "dq": calls + BERT_ATTN,
+            "dkv": calls + BERT_ATTN, "dkv_reduce": splits_of(unet + bert)}
+    return {n: c for n, c in want.items() if c}
+
+
+def train_snapshot(tr):
+    """What a legacy train step writes, and the generator's state."""
+    return ([t.detach().clone() for t in tr.written_in_place()],
+            tr.generator.get_state(), tr.steps_done)
+
+
+def train_restore(tr, snap):
+    """Back to a snapshot, in place (a captured step reads these tensors
+    where they lie)."""
+    with torch.no_grad():
+        for t, s in zip(tr.written_in_place(), snap[0], strict=True):
+            t.copy_(s)
+    tr.generator.set_state(snap[1])
+    tr.steps_done = snap[2]
+
+
+def flat_grads(optimizer):
+    """Every gradient of an optimizer's parameters, as one flat fp32
+    tensor."""
+    return torch.cat([p.grad.float().flatten()
+                      for g in optimizer.param_groups for p in g["params"]])
+
+
+def legacy_graph_vs_eager(tr, images, want):
+    """The CelebA-HQ step from one state on its graph and eagerly in turns
+    (graph, eager, eager, graph), LEGACY_TRAIN_STEPS steps a run: losses,
+    UNet parameters after AdamW and the EMA copies bit for bit, launches a
+    step, split reductions included (= ``want``), ms a step to a sync and
+    peak memory each way."""
+    snap = train_snapshot(tr)
+    outs, rec = [], {"graph": [], "eager": []}
+    unet = tr.ldm.unet
+    for way in ("graph", "eager", "eager", "graph"):
+        train_restore(tr, snap)
+        fn = tr.step if way == "graph" else tr.step.eager
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        caps0 = graphs.captures()
+        ms, losses = [], []
+        for _ in range(LEGACY_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(fn(images).clone())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = flash_counts()
+        with torch.no_grad():
+            outs.append(losses + [
+                torch.cat([p.flatten() for p in unet.parameters()]),
+                torch.cat([e.flatten() for e in tr.ema.params.values()])])
+        rec[way].append({
+            "ms": ms, "captures": graphs.captures() - caps0,
+            "launches_per_step": {n: c / LEGACY_TRAIN_STEPS
+                                  for n, c in counts.items()},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30})
+    train_restore(tr, snap)
+    same = all(torch.equal(a, b) for o in outs[1:]
+               for a, b in zip(o, outs[0]))
+    per_step = [r["launches_per_step"] for way in rec for r in rec[way]]
+    log("legacy_train", f"celebahq step graph vs eager in turns: bit for bit "
+                        f"{same} (losses, UNet after AdamW, EMA); ms a step "
+                        f"graph {[[round(x, 2) for x in r['ms']] for r in rec['graph']]}"
+                        f" vs eager {[[round(x, 2) for x in r['ms']] for r in rec['eager']]}; "
+                        f"launches a step {json.dumps(per_step[0])}; peak "
+                        f"allocated / reserved GiB graph "
+                        f"{[(round(r['peak_gib'], 2), round(r['peak_reserved_gib'], 2)) for r in rec['graph']]}"
+                        f" eager "
+                        f"{[(round(r['peak_gib'], 2), round(r['peak_reserved_gib'], 2)) for r in rec['eager']]}")
+    if not same:
+        raise RuntimeError("legacy_train: the CelebA-HQ step's graph does "
+                           "not give its eager bits")
+    want = {n: float(c) for n, c in want.items()}
+    if any(p != want for p in per_step) or \
+            any(r["captures"] for r in rec["graph"]):
+        raise RuntimeError(f"legacy_train: launches a step {per_step}, "
+                           f"expected {want}")
+    rec["bits_equal"] = same
+    return rec
+
+
+def legacy_step_route_parity(tr, images, cond=None):
+    """One eager step from the trainer's state on the kernel route and on
+    the plain route (the state put back after each): -> [(loss, flat
+    gradient of every trained parameter)] for the two routes; the kernel
+    route must launch flash kernels and the plain route none."""
+    snap = train_snapshot(tr)
+    results = []
+    for impl in (None, "xla"):
+        train_restore(tr, snap)
+        attn_ops.set_default_impl(impl)
+        try:
+            fa.reset_launch_count()
+            loss = tr.step.eager(images, cond)
+            torch.cuda.synchronize()
+            n = fa.launch_count()
+        finally:
+            attn_ops.set_default_impl(None)
+        if (impl is None) != (n > 0):
+            raise RuntimeError(f"legacy_train: the {impl or 'kernel'} route "
+                               f"launched {n} flash kernels")
+        results.append((float(loss), flat_grads(tr.optimizer)))
+    train_restore(tr, snap)
+    return results
+
+
+def legacy_train_celebahq(work):
+    """``cli/train_legacy.py --fake-data`` on celebahq-ldm-vq-4.yaml (module
+    docstring, phase 15).  -> its record."""
+    import yaml
+
+    from celebbasis_tpu_torch import legacy
+    from celebbasis_tpu_torch.cli import train_legacy
+
+    cfg_path = os.path.join(LEGACY_CONFIGS, "celebahq-ldm-vq-4.yaml")
+    ckpt = os.path.join(work, "celebahq_trained.ckpt")
+    want = celebahq_step_launches(LEGACY_TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    caps0 = graphs.captures()
+    t0 = time.perf_counter()
+    with DrawnOutputConvs(train_legacy):
+        run = train_legacy.main([
+            "--config", cfg_path, "--fake-data", str(LEGACY_TRAIN_BATCH),
+            "--batch-size", str(LEGACY_TRAIN_BATCH),
+            "--max-steps", str(LEGACY_TRAIN_STEPS), "--log-every", "1",
+            "--logdir", os.path.join(work, "legacy_train"),
+            "--export-torch", ckpt, "--image-every", str(LEGACY_TRAIN_STEPS),
+            "--image-steps", "5"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = flash_counts()
+    tr, ldm = run["trainer"], run["ldm"]
+    rec = {"batch": LEGACY_TRAIN_BATCH, "steps": LEGACY_TRAIN_STEPS,
+           "wall_s": wall, "losses": run["losses"], "launches": counts,
+           "captures": graphs.captures() - caps0,
+           "capture_s": list(tr.step.captured.capture_s.values()),
+           "launches_per_step": tr.step.captured.launches_per_replay(),
+           "predicted_per_step": want,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    sample_calls = 5 * CELEBAHQ_ATTN     # the image log's 5-step DDIM chain
+    expect = {n: (LEGACY_TRAIN_STEPS + 1) * c for n, c in want.items()}
+    expect["flash_attention"] = 2 * sample_calls
+    log("legacy_train", f"celebahq cli/train_legacy.py: batch "
+                        f"{LEGACY_TRAIN_BATCH}, {LEGACY_TRAIN_STEPS} steps "
+                        f"and a sample grid in {wall:.1f} s; losses "
+                        f"{json.dumps(run['losses'])}; capture s "
+                        f"{[round(x, 2) for x in rec['capture_s']]}; launches "
+                        f"{json.dumps(counts)} (expected {json.dumps(expect)}); "
+                        f"a step's {json.dumps(rec['launches_per_step'])} "
+                        f"(predicted {json.dumps(want)}); peak allocated / "
+                        f"reserved GiB "
+                        f"{rec['peak_gib']:.2f} / {rec['peak_reserved_gib']:.2f}")
+    if not all(np.isfinite(v) for v in run["losses"].values()):
+        raise RuntimeError("legacy_train: a CelebA-HQ loss is not finite")
+    if rec["launches_per_step"] != want or counts != expect:
+        raise RuntimeError(f"legacy_train: the CelebA-HQ run launched "
+                           f"{counts}, a step {rec['launches_per_step']}; "
+                           f"expected {expect}, a step {want}")
+    # the export, read back by the port's reader of CompVis checkpoints
+    with open(cfg_path) as f:
+        fresh = legacy.build_legacy_ldm(yaml.safe_load(f), torch.float32,
+                                        device="cuda")
+    rec["export_unused_keys"] = legacy.load_reference_checkpoint(fresh, ckpt)
+    rec["export_equal"] = all(
+        torch.equal(p, tr.ema.params[n])
+        for n, p in fresh.unet.named_parameters()) and all(
+        torch.equal(v, ldm.first_stage.state_dict()[k])
+        for k, v in fresh.first_stage.state_dict().items())
+    del fresh
+    log("legacy_train", f"celebahq export read back by "
+                        f"load_reference_checkpoint: EMA UNet and VQ first "
+                        f"stage bit for bit {rec['export_equal']}, unused "
+                        f"keys {rec['export_unused_keys']}")
+    if not rec["export_equal"] or rec["export_unused_keys"]:
+        raise RuntimeError("legacy_train: the exported checkpoint does not "
+                           "read back")
+    data = train_legacy.fake_dataset(ldm, LEGACY_TRAIN_BATCH)[0]
+    images = torch.from_numpy(data).cuda()
+    rec["graph_vs_eager"] = legacy_graph_vs_eager(tr, images, want)
+    tr.step.captured._graphs.clear()          # free the graph's pool
+    torch.cuda.empty_cache()
+    # full width, bf16: one step's UNet gradient on the kernel route and on
+    # the plain route, at a batch the plain attention fits in
+    b = LEGACY_PARITY_BATCH
+    (loss_k, g_k), (loss_p, g_p) = legacy_step_route_parity(tr, images[:b])
+    cos = float(torch.dot(g_k, g_p) / (g_k.norm() * g_p.norm()))
+    rel = float((g_k - g_p).norm() / g_p.norm())
+    rec["route_parity"] = {"batch": b, "loss_kernel": loss_k,
+                           "loss_plain": loss_p, "grad_cosine": cos,
+                           "grad_rel_diff": rel}
+    log("legacy_train", f"celebahq step at batch {b}, bf16, kernel vs plain "
+                        f"route: loss {loss_k:.6f} / {loss_p:.6f}, UNet "
+                        f"gradient cosine {cos:.6f}, |diff|/|grad| {rel:.4f}")
+    if not (cos >= 0.99 and rel <= 0.1):
+        raise RuntimeError(f"legacy_train: the routes' gradients differ "
+                           f"(cosine {cos}, relative {rel})")
+    del run, tr, ldm
+    return rec
+
+
+def legacy_train_tiny_parity():
+    """The tiny legacy configs' train step in fp32 with TF32 off
+    (``configs/tiny_legacy.yaml``: AttentionBlocks of head dim 8 on the
+    per-head entry; ``tiny_legacy_bert.yaml`` with BERT trainable: the
+    packed entry, dk/dv through the context), eager, kernel route against
+    plain route: loss within 1e-5 (relative), the UNet's and BERT's
+    gradients within 1e-4 of the largest entry."""
+    import yaml
+
+    from celebbasis_tpu_torch import legacy
+    from celebbasis_tpu_torch.cli import train_legacy
+    from celebbasis_tpu_torch.loader import init_weights
+
+    out = {}
+    for name in ("tiny_legacy", "tiny_legacy_bert"):
+        with open(os.path.join(REPO, "configs", f"{name}.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        cfg["model"]["params"]["cond_stage_trainable"] = True
+        ldm = legacy.build_legacy_ldm(cfg, torch.float32, device="cuda")
+        init_weights(ldm, torch.Generator("cuda").manual_seed(2),
+                     zero_convs=False)
+        tr = train_legacy.make_legacy_trainer(
+            ldm, cfg, 2, ema=train_legacy.make_ema(ldm.unet),
+            generator=torch.Generator("cuda").manual_seed(3))
+        data, labels, caps, conds = train_legacy.fake_dataset(ldm, 2)
+        cond = train_legacy.cond_batch(ldm, labels, caps, conds)
+        with no_tf32():
+            (lk, gk), (lp, gp) = legacy_step_route_parity(
+                tr, torch.from_numpy(data).cuda(), cond)
+        top = float(gp.abs().max())
+        err = float((gk - gp).abs().max())
+        out[name] = {"loss_kernel": lk, "loss_plain": lp,
+                     "grad_max_abs_err": err, "grad_top": top}
+        log("legacy_train", f"{name} fp32 step (cond stage trainable "
+                            f"{tr.cond_trainable}), kernel vs plain route: "
+                            f"loss {lk:.7f} / {lp:.7f}, gradients max |diff| "
+                            f"{err:.3e} (largest entry {top:.3e})")
+        if abs(lk - lp) > 1e-5 * abs(lp) or err > 1e-4 * top:
+            raise RuntimeError(f"legacy_train: {name}'s routes differ: "
+                               f"{out[name]}")
+    return out
+
+
+def legacy_train_dropout():
+    """The tiny legacy config with ``dropout`` 0.3 on a captured train step
+    (its generator registered with the graph): two replays from the same
+    parameters and optimizer state draw other masks, so their losses
+    differ; each is finite.  -> its record."""
+    import yaml
+
+    from celebbasis_tpu_torch.cli import train_legacy
+
+    with open(os.path.join(REPO, "configs", "tiny_legacy.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["params"]["unet_config"]["params"]["dropout"] = 0.3
+    with DrawnOutputConvs(train_legacy):
+        ldm = train_legacy.build_model(cfg, 4, torch.device("cuda"))
+    tr = train_legacy.make_legacy_trainer(
+        ldm, cfg, 2, generator=torch.Generator("cuda").manual_seed(5))
+    images = torch.from_numpy(train_legacy.fake_dataset(ldm, 2)[0]).cuda()
+    t = torch.tensor([10, 40], device="cuda")
+    noise = torch.randn(tr.latent_shape(images), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(6))
+    tr.step(images, None, t, noise)              # capture
+    snap = [x.detach().clone() for x in tr.written_in_place()]
+    losses = []
+    for _ in range(2):
+        with torch.no_grad():
+            for x, s_ in zip(tr.written_in_place(), snap, strict=True):
+                x.copy_(s_)
+        losses.append(float(tr.step(images, None, t, noise)))
+    rec = {"losses": losses, "captures": len(tr.step.captured.capture_s),
+           "generators": len(tr.step.captured._generators())}
+    log("legacy_train", f"tiny step with dropout 0.3 on its graph: two "
+                        f"replays from one state, losses {losses} "
+                        f"(the generator registered: {rec['generators']})")
+    if rec["captures"] != 1 or rec["generators"] != 1 \
+            or not all(np.isfinite(losses)) or losses[0] == losses[1]:
+        raise RuntimeError(f"legacy_train: dropout on the graph: {rec}")
+    return rec
+
+
+def legacy_train_1p4b(work):
+    """``cli/train_legacy.py --fake-data`` on txt2img-1p4B-eval.yaml with
+    BERT trainable (module docstring, phase 15).  -> its record."""
+    from celebbasis_tpu_torch.cli import train_legacy
+
+    cfg_path = os.path.join(LEGACY_CONFIGS, "txt2img-1p4B-eval.yaml")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    t0 = time.perf_counter()
+    with DrawnOutputConvs(train_legacy):
+        run = train_legacy.main([
+            "--config", cfg_path, "--fake-data", str(LEGACY_1P4B_BATCH),
+            "--batch-size", str(LEGACY_1P4B_BATCH), "--max-steps", "2",
+            "--log-every", "1", "--logdir", os.path.join(work, "legacy_1p4b")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = flash_counts()
+    want = step_1p4b_launches(LEGACY_1P4B_BATCH)
+    tr, ldm = run["trainer"], run["ldm"]
+    data, labels, caps, conds = train_legacy.fake_dataset(ldm,
+                                                          LEGACY_1P4B_BATCH)
+    images = torch.from_numpy(data).cuda()
+    cond = train_legacy.cond_batch(ldm, labels, caps, conds)
+    ms = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        tr.step(images, cond)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    n_params = sum(p.numel() for group in tr.optimizer.param_groups
+                   for p in group["params"])
+    rec = {"batch": LEGACY_1P4B_BATCH, "wall_s": wall,
+           "losses": run["losses"], "launches": counts,
+           "launches_per_step": tr.step.captured.launches_per_replay(),
+           "predicted_per_step": want,
+           "capture_s": list(tr.step.captured.capture_s.values()),
+           "ms": ms, "trained_params": n_params,
+           "cond_trainable": tr.cond_trainable,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    log("legacy_train", f"1p4B cli/train_legacy.py, BERT trainable "
+                        f"{tr.cond_trainable}, {n_params / 1e9:.3f} G trained "
+                        f"parameters, batch {LEGACY_1P4B_BATCH}: 2 steps in "
+                        f"{wall:.1f} s, losses {json.dumps(run['losses'])}; "
+                        f"capture s {[round(x, 2) for x in rec['capture_s']]}"
+                        f"; ms a step on its graph "
+                        f"{[round(x, 2) for x in ms]}; launches "
+                        f"{json.dumps(counts)}, a step "
+                        f"{json.dumps(rec['launches_per_step'])} (predicted "
+                        f"{json.dumps(want)}); peak "
+                        f"allocated / reserved GiB {rec['peak_gib']:.2f} / "
+                        f"{rec['peak_reserved_gib']:.2f}")
+    if not tr.cond_trainable or \
+            not all(np.isfinite(v) for v in run["losses"].values()):
+        raise RuntimeError("legacy_train: the 1p4B run did not train BERT "
+                           "or its loss is not finite")
+    # the run: two steps and the capture's warm-up
+    if rec["launches_per_step"] != want \
+            or counts != {n: 3 * c for n, c in want.items()}:
+        raise RuntimeError(f"legacy_train: the 1p4B run launched {counts}, "
+                           f"a step {rec['launches_per_step']}; expected "
+                           f"{want} a step")
+    del run, tr, ldm
+    return rec
+
+
+def legacy_train_ae(work):
+    """``cli/train_ae.py --fake-data`` on autoencoder_kl_32x32x4.yaml at
+    256^2 (module docstring, phase 15).  -> its record."""
+    from celebbasis_tpu_torch.cli import train_ae
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    t0 = time.perf_counter()
+    run = train_ae.main([
+        "--config", os.path.join(LEGACY_CONFIGS, "autoencoder_kl_32x32x4.yaml"),
+        "--fake-data", str(LEGACY_AE_BATCH), "--max-steps", "2",
+        "--log-every", "1", "--logdir", os.path.join(work, "legacy_ae")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr = run["trainer"]
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (LEGACY_AE_BATCH, 256, 256, 3)).astype(np.float32)).cuda()
+    gen = torch.Generator("cuda").manual_seed(0)
+    ms = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        log_ = tr.train_batch(x, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    rec = {"batch": LEGACY_AE_BATCH, "wall_s": wall, "ms": ms,
+           "logs": run["logs"], "launches": fa.launch_count(),
+           "d_weight": float(log_["train/d_weight"]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log("legacy_train", f"cli/train_ae.py KL-f8 256^2, batch "
+                        f"{LEGACY_AE_BATCH}: 2 steps in {wall:.1f} s; ms a "
+                        f"step (generator + discriminator pass, eager) "
+                        f"{[round(v, 1) for v in ms]}; d_weight "
+                        f"{rec['d_weight']:.4e}; flash launches "
+                        f"{rec['launches']}; peak allocated GiB "
+                        f"{rec['peak_gib']:.2f}")
+    if not all(np.isfinite(v) for r in run["logs"].values()
+               for v in r.values()) or not rec["d_weight"] > 0:
+        raise RuntimeError(f"legacy_train: train_ae logged {run['logs']}")
+    rec["gan_step"] = legacy_ae_gan_step(tr, x)
+    del run, tr
+    return rec
+
+
+def legacy_ae_gan_step(tr, x):
+    """One step of the trained KL-f8 model with the discriminator on
+    (``disc_start`` 0: the published 50001 keeps it off in the smoke's
+    steps).  The adaptive weight is recomputed here from the same pass
+    (the posterior noise given) as ||grad NLL|| / (||grad g|| + 1e-4) on
+    the decoder's last conv weight, g = -mean(D(recons)); where that ratio
+    passes the 1e4 clamp (random weights), ``loss.logvar`` is raised until
+    it is about 100 (the NLL is divided by exp(logvar)).  The step's
+    ``d_weight`` must equal the recomputed ratio x ``disc_weight`` within
+    1e-2 and lie below the clamp, its discriminator loss and factor be
+    positive, and the discriminator's parameters move.  -> its record."""
+    import dataclasses
+    import math
+    model, loss = tr.model, tr.loss
+    loss.cfg = dataclasses.replace(loss.cfg, disc_start=0)
+    last = model.decoder.conv_out.weight
+    with torch.no_grad():
+        mean = model.encode(x)[0]
+    eps = torch.randn(mean.shape, dtype=mean.dtype, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+
+    def ratio():
+        mean, logvar = model.encode(x)
+        recons = model.decode(mean + torch.exp(0.5 * logvar) * eps)
+        nll = loss.nll_of(x, recons)[1]
+        g_loss = -loss.disc(recons).mean()
+        g_nll = torch.autograd.grad(nll, last, retain_graph=True)[0]
+        g_g = torch.autograd.grad(g_loss, last)[0]
+        return float(g_nll.float().norm() / (g_g.float().norm() + 1e-4))
+
+    rec = {"ratio_at_logvar_0": ratio()}
+    if rec["ratio_at_logvar_0"] > 1e3:
+        with torch.no_grad():
+            loss.logvar.fill_(math.log(rec["ratio_at_logvar_0"] / 100))
+    rec["logvar"] = float(loss.logvar)
+    rec["ratio"] = ratio()
+    disc = [p.detach().clone() for p in loss.disc.parameters()]
+    log_ = tr.train_batch(x, override_eps=(eps, eps))
+    torch.cuda.synchronize()
+    clamp = 1e4 * loss.cfg.disc_weight
+    rec.update({k.split("/")[1]: float(v) for k, v in log_.items()
+                if k.split("/")[1] in ("d_weight", "disc_loss", "disc_factor",
+                                       "g_loss", "total_loss")})
+    rec["want_d_weight"] = min(rec["ratio"], 1e4) * loss.cfg.disc_weight
+    rec["disc_moved"] = max(float((p.detach() - b).abs().max()) for p, b in
+                            zip(loss.disc.parameters(), disc, strict=True))
+    log("legacy_train", f"train_ae step with disc_start 0: {json.dumps(rec)}")
+    if not (np.isfinite(list(rec.values())).all()
+            and rec["disc_loss"] > 0 and rec["disc_factor"] > 0
+            and rec["disc_moved"] > 0 and rec["d_weight"] < clamp
+            and abs(rec["d_weight"] - rec["want_d_weight"])
+            <= 1e-2 * rec["want_d_weight"]):
+        raise RuntimeError(f"legacy_train: the GAN step {rec}")
+    return rec
+
+
+def legacy_train_classifier():
+    """One step of the noisy-latent classifier at a tiny size on the card
+    (an EncoderUNetModel, its AttentionBlocks on the per-head entry, the
+    attention pool on the packed one).  -> its record."""
+    from celebbasis_tpu_torch.models.unet import UNetConfig
+    from celebbasis_tpu_torch.train import classifier as clf
+
+    cfg = clf.ClassifierConfig(
+        num_classes=5, unet=UNetConfig(
+            in_channels=4, out_channels=4, model_channels=64,
+            channel_mult=(1, 2), num_res_blocks=1,
+            attention_resolutions=(2,), num_head_channels=32,
+            use_spatial_transformer=False),
+        image_size=16, timesteps=1000)
+    c = clf.NoisyLatentClassifier(cfg, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    z = torch.randn(4, 16, 16, 4, device="cuda", generator=gen)
+    labels = torch.tensor([0, 1, 2, 4], device="cuda")
+    state = c.init_state(lr=1e-4)
+    fa.reset_launch_count()
+    state, log_ = c.train_step(state, z, labels, gen)
+    torch.cuda.synchronize()
+    counts = {n: n_ for n, n_ in fa.launch_counts().items() if n_}
+    sweep = c.validate_noise_sweep(z, labels, gen, log_every_t=250)
+    rec = {"loss": float(log_["train/loss"]), "launches": counts,
+           "sweep_levels": sorted(sweep)}
+    log("legacy_train", f"classifier tiny step: loss {rec['loss']:.4f}, "
+                        f"launches {json.dumps(counts)}, noise sweep levels "
+                        f"{rec['sweep_levels']}")
+    if not np.isfinite(rec["loss"]) or \
+            any(counts.get(n, 0) == 0 for n in TRAIN_KERNELS):
+        raise RuntimeError(f"legacy_train: the classifier step {rec}")
+    return rec
+
+
+def legacy_train_summary(rec):
+    """The legacy_train phase's ms a step, peaks and walls."""
+    med = lambda xs: round(float(np.median(xs)), 2)
+    c = rec["celebahq"]
+    ge = c["graph_vs_eager"]
+    return {
+        "phase_s": round(rec["phase_wall_s"], 1),
+        "celebahq_batch": c["batch"],
+        "celebahq_step_ms_graph": med([m for r in ge["graph"]
+                                       for m in r["ms"][1:]]),
+        "celebahq_step_ms_eager": med([m for r in ge["eager"]
+                                       for m in r["ms"][1:]]),
+        "celebahq_capture_s": [round(x, 2) for x in c["capture_s"]],
+        "celebahq_peak_gib": [round(c["peak_gib"], 2),
+                              round(c["peak_reserved_gib"], 2)],
+        "1p4b_step_ms": med(rec["1p4b"]["ms"]),
+        "1p4b_peak_gib": [round(rec["1p4b"]["peak_gib"], 2),
+                          round(rec["1p4b"]["peak_reserved_gib"], 2)],
+        "ae_step_ms": med(rec["train_ae"]["ms"]),
+        "ae_peak_gib": round(rec["train_ae"]["peak_gib"], 2)}
+
+
+def phase_legacy_train(work):
+    """The legacy family's training side (module docstring, phase 15)."""
+    import gc
+    t0 = time.perf_counter()
+    out = {}
+    for name, run in (("celebahq", lambda: legacy_train_celebahq(work)),
+                      ("tiny_route_parity", legacy_train_tiny_parity),
+                      ("dropout", legacy_train_dropout),
+                      ("1p4b", lambda: legacy_train_1p4b(work)),
+                      ("train_ae", lambda: legacy_train_ae(work)),
+                      ("classifier", legacy_train_classifier)):
+        gc.collect()                  # the last run's model and graphs
+        torch.cuda.empty_cache()
+        out[name] = run()
+    out["phase_wall_s"] = time.perf_counter() - t0
+    log("legacy_train", f"phase {out['phase_wall_s']:.1f} s")
+    return out
+
+
+# -- phase 16 -----------------------------------------------------------------
+
 def phase_warmup():
     """``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults (the
     JAX CLI's: ``configs/aigc_id.yaml``, 512x512, 50 DDIM steps at 8 samples
@@ -4559,6 +5270,8 @@ def main() -> int:
         evaluate = phase_evaluate(work, cli_ckpt, align_files)
         torch.cuda.empty_cache()
         legacy = phase_legacy(work)
+        torch.cuda.empty_cache()
+        legacy_train = phase_legacy_train(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4615,11 +5328,21 @@ def main() -> int:
     outputs = {"fwd_lse": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     for name, (source, replaces, _) in TRAIN_KERNELS.items():
         timed = main_shape[name]
+        turns = legacy_train["celebahq"]["graph_vs_eager"]
         by_path = {"train": train_launches[name],
                    **{f"train_{run}": c[name]
                       for run, c in cli_launches.items()},
                    "ti_train": ti["launches"][name]
-                   + ti["graph_vs_eager_launches"].get(name, 0)}
+                   + ti["graph_vs_eager_launches"].get(name, 0),
+                   "legacy_train_celebahq":
+                       legacy_train["celebahq"]["launches"][name],
+                   "legacy_train_celebahq_turns": int(sum(
+                       r["launches_per_step"][name] * LEGACY_TRAIN_STEPS
+                       for way in ("graph", "eager") for r in turns[way])),
+                   "legacy_train_1p4b":
+                       legacy_train["1p4b"]["launches"].get(name, 0),
+                   "classifier":
+                       legacy_train["classifier"]["launches"].get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -4637,6 +5360,23 @@ def main() -> int:
             # LSE ones of the forward's list)
             "per_head_dim": instantiations[name] if name != "fwd_lse" else
             [r for r in instantiations["fwd"] if r["lse"]],
+            # the legacy train steps' shapes (CelebA-HQ AttentionBlocks on
+            # interleaved views, BERT packed) and a CelebA-HQ step's launches
+            "legacy_train": [dict({k: s[k] for k in ("layout", *"BHNMD")},
+                                  **s[name]) for s in train_shapes
+                             if "kernel_ms" in s.get(name, {})
+                             and (s["B"], s["H"], s["N"], s["M"], s["D"],
+                                  s["layout"]) in LEGACY_TRAIN_SHAPES],
+            "launches_per_celebahq_step": {
+                way: {n: legacy_train["celebahq"][key].get(n, 0)
+                      for n in (name, "dkv_reduce")[:1 + (name == "dkv")]}
+                for way, key in (("predicted", "predicted_per_step"),
+                                 ("measured", "launches_per_step"))},
+            "launches_per_1p4b_step": {
+                way: {n: legacy_train["1p4b"][key].get(n, 0)
+                      for n in (name, "dkv_reduce")[:1 + (name == "dkv")]}
+                for way, key in (("predicted", "predicted_per_step"),
+                                 ("measured", "launches_per_step"))},
             "shapes": [dict({k: s[k] for k in ("layout", "dtype", "q_scale",
                                                *"BHNMD")}, **s.get(name, {}))
                        for s in train_shapes]})
@@ -4713,7 +5453,8 @@ def main() -> int:
                 f"cli/warmup.py {warmup['wall_s']:.1f} s (train step graph "
                 f"{warmup['train_s']:.1f} s, txt2img graph "
                 f"{warmup['txt2img_s']:.1f} s); legacy "
-                f"{json.dumps(legacy_summary(legacy))}")
+                f"{json.dumps(legacy_summary(legacy))}; legacy_train "
+                f"{json.dumps(legacy_train_summary(legacy_train))}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

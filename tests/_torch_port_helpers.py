@@ -280,3 +280,50 @@ def assert_adam_step_close(state, before, ref_new, lr):
         assert float(err.max()) <= 2e-2 * lr, (k, float(err.max()))
         errs.append(err.flatten())
     assert float(torch.cat(errs).mean()) <= 1e-4 * lr
+
+
+def assert_trained_grads_close(got, ref, rel=1e-4, noise=1e-6):
+    """``assert_grads_close`` for a trained network: a leaf whose reference
+    gradient is below ``noise`` of the largest gradient of all leaves (a conv
+    bias that the next GroupNorm cancels, at one channel a group) is
+    rounding noise on both sides and must only be as small in the port;
+    such leaves are under a tenth of all."""
+    top = max(float(v.abs().max()) for v in ref.values())
+    small = {k for k, v in ref.items() if float(v.abs().max()) < noise * top}
+    for k in small:
+        assert float(got[k].abs().max()) < noise * top, k
+    assert len(small) < len(ref) // 10, sorted(small)
+    assert_grads_close({k: v for k, v in got.items() if k not in small},
+                       {k: v for k, v in ref.items() if k not in small}, rel)
+
+
+def assert_adamw_close(got, ref, lr, grads, steps=1):
+    """Parameters after AdamW against the reference's, in units of lr: every
+    entry within 2e-2 * lr per step taken, where the first step's reference
+    gradient resolves the update.  Adam's first update is
+    lr * g / (|g| + eps): it turns on g's rounding where |g| is below 1e-6
+    (100 x eps), and on its sign where |g| is below 1e-4 of its leaf's
+    largest entry (the gradient checks hold g to that much; an entry whose
+    gradient is zero in exact arithmetic, a key bias of an attention, is
+    rounding noise on both sides) or the leaf is rounding noise (below 1e-6
+    of the largest gradient: a bias that a one-channel GroupNorm cancels).
+    Those entries are held within 2 * lr per step, which any two AdamW
+    updates keep; the nonzero ones among them are under 5 % of all, and
+    the mean over every entry stays within 1e-3 * lr per step, which
+    holds them in aggregate."""
+    assert sorted(got) == sorted(ref)
+    top = max(float(v.abs().max()) for v in grads.values())
+    n_weak = n_all = 0
+    err_sum = 0.0
+    for k in ref:
+        g = grads[k].abs()
+        leaf = float(g.max())
+        weak = (g < max(1e-6, 1e-4 * leaf)) | (leaf < 1e-6 * top)
+        err = (got[k].detach() - ref[k]).abs()
+        strong = float((err * ~weak).max())
+        assert strong <= 2e-2 * lr * steps, (k, strong, lr)
+        assert float(err.max()) <= 2 * lr * steps, (k, float(err.max()), lr)
+        n_weak, n_all = n_weak + int((weak & (g > 0)).sum()), n_all + g.numel()
+        err_sum += float(err.sum())
+    assert n_weak < 0.05 * n_all, (n_weak, n_all)
+    assert err_sum / n_all <= 1e-3 * lr * steps, (err_sum / n_all, lr)

@@ -21,6 +21,7 @@ from a seed:
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,7 +85,7 @@ def test_detector_device_and_host_parts_match_jax(nets, photos):
         sh, sw = img.shape[:2]
         priors = jfb.prior_boxes((sh, sw))
         x = img[None].astype(np.float32) - np.float32(tfb.MEANS)
-        jloc, jconf = jdet.net.apply(jdet.params, jnp.asarray(x))
+        jloc, jconf = jax.jit(jdet.net.apply)(jdet.params, jnp.asarray(x))
         jboxes = np.asarray(jfb.decode_boxes(jloc[0], jnp.asarray(priors)))
         with torch.no_grad():
             tloc, tconf = tdet.net(torch.from_numpy(x))

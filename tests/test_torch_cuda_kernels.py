@@ -122,10 +122,14 @@ def test_backward_kernels_match_plain_on_card(dtype, packed):
         heads = H if packed else None
         o, lse = fa.flash_attention_lse(q, k, v, heads)
         before = fa.launch_counts()
+        reduces = fa.reduce_launch_count()
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, heads)
         after = fa.launch_counts()
         assert after["dq"] == before["dq"] + 1
         assert after["dkv"] == before["dkv"] + 1
+        split = dtype == torch.bfloat16 \
+            and fa.dkv_split_plan(B, H, N, M, D, sms)[0] > 1
+        assert fa.reduce_launch_count() == reduces + split
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, heads)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
         to4 = (lambda x: fa._split(x, H)) if packed else (lambda x: x)

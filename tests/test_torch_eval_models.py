@@ -96,7 +96,7 @@ def test_clip_towers_match_jax():
     vis = tvit.CLIPVisionEncoder(vcfg)
     bridge.load_jax_params(vis, np_tree(vp))
     with torch.no_grad():
-        _close(vis(t(x)), jvis.apply(vp, jnp.asarray(x)))
+        _close(vis(t(x)), jax.jit(jvis.apply)(vp, jnp.asarray(x)))
 
     jtxt = jvit.CLIPTextTower(jclip_text.CLIPTextConfig.tiny(),
                               proj_dim=vcfg.proj_dim)
@@ -106,7 +106,7 @@ def test_clip_towers_match_jax():
     txt = tvit.CLIPTextTower(CLIPTextConfig.tiny(), proj_dim=vcfg.proj_dim)
     bridge.load_jax_params(txt, np_tree(tp))
     with torch.no_grad():
-        _close(txt(t(ids).long()), jtxt.apply(tp, jnp.asarray(ids)))
+        _close(txt(t(ids).long()), jax.jit(jtxt.apply)(tp, jnp.asarray(ids)))
 
 
 def _openai_state(vcfg, tcfg, seed):
@@ -258,7 +258,8 @@ def test_inception_pool3_matches_jax():
         u8, size=75)))
     with torch.no_grad():
         got = net(x)
-    ref = jinc.InceptionV3().apply(variables, jnp.asarray(x.numpy()))
+    ref = jax.jit(jinc.InceptionV3().apply)(variables,
+                                            jnp.asarray(x.numpy()))
     assert got.shape == (2, tinc.POOL3_DIM) and np.abs(ref).max() > 1e-3
     _close(got, ref)
 

@@ -148,6 +148,7 @@ def test_unrequested_gradients_are_none_and_counters_stay_zero():
     assert tfa.launch_counts() == {"flash_attention_nhd": 0,
                                    "flash_attention": 0, "fwd_lse": 0,
                                    "dq": 0, "dkv": 0}
+    assert tfa.reduce_launch_count() == 0
 
 
 def test_scaled_bf16_gradient_limit_between_two_right_backwards():

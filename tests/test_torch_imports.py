@@ -49,6 +49,10 @@ print("LEGACY", sorted(n for n in names if n.endswith(
     (".legacy", ".bert_text", ".bert_tokenizer", ".vq", ".cond_stages",
      ".xtransformer", ".bridge_xt", ".sample_diffusion", ".inpaint",
      ".evaluate_model"))))
+print("LEGACY_TRAIN", sorted(n for n in names if n.endswith(
+    (".train_legacy", ".train_ae", ".ae_loss", ".ae_trainer", ".classifier",
+     ".lr_schedule", ".lpips", ".degradation", ".image_ops", ".registry",
+     ".misc", "data.legacy"))))
 print("KERNEL_MODULES", sorted(n for n in names if n.endswith(
     (".flash_attention", ".geglu", ".quant"))))
 print("BAD", bad)
@@ -81,12 +85,19 @@ def test_imports_pull_in_no_jax_and_build_nothing():
             "cli.evaluate_model", "eval.base", "eval.evaluators", "eval.fid",
             "eval.inception", "eval.prompt_templates", "eval.sphere",
             "eval.survey")))
-    # and those of the legacy latent-diffusion family
+    # and those of the legacy latent-diffusion family, sampling and training
     assert lines["LEGACY"] == str(sorted(
         f"celebbasis_tpu_torch.{m}" for m in (
             "legacy", "models.bert_text", "text.bert_tokenizer", "models.vq",
             "models.cond_stages", "models.xtransformer", "utils.bridge_xt",
-            "cli.sample_diffusion", "cli.inpaint", "cli.evaluate_model")))
+            "cli.sample_diffusion", "cli.inpaint", "cli.evaluate_model",
+            "data.legacy")))
+    assert lines["LEGACY_TRAIN"] == str(sorted(
+        f"celebbasis_tpu_torch.{m}" for m in (
+            "cli.train_legacy", "cli.train_ae", "train.ae_loss",
+            "train.ae_trainer", "train.classifier", "train.lr_schedule",
+            "models.lpips", "data.degradation", "utils.image_ops",
+            "utils.registry", "utils.misc", "data.legacy")))
     # and those of W0 alignment
     assert lines["ALIGN"] == str(sorted(
         f"celebbasis_tpu_torch.{m}" for m in (
@@ -122,18 +133,28 @@ def test_entry_points_raise_without_a_card():
         TxtToImgService(build_argparser().parse_args(
             ["--config", os.path.join(REPO, "configs", "tiny.yaml")]))
     from celebbasis_tpu_torch.cli import (align, eval_imgs, gen_imgs,
-                                          inpaint, train_ti)
+                                          inpaint, train_ae, train_legacy,
+                                          train_ti)
     cfg = os.path.join(REPO, "configs", "tiny.yaml")
     for cli, argv in (
             (inpaint, ["--indir", REPO, "--outdir", "unused", "--config",
                        os.path.join(REPO, "configs", "tiny_legacy.yaml")]),
             (align, ["--in_folder", "unused", "--out_folder", "unused"]),
+            (train_legacy, ["--config", os.path.join(
+                REPO, "configs", "tiny_legacy.yaml"), "--fake-data", "2"]),
+            (train_ae, ["--config", os.path.join(
+                REPO, "configs", "tiny_ae.yaml"), "--fake-data", "2"]),
             (train_ti, ["--base", cfg, "--data_root", "unused"]),
             (gen_imgs, ["--config", cfg, "--embedding_path", "e.pt",
                         "--from-file", "prompts_two.txt"]),
             (eval_imgs, ["--eval_folder", "unused", "--tiny"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(argv)
+    from celebbasis_tpu_torch.train.classifier import (
+        ClassifierConfig, NoisyLatentClassifier)
+    from celebbasis_tpu_torch.models.unet import UNetConfig
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NoisyLatentClassifier(ClassifierConfig(3, UNetConfig.tiny()))
     from celebbasis_tpu_torch.align.faceboxes import (FaceBoxesDetector,
                                                       FaceBoxesV2)
     from celebbasis_tpu_torch.align.pipnet import (PIPNet, PIPNetConfig,

@@ -128,6 +128,17 @@ def test_legacy_ldm_tree_and_reference_checkpoint(tmp_path):
         assert torch.equal(v, want[k]), k
 
 
+class _Jitted:
+    """A flax module whose ``apply`` runs compiled (the JAX oracle's value,
+    without eager dispatch's time)."""
+
+    def __init__(self, module):
+        self.module, self.apply = module, jax.jit(module.apply)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+
 def test_learned_conditioning_kinds_and_calibrate_scale(monkeypatch):
     """get_learned_conditioning on both sides for the cond stages the CLI
     tests do not reach (SpatialRescaler, Identity, ClassEmbedder,
@@ -161,6 +172,8 @@ def test_learned_conditioning_kinds_and_calibrate_scale(monkeypatch):
                                       scale_by_std=True)
         jl = jlegacy.build_legacy_ldm(cfg, dtype=jnp.float32)
         params = random_params(jl.init_params, KEY, seed=10 + i)
+        if jl.cond_stage is not None:     # its apply compiled, not eager
+            jl.cond_stage = _Jitted(jl.cond_stage)
         tl = tlegacy.build_legacy_ldm(cfg, dtype=torch.float32)
         tl.load_state_dict(bridge.from_jax_params(np_tree(params)),
                            strict=True)
@@ -171,6 +184,7 @@ def test_learned_conditioning_kinds_and_calibrate_scale(monkeypatch):
         assert got.shape == ref.shape
         assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max(), cond
     images = np.tanh(r.standard_normal((2, 32, 32, 3))).astype(np.float32)
+    jl.encode_first_stage = jax.jit(jl.encode_first_stage)
     jl.calibrate_scale(params, jnp.asarray(images))
     tl.calibrate_scale(torch.from_numpy(images))
     np.testing.assert_allclose(tl.scale_factor, jl.scale_factor, rtol=1e-4)

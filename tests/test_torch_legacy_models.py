@@ -111,7 +111,8 @@ def test_attention_block_and_legacy_resblocks():
     params, tm = _pair(junet.AttentionBlock(4, jnp.float32),
                        tunet.AttentionBlock(64, 4, torch.float32),
                        jnp.zeros((1, 8, 8, 64)), seed=5)
-    ref = junet.AttentionBlock(4, jnp.float32).apply(params, jnp.asarray(x))
+    ref = jax.jit(junet.AttentionBlock(4, jnp.float32).apply)(
+        params, jnp.asarray(x))
     with torch.no_grad():
         got = to_nhwc(tm(to_nchw(t(x))))
     _close(got - t(x), np.asarray(ref) - x)       # the attention branch
@@ -124,7 +125,7 @@ def test_attention_block_and_legacy_resblocks():
                                               **flags),
                            jnp.zeros((1, 8, 8, 64)), jnp.zeros((1, 96)),
                            seed=out_ch)
-        ref = jm.apply(params, jnp.asarray(x), jnp.asarray(emb))
+        ref = jax.jit(jm.apply)(params, jnp.asarray(x), jnp.asarray(emb))
         with torch.no_grad():
             got = to_nhwc(tm(to_nchw(t(x)), t(emb)))
         _close(got, ref)
@@ -144,7 +145,7 @@ def test_legacy_unet_num_head_channels():
     params, tm = _pair(jm, tm, jnp.zeros((1, 8, 8, 3)),
                        jnp.zeros((1,), jnp.int32), None, seed=7)
     x, ts = _x((2, 8, 8, 3), 8), np.array([3, 900], np.int32)
-    ref = jm.apply(params, jnp.asarray(x), jnp.asarray(ts), None)
+    ref = jax.jit(jm.apply)(params, jnp.asarray(x), jnp.asarray(ts), None)
     with torch.no_grad():
         _close(tm(t(x), t(ts).long()), ref)
 
@@ -168,7 +169,8 @@ def test_ldm_backbone_legacy_knobs():
         assert ("mid_attn" in names) == ("attn_type" not in kw)
         params, tm = _pair(jcls(jcfg, jnp.float32), tm,
                            jnp.zeros((1,) + inp.shape[1:]), seed=11)
-        ref = jcls(jcfg, jnp.float32).apply(params, jnp.asarray(inp))
+        ref = jax.jit(jcls(jcfg, jnp.float32).apply)(params,
+                                                     jnp.asarray(inp))
         with torch.no_grad():
             _close(to_nhwc(tm(to_nchw(t(inp)))), ref)
 
@@ -183,7 +185,8 @@ def test_vq_encode_quantize_decode():
         tvae.VAEConfig(**cfg), n_embed=64, dtype=torch.float32),
         jnp.zeros((1, 16, 16, 3)), seed=12)
     x = np.tanh(_x((2, 16, 16, 3), 13))
-    h_ref = np.asarray(jm.apply(params, jnp.asarray(x), method="encode"))
+    h_ref = np.asarray(jax.jit(lambda p, v: jm.apply(p, v, method="encode"))(
+        params, jnp.asarray(x)))
     with torch.no_grad():
         h = tm.encode(t(x))
     _close(h, h_ref)
@@ -205,7 +208,8 @@ def test_vq_encode_quantize_decode():
     np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-4)
     # decode quantizes first, or not
     for force in (False, True):
-        ref = jm.apply(params, jnp.asarray(h_ref), force, method="decode")
+        ref = jax.jit(lambda p, h, f=force: jm.apply(
+            p, h, f, method="decode"))(params, jnp.asarray(h_ref))
         with torch.no_grad():
             _close(tm.decode(t(h_ref), force_not_quantize=force), ref)
 

@@ -130,10 +130,19 @@ def test_sd_v1_shapes_match_manifest():
 
 
 def test_legacy_knobs_raise():
-    """The training-side knob still raises; the legacy-LDM knobs build
-    their blocks (their parity: tests/test_torch_legacy_models.py)."""
-    with pytest.raises(NotImplementedError):
-        tunet.UNetConfig(dropout=0.1)
+    """``dropout`` builds (its checks: tests/test_torch_classifier.py); what
+    still raises is a training step with both remat and dropout.  The
+    legacy-LDM knobs build their blocks (their parity:
+    tests/test_torch_legacy_models.py)."""
+    tiny = tunet.UNetConfig.tiny()
+    drop = tunet.UNetModel(tunet.UNetConfig(
+        **{**tiny.__dict__, "dropout": 0.1, "remat": True}), torch.float32)
+    assert drop.down_0_res_0.p_drop == 0.1
+    x = torch.zeros(1, 8, 8, 4)
+    t = torch.zeros(1, dtype=torch.long)
+    ctx = torch.zeros(1, 77, tiny.context_dim)
+    with pytest.raises(NotImplementedError, match="remat with dropout"):
+        drop(x, t, ctx)
     cfg = tunet.UNetConfig(
         model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
         attention_resolutions=(2,), use_spatial_transformer=False,

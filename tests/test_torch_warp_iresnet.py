@@ -44,8 +44,9 @@ def test_affine_warp_resize_matches_jax(fused):
     img = rng.standard_normal((32, 32, 3)).astype(np.float32)
     M = np.asarray(jwarp.INSIGHTFACE_TRANS_MATRIX)
     np.testing.assert_array_equal(twarp.INSIGHTFACE_TRANS_MATRIX.numpy(), M)
-    ref = np.asarray(jwarp.affine_warp_resize(
-        jnp.asarray(img), jnp.asarray(M), (12, 12), fused=fused))
+    ref = np.asarray(jax.jit(
+        lambda i, m: jwarp.affine_warp_resize(i, m, (12, 12), fused=fused))(
+        jnp.asarray(img), jnp.asarray(M)))
     got = twarp.affine_warp_resize(t(img), t(M), (12, 12), fused=fused)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
 
@@ -56,12 +57,13 @@ def test_affine_warp_and_resize_match_jax():
     M = np.array([[0.9, 0.1, 0.05], [-0.1, 1.1, -0.02]], np.float32)
     np.testing.assert_allclose(
         twarp.affine_warp(t(img), t(M)).numpy(),
-        np.asarray(jwarp.affine_warp(jnp.asarray(img), jnp.asarray(M))),
+        np.asarray(jax.jit(jwarp.affine_warp)(jnp.asarray(img),
+                                              jnp.asarray(M))),
         atol=1e-5)
     np.testing.assert_allclose(
         twarp.bilinear_resize_align_corners(t(img), (8, 10)).numpy(),
-        np.asarray(jwarp.bilinear_resize_align_corners(jnp.asarray(img),
-                                                       (8, 10))), atol=1e-5)
+        np.asarray(jax.jit(lambda i: jwarp.bilinear_resize_align_corners(
+            i, (8, 10)))(jnp.asarray(img))), atol=1e-5)
 
 
 @pytest.mark.parametrize("per_image", [False, True])
@@ -71,8 +73,9 @@ def test_batched_affine_warp_resize_matches_jax(per_image):
     M = np.asarray(jwarp.INSIGHTFACE_TRANS_MATRIX)
     if per_image:
         M = M[None] + rng.standard_normal((3, 2, 3)).astype(np.float32) * 0.05
-    ref = np.asarray(jwarp.batched_affine_warp_resize(
-        jnp.asarray(imgs), jnp.asarray(M), (8, 8)))
+    ref = np.asarray(jax.jit(
+        lambda i, m: jwarp.batched_affine_warp_resize(i, m, (8, 8)))(
+        jnp.asarray(imgs), jnp.asarray(M)))
     got = twarp.batched_affine_warp_resize(t(imgs), t(M), (8, 8))
     assert got.shape == (3, 8, 8, 3)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
@@ -101,7 +104,7 @@ def tiny_nets():
 
 def test_iresnet_tiny_matches_jax(tiny_nets):
     jnet, params, tnet, x = tiny_nets
-    ref = np.asarray(jnet.apply(params, jnp.asarray(x)))
+    ref = np.asarray(jax.jit(jnet.apply)(params, jnp.asarray(x)))
     with torch.no_grad():
         got = tnet(t(x))
     assert got.shape == (2, 64) and got.dtype == torch.float32

@@ -31,6 +31,11 @@
 #                     (acc * xs) * ws;
 #             i8stage the second ring stage of every block read from the
 #                     stage after it, whose full barrier was not waited on;
+#   strides   dqstride dq written with the strides of a contiguous
+#                     (B, H, N, D) tensor (o's) instead of its own: the
+#                     (B, N, H, D) order that torch.empty_like gives a per-head
+#                     view of the AttentionBlock's interleaved projection
+#                     (ops/flash_attention.py; every write stays in bounds);
 #   model     qkvswap the legacy UNet's AttentionBlock takes its q and k
 #                     slices of the interleaved [head][q|k|v][dh] projection
 #                     the wrong way round (models/unet.py: every shape
@@ -50,7 +55,9 @@
 # that can run the shape) at the serving shapes of the 64^2 FF-in
 # projection and the 32^2 and 16^2 q/k/v/out ones, and for "qkvswap" the
 # legacy phase's AttentionBlock check (chip_smoke.check_attention_block) on
-# the CelebA-HQ UNet's blocks at 32^2, 16^2 and 8^2.  The unchanged copy must print no "CAUGHT", each broken copy
+# the CelebA-HQ UNet's blocks at 32^2, 16^2 and 8^2, and for "dqstride" the
+# training check on the interleaved views at the CelebA-HQ train step's
+# three AttentionBlock shapes (batch 48, D = 32).  The unchanged copy must print no "CAUGHT", each broken copy
 # three; the script fails otherwise.  The repository itself is never
 # modified.
 set -euo pipefail
@@ -113,6 +120,14 @@ for blk, side in c.celebahq_attention_blocks(ldm):
     except RuntimeError:
         print("CAUGHT", side)
 '
+check_strided='import chip_smoke as c, torch
+for a in c.LEGACY_TRAIN_SHAPES[:3]:
+    B, H, N, D, layout = a
+    try:
+        c.check_train_shape(layout, B, H, N, N, D, torch.bfloat16, False)
+    except RuntimeError:
+        print("CAUGHT", a)
+'
 check_int8='import chip_smoke as c, torch
 for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     try:
@@ -120,7 +135,7 @@ for a in [(16384, 320, 2560), (4096, 640, 640), (1024, 1280, 1280)]:
     except RuntimeError:
         print("CAUGHT", a)
 '
-cases="${*:-none scale stale rescale dqscale delta dvp split erf residual peer gsplit rowscale i8order i8stage qkvswap}"
+cases="${*:-none scale stale rescale dqscale delta dvp split erf residual peer gsplit rowscale i8order i8stage qkvswap dqstride}"
 for mutation in $cases; do
   work="$(mktemp -d)"
   cp -r "$repo/." "$work"
@@ -141,6 +156,7 @@ for mutation in $cases; do
     rowscale) src=$i8; sed -i 's/if (vi < vend) amax = fmaxf(amax, absmax_vec<T>(v\[j\]));/if (vi < vend \&\& vi * (16 \/ (int)sizeof(T)) < 64) amax = fmaxf(amax, absmax_vec<T>(v[j]));/' "$work/$src" ;;
     i8order) src=$i8; sed -i 's/((float)(int)(acc\[0\]\[e\] + acc\[1\]\[e\]) \* sx\[h\]) \* ws\[j\]\.x/(float)(int)(acc[0][e] + acc[1][e]) * (sx[h] * ws[j].x)/' "$work/$src" ;;
     qkvswap) src=celebbasis_tpu_torch/models/unet.py; sed -i 's/for i in range(3))/for i in (1, 0, 2))/' "$work/$src" ;;
+    dqstride) src=celebbasis_tpu_torch/ops/flash_attention.py; sed -i 's/_stride_array((q, k, v, do, dq), num_heads)/_stride_array((q, k, v, do, o), num_heads)/' "$work/$src" ;;
     i8stage) src=$i8; sed -i 's/const unsigned char\* st = ring + s \* p.stage_bytes;/const unsigned char* st = ring + (it == 1 ? (s + 1) % S : s) * p.stage_bytes;/' "$work/$src" ;;
   esac
   echo "== mutation: $mutation"
@@ -148,8 +164,9 @@ for mutation in $cases; do
     echo "the mutation did not apply"; exit 1
   fi
   case $mutation in
-    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_split" && python3 -c "$check_geglu" && python3 -c "$check_peer" && python3 -c "$check_gsplit" && python3 -c "$check_int8" && python3 -c "$check_qkv")" ;;
+    none) out="$(cd "$work" && python3 -c "$check_fwd" && python3 -c "$check_bwd" && python3 -c "$check_split" && python3 -c "$check_geglu" && python3 -c "$check_peer" && python3 -c "$check_gsplit" && python3 -c "$check_int8" && python3 -c "$check_qkv" && python3 -c "$check_strided")" ;;
     qkvswap) out="$(cd "$work" && python3 -c "$check_qkv")" ;;
+    dqstride) out="$(cd "$work" && python3 -c "$check_strided")" ;;
     scale|stale|rescale) out="$(cd "$work" && python3 -c "$check_fwd")" ;;
     erf|residual) out="$(cd "$work" && python3 -c "$check_geglu")" ;;
     peer) out="$(cd "$work" && python3 -c "$check_peer")" ;;
