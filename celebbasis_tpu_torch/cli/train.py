@@ -18,12 +18,23 @@ on ``ImageLogger``, ``callbacks.device_monitor.params.every`` turns on
 ``DeviceMonitor`` (both off when absent); ``tensorboard: true`` writes a
 TensorBoard event file.
 
-Runs on ``cuda``; ``--device cpu`` asks for the CPU on purpose.  ``--mesh``
-and ``--fsdp`` are not ported (ROADMAP A10).
+Runs on ``cuda``; ``--device cpu`` asks for the CPU on purpose.
+
+``--mesh D [M]`` trains data parallel over D ranks (one process each,
+started by ``torchrun``; M > 1 adds copies over the mesh's ``model`` axis,
+as the JAX trainer applies no tensor-parallel rule), and ``--fsdp`` shards
+the large frozen weights over them.  The config's ``batch_size`` is the
+global batch: every rank reads the one-process loader's batches and takes
+its block of rows.  Rank 0 alone writes the run dir, the checkpoints and
+``metrics.jsonl``; ``-r`` reads them back on every rank.  The collectives
+are NCCL's on cards and gloo's on the CPU, or those of a group the caller
+started before it called ``main``.
 
     python -m celebbasis_tpu_torch.cli.train --base configs/aigc_id.yaml \
         --actual_resume sd-v1-4.ckpt --fr_ckpt backbone.pth \
         --data_root faces/
+    torchrun --nproc_per_node 8 -m celebbasis_tpu_torch.cli.train \
+        --base configs/aigc_id_multi.yaml --mesh 8 [--fsdp] ...
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import shutil
 
 from celebbasis_tpu_torch.data.face_id import FaceIdDataset, PrefetchLoader
 from celebbasis_tpu_torch.loader import assemble
+from celebbasis_tpu_torch.parallel import mesh as pmesh
 from celebbasis_tpu_torch.train.callbacks import DeviceMonitor, ImageLogger
 from celebbasis_tpu_torch.train.trainer import Trainer, make_run_dir
 from celebbasis_tpu_torch.utils.config import get, load_run_spec
@@ -68,10 +80,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="default: cuda (fails without a card); 'cpu' runs "
                         "on the CPU on purpose")
     p.add_argument("--mesh", type=int, nargs="+", default=None,
-                   help="data [model] shard counts (not ported yet: ROADMAP "
-                        "A10)")
+                   help="data [model] shard counts, e.g. --mesh 8 or 4 2 "
+                        "(one torchrun process each)")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard frozen weights (not ported yet: ROADMAP A10)")
+                   help="shard large frozen weights over the mesh 'data' "
+                        "axis (all-gathered where they are read)")
     p.add_argument("overrides", nargs="*", default=[],
                    help="config dot-list overrides key=value")
     return p
@@ -89,9 +102,21 @@ def main(argv=None) -> str:
     """Trains and returns the run dir."""
     # key=value overrides may stand between the flags
     args = build_argparser().parse_intermixed_args(argv)
-    if args.mesh or args.fsdp:
-        raise NotImplementedError(
-            "--mesh/--fsdp: parallel/mesh.py is not ported yet (ROADMAP A10)")
+    if args.fsdp and not args.mesh:
+        raise ValueError("--fsdp shards over the --mesh 'data' axis")
+    if args.mesh and len(args.mesh) > 2:
+        raise ValueError("--mesh takes a data and a model count")
+    mesh = None
+    if args.mesh:
+        mesh = pmesh.make_mesh(args.mesh[0], (args.mesh + [1])[1],
+                               device=args.device or "cuda")
+    try:
+        return _train(args, mesh)
+    finally:
+        pmesh.close_mesh()
+
+
+def _train(args, mesh) -> str:
     import yaml
     spec = load_run_spec(args.base, args.overrides)
     if args.data_root and spec.train_data:
@@ -106,6 +131,9 @@ def main(argv=None) -> str:
     tcfg = spec.trainer
     tcfg.cache_latents = args.cache_latents
     tcfg.frozen_bf16 = args.frozen_bf16
+    tcfg.fsdp = args.fsdp
+    tcfg.n_data_shards = pmesh.axis_size(mesh, pmesh.DATA)
+    writer = pmesh.is_writer(mesh)
     tcfg.name, tcfg.logdir, tcfg.seed = args.name, args.logdir, args.seed
     tcfg.unfreeze_model, tcfg.model_lr = spec.unfreeze_model, spec.model_lr
     if spec.unfreeze_model:
@@ -119,13 +147,21 @@ def main(argv=None) -> str:
                    seed=args.seed, embedding_ckpt=resume_ckpt,
                    device=args.device)
 
-    run_dir = args.resume or make_run_dir(tcfg)
-    for base in args.base:
-        shutil.copy(base, os.path.join(run_dir, "configs",
-                                       os.path.basename(base)))
-    with open(os.path.join(run_dir, "configs", "resolved.yaml"), "w") as f:
-        yaml.safe_dump({"name": args.name, "seed": args.seed,
-                        "max_steps": tcfg.max_steps, "lr": tcfg.base_lr}, f)
+    run_dir = args.resume or (make_run_dir(tcfg) if writer else None)
+    if mesh is not None:               # rank 0's timestamp names the run
+        import torch.distributed as dist
+        shared = [run_dir]
+        dist.broadcast_object_list(shared, src=0)
+        run_dir = shared[0]
+    if writer:
+        for base in args.base:
+            shutil.copy(base, os.path.join(run_dir, "configs",
+                                           os.path.basename(base)))
+        with open(os.path.join(run_dir, "configs", "resolved.yaml"),
+                  "w") as f:
+            yaml.safe_dump({"name": args.name, "seed": args.seed,
+                            "max_steps": tcfg.max_steps,
+                            "lr": tcfg.base_lr}, f)
 
     loader = PrefetchLoader(FaceIdDataset(spec.train_data), asm.tokenizer,
                             tcfg.batch_size, face_size=args.face_size,
@@ -145,20 +181,22 @@ def main(argv=None) -> str:
     light = get(spec.raw, "lightning", None) or {}
     callbacks = []
     monitor_every = get(light, "callbacks.device_monitor.params.every", 0)
-    if monitor_every:
+    if monitor_every and writer:
         callbacks.append(DeviceMonitor(run_dir, every=monitor_every))
     sample = get(light, "callbacks.image_logger.params", None) or {}
     if sample.get("batch_frequency"):
+        # every rank samples (FSDP's gathers are collective), rank 0 writes
         callbacks.append(ImageLogger(
             asm.pipeline, run_dir, asm.tokenizer,
             every=sample["batch_frequency"],
             max_images=sample.get("max_images", tcfg.batch_size),
-            image_size=args.image_size, seed=args.seed))
+            image_size=args.image_size, seed=args.seed, write=writer,
+            eager=pmesh.runs_eagerly(mesh)))
     trainer = Trainer(
         asm.pipeline, asm.meta_net, asm.basis, loader, tcfg,
         run_dir=run_dir, callbacks=callbacks, val_loader=val_loader,
         val_every=get(light, "trainer.val_check_interval", 200),
-        val_batches=get(light, "trainer.limit_val_batches", 4))
+        val_batches=get(light, "trainer.limit_val_batches", 4), mesh=mesh)
     try:
         state = trainer.fit(trainer.init_state(asm.manager_state))
     finally:

@@ -13,8 +13,20 @@ Image i of a run (counted over all prompts) draws from a generator seeded
 from ``(--seed, i)``.  Runs on ``cuda``; ``--device cpu`` asks for the CPU
 on purpose.
 
+``--mesh D`` samples data parallel over D processes (started by
+``torchrun``): D divides ``--n_samples``, rank d draws and samples rows
+``[d B/D, (d+1) B/D)`` of each prompt's batch, and rank 0 gathers them and
+writes the same files a one-process run writes.  ``--tp M`` shards the
+UNet's and CLIP's attention and MLP weights over M processes (Megatron
+rules, ``parallel.mesh``; M divides every attention's heads), composable
+with ``--mesh`` as a (data, model) mesh of D x M processes.  The collectives
+are NCCL's on cards and gloo's on the CPU, or those of a group the caller
+started before it called ``main`` (over gloo the chain runs uncaptured).
+
     python -m celebbasis_tpu_torch.cli.txt2img --config configs/aigc_id.yaml \
         --prompt "a photo of a sks person" --embedding_path emb.pt
+    torchrun --nproc_per_node 4 -m celebbasis_tpu_torch.cli.txt2img \
+        --mesh 2 --tp 2 --n_samples 8 ...
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch
 
 from celebbasis_tpu_torch import loader
 from celebbasis_tpu_torch.diffusion.sampler import sample_seed
+from celebbasis_tpu_torch.parallel import mesh as pmesh
 from celebbasis_tpu_torch.utils.config import load_run_spec
 
 
@@ -108,11 +121,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="default: cuda (fails without a card); 'cpu' runs "
                         "on the CPU on purpose")
     p.add_argument("--mesh", type=int, default=None,
-                   help="data-parallel sampling (not ported yet: ROADMAP "
-                        "A10)")
+                   help="shard the sample batch over N processes (data "
+                        "parallel; N divides --n_samples)")
     p.add_argument("--tp", type=int, default=None,
-                   help="tensor-parallel sampling (not ported yet: ROADMAP "
-                        "A10)")
+                   help="tensor-parallel degree M: Megatron attention/MLP "
+                        "sharding of the UNet and CLIP (composes with --mesh "
+                        "as a (data, model) mesh)")
     return p
 
 
@@ -122,9 +136,19 @@ def main(argv=None) -> np.ndarray:
     args = build_argparser().parse_args(argv)
     if args.H != args.W:
         raise ValueError("square outputs only")
+    mesh = None
     if args.mesh or args.tp:
-        raise NotImplementedError(
-            "--mesh/--tp: parallel/mesh.py is not ported yet (ROADMAP A10)")
+        n_data, n_model = args.mesh or 1, args.tp or 1
+        if args.n_samples % n_data:
+            raise ValueError("--mesh must divide --n_samples")
+        mesh = pmesh.make_mesh(n_data, n_model, device=args.device or "cuda")
+    try:
+        return _sample(args, mesh)
+    finally:
+        pmesh.close_mesh()
+
+
+def _sample(args, mesh) -> np.ndarray:
     spec = load_run_spec(args.config)
     asm = loader.assemble(
         spec, sd_ckpt=args.ckpt, vocab_path=args.vocab, fr_ckpt=args.fr_ckpt,
@@ -139,14 +163,27 @@ def main(argv=None) -> np.ndarray:
         prompts = [args.prompt or "a photo of a sks person"]
 
     pipe, dev, B = asm.pipeline, asm.device, args.n_samples
+    n_model = pmesh.axis_size(mesh, pmesh.MODEL)
+    if mesh is not None:
+        pmesh.shard_params(pipe, mesh, use_tp=n_model > 1)
+        if pmesh.is_writer(mesh):
+            print(f"[txt2img] sampling over a "
+                  f"{pmesh.axis_size(mesh, pmesh.DATA)}x{n_model} data x "
+                  f"model mesh")
+    # this rank's rows of each prompt's batch
+    b = B // pmesh.axis_size(mesh, pmesh.DATA)
+    first = pmesh.axis_index(mesh, pmesh.DATA) * b
+    # gloo's collectives cannot be captured: over gloo the chain runs eagerly
+    pick = (lambda f: f.eager) if pmesh.runs_eagerly(mesh) else (lambda f: f)
     sampler_args = dict(num_steps=args.ddim_steps, guidance_scale=args.scale,
                         eta=args.ddim_eta, image_size=args.H,
                         sampler="plms" if args.plms else "ddim",
                         output="uint8")
     if args.faces:
         crops = torch.from_numpy(load_face_crops(args.faces, args.H)).to(dev)
-        faces = crops[None].expand((B,) + tuple(crops.shape))
-        faces_fn = pipe.make_txt2img_faces_fn(asm.meta_net, **sampler_args)
+        faces = crops[None].expand((b,) + tuple(crops.shape))
+        faces_fn = pick(pipe.make_txt2img_faces_fn(asm.meta_net,
+                                                   **sampler_args))
 
         def fn(_state, basis, tokens, uncond, ids, num_ids, gens):
             return faces_fn(basis, tokens, uncond, faces, ids, num_ids, gens)
@@ -159,14 +196,14 @@ def main(argv=None) -> np.ndarray:
                              token_dim=spec.clip.width)
         ti_params = torch.from_numpy(
             np.stack([vectors[n] for n in names])).to(dev)
-        ti_fn = pipe.make_txt2img_ti_fn(
+        ti_fn = pick(pipe.make_txt2img_ti_fn(
             ti_cfg, ti.placeholder_token_ids(ti_cfg, asm.tokenizer),
-            **sampler_args)
+            **sampler_args))
 
         def fn(_state, _basis, tokens, uncond, _ids, _num_ids, gens):
             return ti_fn(ti_params, tokens, uncond, gens)
     else:
-        fn = pipe.make_txt2img_fn(**sampler_args)
+        fn = pick(pipe.make_txt2img_fn(**sampler_args))
 
     # in faces mode the id axis follows the supplied photos (one face slot
     # per placeholder); otherwise it follows the placeholder list
@@ -175,22 +212,27 @@ def main(argv=None) -> np.ndarray:
     ids_row = (list(args.ids) + [0] * k)[:k]
     n_active = len(args.faces) if args.faces else len(args.ids)
     as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-    ids = as_dev(np.tile(ids_row, (B, 1)))
-    num_ids = as_dev([n_active] * B)
-    uncond = as_dev(asm.tokenizer([""] * B))
+    ids = as_dev(np.tile(ids_row, (b, 1)))
+    num_ids = as_dev([n_active] * b)
+    uncond = as_dev(asm.tokenizer([""] * b))
     idx, out = 0, []
     for pi, prompt in enumerate(prompts):
-        tokens = as_dev(asm.tokenizer([prompt] * B))
+        tokens = as_dev(asm.tokenizer([prompt] * b))
         gens = [torch.Generator(device=dev).manual_seed(
-            sample_seed(args.seed, idx + j)) for j in range(B)]
+            sample_seed(args.seed, idx + first + j)) for j in range(b)]
         imgs = fn(asm.manager_state, asm.basis, tokens, uncond, ids, num_ids,
-                  gens).cpu().numpy()
+                  gens)
+        if mesh is not None:       # every data rank's rows, in order
+            imgs = pmesh.all_gather(imgs, mesh.get_group(pmesh.DATA))
+        imgs = imgs.cpu().numpy()
         outdir = os.path.join(args.outdir, f"{pi:03d}_" + "".join(
             c if c.isalnum() else "-" for c in prompt[:60]))
-        paths = save_images(imgs, outdir, idx, grid=not args.no_grid)
+        if pmesh.is_writer(mesh):
+            paths = save_images(imgs, outdir, idx, grid=not args.no_grid)
+            print(f"[txt2img] {prompt!r} -> {len(paths)} images in "
+                  f"{outdir}")
         idx += B
         out.append(imgs)
-        print(f"[txt2img] {prompt!r} -> {len(paths)} images in {outdir}")
     return np.concatenate(out)
 
 

@@ -122,19 +122,27 @@ def _placeholder_ids(cfg: ManagerConfig, device) -> torch.Tensor:
 def train_inject(cfg: ManagerConfig, state: ManagerState,
                  tokens: torch.Tensor, embeds: torch.Tensor,
                  pred_z: torch.Tensor, pred_coeff: torch.Tensor,
-                 ids: torch.Tensor, num_ids: torch.Tensor
-                 ) -> Tuple[torch.Tensor, ManagerState]:
+                 ids: torch.Tensor, num_ids: torch.Tensor,
+                 update_rows=None) -> Tuple[torch.Tensor, ManagerState]:
     """Training-path inject + dictionary update.
 
     tokens/embeds: (B, L)/(B, L, D); pred_z: (B, k, es*h, D) MetaIdNet output
     per face slot (placeholder p takes slot p's prediction); ids: (B, k);
     num_ids: (B,) in {1..k}.  Returns (new_embeds (B, L, D), new_state).
+
+    ``update_rows`` = (pred_z, pred_coeff, ids, num_ids) of the global batch
+    when the batch is split over data-parallel ranks: the momentum update
+    then runs over every rank's rows in global order, so that each rank
+    holds the state the one-process step would.
     """
     B, k = ids.shape
     id_vectors = pred_z.reshape(B, k * cfg.reps, -1)
     new_embeds = inject_batch(tokens, embeds, id_vectors,
                               _placeholder_ids(cfg, tokens.device), num_ids,
                               cfg.reps)
+    if update_rows is not None:
+        pred_z, pred_coeff, ids, num_ids = update_rows
+        B = ids.shape[0]
     slot_idx = torch.arange(k, device=ids.device)[None, :]
     valid = (slot_idx < num_ids[:, None]).reshape(-1)
     new_state = momentum_update(

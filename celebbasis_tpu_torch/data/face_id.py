@@ -307,7 +307,15 @@ class PrefetchLoader:
 
     def __init__(self, dataset: FaceIdDataset, tokenizer, batch_size: int,
                  face_size: Optional[int] = None, shuffle: bool = True,
-                 prefetch: int = 4, seed: int = 0):
+                 prefetch: int = 4, seed: int = 0, shard_id: int = 0,
+                 num_shards: int = 1):
+        """``shard_id`` / ``num_shards``: per-host data sharding.  Every
+        host shuffles the same global order (the seed must match across
+        hosts) and takes the ``shard_id``-th strided slice, so hosts see
+        disjoint examples; ``batch_size`` is the per-host batch and the
+        global batch is ``batch_size * num_shards``."""
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard {shard_id} of {num_shards}")
         self.ds = dataset
         self.tokenizer = tokenizer
         self.bs = batch_size
@@ -315,11 +323,27 @@ class PrefetchLoader:
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
+        self.shard_id = shard_id
+        self.num_shards = num_shards
 
     @classmethod
-    def for_host(cls, dataset, tokenizer, batch_size, **kw):
-        raise NotImplementedError(
-            "sharding the loader by host is not ported yet (ROADMAP A10)")
+    def for_host(cls, dataset, tokenizer, batch_size, mesh=None, **kw):
+        """Shard by this process: its ``data`` coordinate of ``mesh`` and the
+        mesh's data size, or without a mesh its rank and the world size of
+        the running process group (the JAX process index and count)."""
+        import torch.distributed as dist
+        if mesh is not None:
+            from celebbasis_tpu_torch.parallel.mesh import (DATA, axis_index,
+                                                            axis_size)
+            shard_id, num_shards = axis_index(mesh, DATA), axis_size(mesh,
+                                                                     DATA)
+        elif dist.is_available() and dist.is_initialized():
+            shard_id, num_shards = dist.get_rank(), dist.get_world_size()
+        else:
+            raise ValueError("for_host shards by process: pass a mesh or "
+                             "start a process group")
+        return cls(dataset, tokenizer, batch_size, shard_id=shard_id,
+                   num_shards=num_shards, **kw)
 
     def _resize_faces(self, faces: np.ndarray) -> np.ndarray:
         if self.face_size is None or faces.shape[1] == self.face_size:
@@ -342,6 +366,8 @@ class PrefetchLoader:
         order = np.arange(len(self.ds))
         if self.shuffle:
             self.rng.shuffle(order)
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         done = object()

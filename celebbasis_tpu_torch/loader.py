@@ -15,6 +15,8 @@ by ``train.step.build_trainable``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -81,6 +83,23 @@ def pipeline_config_from_spec(spec: RunSpec, dtype=torch.bfloat16
         dtype=dtype)
 
 
+@contextlib.contextmanager
+def _without_default_init():
+    """Layers built inside skip torch's default initialisation, which
+    ``init_weights`` overwrites anyway: their parameters are allocated and
+    left unset (a full-width face net's default draws cost as much as
+    ``init_weights``' own)."""
+    layers = (nn.Linear, nn.modules.conv._ConvNd, nn.Embedding)
+    saved = [cls.__dict__["reset_parameters"] for cls in layers]
+    for cls in layers:
+        cls.reset_parameters = lambda self: None
+    try:
+        yield
+    finally:
+        for cls, fn in zip(layers, saved):
+            cls.reset_parameters = fn
+
+
 def init_weights(module: nn.Module, generator: torch.Generator,
                  zero_convs: bool = True) -> nn.Module:
     """Random-init from ``generator`` (whose device the draws are made on),
@@ -142,7 +161,8 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
     if tokenizer.vocab_size != spec.clip.vocab_size:
         # offline synthetic fallback must match the model's embedding table
         tokenizer = CLIPTokenizer.synthetic(spec.clip.vocab_size)
-    with torch.device(dev):      # parameters are created on the device
+    # parameters are created on the device; init_weights draws all of them
+    with torch.device(dev), _without_default_init():
         pipe = CelebBasisPipeline(pipeline_config_from_spec(spec, dtype),
                                   tokenizer)
     pipe.requires_grad_(False).eval()
@@ -174,7 +194,7 @@ def assemble(spec: RunSpec, *, sd_ckpt: Optional[str] = None,
         heads=spec.meta_heads, mlp_depth=spec.meta_mlp_depth,
         token_dim=spec.clip.width, use_rm_mlp=spec.use_rm_mlp,
         num_ids=spec.max_ids, iresnet=IResNetConfig.r100())
-    with torch.device(dev):
+    with torch.device(dev), _without_default_init():
         meta = MetaIdNet(meta_cfg, dtype=dtype)
     meta.requires_grad_(False).eval()
     init_weights(meta, gen)

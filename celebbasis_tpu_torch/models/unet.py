@@ -61,8 +61,11 @@ from celebbasis_tpu_torch.ops.basic import (Conv, Dense, GroupNorm, LayerNorm,
                                             ZeroConv, from_tokens,
                                             timestep_embedding, to_nchw,
                                             to_nhwc, to_tokens)
-from celebbasis_tpu_torch.ops.geglu import geglu_block, geglu_ffn
+from celebbasis_tpu_torch.ops.geglu import (geglu_block, geglu_ffn,
+                                            geglu_xla, ln_xla)
+from celebbasis_tpu_torch.ops.geglu import resolved_impl as geglu_impl
 from celebbasis_tpu_torch.ops.resize import upsample2x_nearest_nchw
+from celebbasis_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 @dataclass(frozen=True)
@@ -210,7 +213,14 @@ class CrossAttention(nn.Module):
 class FeedForwardGEGLU(nn.Module):
     """GEGLU MLP: project to 2*4d, h * gelu_tanh(gate), back to d.  With
     ``ln`` (the norm3 weight and bias) it computes the whole residual
-    sub-block ``x + GEGLU(LN(x))`` through ``ops.geglu.geglu_block``."""
+    sub-block ``x + GEGLU(LN(x))`` through ``ops.geglu.geglu_block``.
+
+    Under tensor parallelism (``parallel.mesh.shard_params``) ``proj_in``
+    holds this rank's block of h and of the gate, ``proj_out`` the matching
+    input rows, and ``proj_out.tp_group`` is set: the partial products are
+    summed over the group, then ``proj_out``'s bias and the residual are
+    added once.  That runs on the ``"xla"`` route; the fused kernel adds the
+    residual inside, so the ``"cuda"`` route raises there."""
 
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
@@ -222,9 +232,19 @@ class FeedForwardGEGLU(nn.Module):
         w1, b1 = self.proj_in.weight.t(), self.proj_in.bias
         w2, b2 = self.proj_out.weight.t(), self.proj_out.bias
         x = x.to(self.dtype)
-        if ln is None:
-            return geglu_ffn(x, w1, b1, w2, b2)
-        return geglu_block(x, ln[0], ln[1], w1, b1, w2, b2)
+        group = getattr(self.proj_out, "tp_group", None)
+        if group is None:
+            if ln is None:
+                return geglu_ffn(x, w1, b1, w2, b2)
+            return geglu_block(x, ln[0], ln[1], w1, b1, w2, b2)
+        if geglu_impl() != "xla":
+            raise ValueError("tensor-parallel FF blocks take the 'xla' GEGLU "
+                             "route: the fused kernel adds the residual "
+                             "inside, once per rank")
+        u = x if ln is None else ln_xla(x, ln[0], ln[1])
+        y = all_reduce_sum(geglu_xla(u, w1, b1, w2, None), group)
+        y = y + b2.to(y.dtype)
+        return y if ln is None else x + y
 
 
 class BasicTransformerBlock(nn.Module):

@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from celebbasis_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def timestep_embedding(t: torch.Tensor, dim: int,
                        max_period: float = 10000.0) -> torch.Tensor:
@@ -116,7 +118,14 @@ def l2_normalize(x: torch.Tensor, axis: int = -1,
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` that computes in ``dtype`` whatever its storage type."""
+    """``nn.Linear`` that computes in ``dtype`` whatever its storage type.
+
+    Under tensor parallelism (``parallel.mesh.shard_params``) a row-parallel
+    layer holds a block of the input features and ``tp_group`` is set: its
+    partial product is summed over that group, then the bias is added
+    once."""
+
+    tp_group = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -126,7 +135,11 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp_group is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        y = all_reduce_sum(F.linear(x.to(dt), self.weight.to(dt)),
+                           self.tp_group)
+        return y if b is None else y + b
 
 
 class Conv(nn.Conv2d):

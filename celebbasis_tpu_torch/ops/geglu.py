@@ -93,13 +93,15 @@ def reset_launch_count() -> None:
 # -- the "xla" route ----------------------------------------------------------
 
 def geglu_xla(x, w1, b1, w2, b2):
+    """``(h * GELU(g)) W2 + b2`` with ``[h, g] = x W1 + b1``; ``b2`` None
+    leaves the product without a bias."""
     # F.linear(x, w.T, b) is x @ w + b with the bias added in the product's
     # epilogue: no separate pass over the (T, 8C) intermediate
     dt = x.dtype
     h = F.linear(x, w1.to(dt).t(), b1.to(dt))
     h, gate = h.chunk(2, dim=-1)
     h = h * F.gelu(gate, approximate="tanh")
-    return F.linear(h, w2.to(dt).t(), b2.to(dt))
+    return F.linear(h, w2.to(dt).t(), None if b2 is None else b2.to(dt))
 
 
 def ln_xla(x, scale, bias, eps: float = LN_EPS):

@@ -232,7 +232,7 @@ class CLIPTokenizer:
         cached = self.encoder.get(wtok)
         if cached is not None:
             return cached
-        if self._n_filler <= 0:
+        if len(self._filler_owner) >= self._n_filler:   # none left
             return None
         import hashlib
         h = int.from_bytes(hashlib.sha1(wtok.encode("utf-8")).digest()[:8],

@@ -30,13 +30,19 @@ import torch
 
 
 class ImageLogger:
+    """A sample grid every ``every`` steps under ``<run_dir>/images``.
+    ``write=False`` samples without writing (a data-parallel rank other
+    than 0); ``eager`` samples uncaptured (over a gloo mesh)."""
+
     def __init__(self, pipeline, run_dir: str, tokenizer, every: int = 600,
                  max_images: int = 4, image_size: int = 512,
                  prompt: str = "a photo of a sks person", num_steps: int = 20,
-                 seed: int = 0):
+                 seed: int = 0, write: bool = True, eager: bool = False):
         self.every = every
+        self.write = write
         self.dir = os.path.join(run_dir, "images")
-        os.makedirs(self.dir, exist_ok=True)
+        if write:
+            os.makedirs(self.dir, exist_ok=True)
         self.pipeline = pipeline
         self.tokenizer = tokenizer
         self.prompt = prompt
@@ -45,6 +51,8 @@ class ImageLogger:
         self._fn = pipeline.make_txt2img_fn(
             num_steps=num_steps, guidance_scale=7.5, image_size=image_size,
             output="uint8")
+        if eager:
+            self._fn = self._fn.eager
 
     def on_step(self, step: int, trainer, state) -> None:
         self.maybe_log(step, state.manager_state, trainer.basis)
@@ -65,6 +73,8 @@ class ImageLogger:
                       as_dev(self.tokenizer([""] * B)),
                       as_dev(np.zeros((B, k))), as_dev(np.ones(B)), gens)
         grid = np.concatenate(list(u8.cpu().numpy()), axis=1)
+        if not self.write:
+            return None
         path = os.path.join(self.dir, f"samples_gs-{step:06d}.jpg")
         Image.fromarray(grid).save(path)
         return path

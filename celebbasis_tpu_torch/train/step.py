@@ -40,6 +40,17 @@ buffers and their count live on the device.
 Batches are channels-last like the JAX package's: image (B, H, W, 3) in
 [-1, 1]; tokens (B, 77) int64; faces (B, k, Hf, Wf, 3); ids (B, k) int64;
 num_ids (B,) int64.
+
+Data parallel (``mesh``, a ``parallel.mesh`` mesh): each process takes its
+block of the global batch's rows, and the step computes what the JAX
+program computes once over the whole batch.  The draws are made for the
+global batch from the shared generator and each rank keeps its rows; the
+momentum update runs over every rank's (row, face) entries in global order;
+the ``id_neg_loss`` term sees every rank's predictions (its gradient flows
+back to each rank's rows); the trained gradients are averaged over ``data``
+with one all-reduce; the logs are the means over ``data``.  The collectives
+are NCCL's under a CUDA graph, or gloo's (``trainer.Trainer`` then runs the
+uncaptured steps).
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ import torch.nn as nn
 from celebbasis_tpu_torch.core import manager as mgr
 from celebbasis_tpu_torch.core.meta_net import MetaIdNet
 from celebbasis_tpu_torch.diffusion import ddpm
+from celebbasis_tpu_torch.parallel import mesh as pmesh
 from celebbasis_tpu_torch.utils import graphs
 
 
@@ -248,20 +260,25 @@ def _randn(shape, generator, device):
 
 
 def draw_step_noise(batch, generator, latent_shape, timesteps: int,
-                    device) -> dict:
+                    device, mesh=None) -> dict:
     """The step's draws, taken from ``generator`` before the step runs and
     in the order the step used them (posterior noise, t, eps), as the
     batch's ``override_znoise`` / ``override_t`` / ``override_noise``; a
-    draw the batch already carries is kept and not drawn."""
+    draw the batch already carries is kept and not drawn.  Over a ``mesh``
+    the batch is this rank's block of rows: the draws are made for the
+    global batch and this rank keeps its rows of each."""
     out = dict(batch)
+    n = pmesh.axis_size(mesh, pmesh.DATA)
+    shape = (latent_shape[0] * n,) + tuple(latent_shape[1:])
+    mine = lambda a: pmesh.shard_batch(a, mesh) if n > 1 else a
     if "override_znoise" not in out:
-        out["override_znoise"] = _randn(latent_shape, generator, device)
+        out["override_znoise"] = mine(_randn(shape, generator, device))
     if "override_t" not in out:
-        out["override_t"] = torch.randint(
-            0, timesteps, (latent_shape[0],), generator=generator,
-            device=generator.device).to(device)
+        out["override_t"] = mine(torch.randint(
+            0, timesteps, (shape[0],), generator=generator,
+            device=generator.device).to(device))
     if "override_noise" not in out:
-        out["override_noise"] = _randn(latent_shape, generator, device)
+        out["override_noise"] = mine(_randn(shape, generator, device))
     return out
 
 
@@ -296,27 +313,53 @@ def noisy_latents(pipeline, sched, batch, generator, mean, logvar):
     return ddpm.q_sample(sched, z0, t, noise), t, noise
 
 
+def _data_group(mesh):
+    return None if mesh is None else mesh.get_group(pmesh.DATA)
+
+
 def _loss_from_posterior(pipeline, sched, loss_type, gnet, manager_state,
-                         batch, generator, mean, logvar, pred_z, pred_coeff):
+                         batch, generator, mean, logvar, pred_z, pred_coeff,
+                         group=None):
     """Steps 1b-5 shared by the cached and uncached losses: sample the
-    posterior, draw t and eps, inject, encode, predict, take the loss."""
+    posterior, draw t and eps, inject, encode, predict, take the loss.
+    With a data ``group`` the momentum update and ``id_neg_loss`` take the
+    rows of every rank (module docstring)."""
     z_t, t, noise = noisy_latents(pipeline, sched, batch, generator, mean,
                                   logvar)
     with torch.no_grad():
         embeds = pipeline.clip.token_embed(batch["tokens"])
+    rows = None
+    if group is not None:
+        rows = tuple(pmesh.gather_rows(a, group) for a in (
+            pred_z, pred_coeff, batch["ids"], batch["num_ids"]))
     new_embeds, new_mstate = mgr.train_inject(
         pipeline.manager_cfg, manager_state, batch["tokens"], embeds, pred_z,
-        pred_coeff, batch["ids"], batch["num_ids"])
+        pred_coeff, batch["ids"], batch["num_ids"], update_rows=rows)
     context = pipeline.clip.encode(new_embeds)
     eps_pred = pipeline.unet(z_t, t, context)
     loss, logs = ddpm.eps_mse_loss(eps_pred, noise)
-    neg, neg_logs = mgr.id_neg_loss(loss_type, pred_z, pred_coeff, gnet)
+    metas, cefs = pred_z, pred_coeff
+    if group is not None and loss_type != "none":
+        metas = pmesh.gather_rows(pred_z, group, grad=True)
+        cefs = pmesh.gather_rows(pred_coeff, group, grad=True)
+    neg, neg_logs = mgr.id_neg_loss(loss_type, metas, cefs, gnet)
     logs.update(neg_logs)
     return loss + neg, (new_mstate, logs)
 
 
+def _mean_logs(logs: dict, group) -> dict:
+    """The logged scalars averaged over the data group (one all-reduce)."""
+    if group is None:
+        return logs
+    flat = torch.stack([v.detach().float().reshape(()) for v in
+                        logs.values()])
+    pmesh.all_reduce_mean_([flat], group)
+    return dict(zip(logs, flat.unbind(0)))
+
+
 def make_loss_fn(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
-                 train_unet: bool = False, gnet: Optional[nn.Module] = None):
+                 train_unet: bool = False, gnet: Optional[nn.Module] = None,
+                 mesh=None):
     """The full personalisation loss,
     ``loss_fn(manager_state, basis, batch, generator) ->
     (loss, (new_manager_state, logs))``, shared by the train step (backward)
@@ -325,13 +368,15 @@ def make_loss_fn(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
     ``train_unet`` is kept for the JAX package's signature; whether the UNet
     gets gradients is decided by its parameters' ``requires_grad`` (see
     ``build_trainable``), and this function checks that the two agree.
-    ``gnet`` is required by ``loss_type='contra'``.
+    ``gnet`` is required by ``loss_type='contra'``.  ``mesh``: the batch is
+    this rank's rows of a data-parallel batch (module docstring).
     """
     _check_loss_type(loss_type)
     if loss_type == "contra" and gnet is None:
         raise ValueError("loss_type='contra' needs the trainable g-net")
     sched = ddpm.ScheduleArrays.from_schedule(pipeline.schedule,
                                               pipeline.device)
+    group = _data_group(mesh)
 
     def loss_fn(manager_state, basis, batch, generator):
         if any(p.requires_grad for p in pipeline.unet.parameters()) \
@@ -346,14 +391,14 @@ def make_loss_fn(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
                                                   batch["ids"], basis)
         return _loss_from_posterior(pipeline, sched, loss_type, gnet,
                                     manager_state, batch, generator, mean,
-                                    logvar, pred_z, pred_coeff)
+                                    logvar, pred_z, pred_coeff, group)
 
     return loss_fn
 
 
 def make_cached_loss_fn(pipeline, meta_net: MetaIdNet,
                         loss_type: str = "none",
-                        gnet: Optional[nn.Module] = None):
+                        gnet: Optional[nn.Module] = None, mesh=None):
     """Loss over precomputed frozen features (fast-personalisation mode).
 
     The VAE posterior (mean, logvar) and the frozen face features are
@@ -369,6 +414,7 @@ def make_cached_loss_fn(pipeline, meta_net: MetaIdNet,
         raise ValueError("loss_type='contra' needs the trainable g-net")
     sched = ddpm.ScheduleArrays.from_schedule(pipeline.schedule,
                                               pipeline.device)
+    group = _data_group(mesh)
 
     def loss_fn(manager_state, basis, batch, generator):
         feats = batch["fr_feats"]
@@ -380,35 +426,44 @@ def make_cached_loss_fn(pipeline, meta_net: MetaIdNet,
         return _loss_from_posterior(
             pipeline, sched, loss_type, gnet, manager_state, batch,
             generator, batch["latent_mean"], batch["latent_logvar"], pred_z,
-            pred_coeff)
+            pred_coeff, group)
 
     return loss_fn
 
 
-def _step_from_loss(pipeline, loss_fn, optimizer):
+def _step_from_loss(pipeline, loss_fn, optimizer, mesh=None):
     """``step_fn(state, basis, batch) -> (state, logs)``: the draws from
     ``state.generator``, then the loss, the backward and the optimizer step
     captured as one graph per signature (one for an accumulating and one
-    for a boundary step with ``AccumulatingOptimizer``)."""
+    for a boundary step with ``AccumulatingOptimizer``).  Over a ``mesh``
+    the gradients are averaged over ``data`` before the optimizer takes
+    them."""
     accumulating = isinstance(optimizer, AccumulatingOptimizer)
+    group = _data_group(mesh)
+    inner = getattr(optimizer, "inner", optimizer)
+    params = [p for g in inner.param_groups for p in g["params"]]
 
     def body(manager_state, basis, batch, boundary):
         loss, (new_mstate, logs) = loss_fn(manager_state, basis, batch, None)
         optimizer.zero_grad(set_to_none=False)
         loss.backward()
+        if group is not None:
+            pmesh.all_reduce_mean_([p.grad for p in params], group)
         if accumulating:
             optimizer.accumulate()
             if boundary:
                 optimizer.apply()
         else:
             optimizer.step()
-        return new_mstate, {k: v.detach() for k, v in logs.items()}
+        return new_mstate, _mean_logs(
+            {k: v.detach() for k, v in logs.items()}, group)
 
     def make(run):
         def step_fn(state: TrainState, basis, batch):
             batch = draw_step_noise(batch, state.generator,
                                     latent_shape(pipeline, batch),
-                                    pipeline.cfg.timesteps, pipeline.device)
+                                    pipeline.cfg.timesteps, pipeline.device,
+                                    mesh)
             boundary = optimizer.boundary_next if accumulating else True
             new_mstate, logs = run(state.manager_state, basis, batch,
                                    boundary)
@@ -425,50 +480,54 @@ def _step_from_loss(pipeline, loss_fn, optimizer):
 
 def make_train_step(pipeline, meta_net: MetaIdNet, optimizer,
                     loss_type: str = "none", train_unet: bool = False,
-                    gnet: Optional[nn.Module] = None):
+                    gnet: Optional[nn.Module] = None, mesh=None):
     """Returns ``step_fn(state, basis, batch) -> (state, logs)``; the state
-    and the trainable parameters are updated in place."""
+    and the trainable parameters are updated in place.  ``mesh``: data
+    parallel over its ``data`` axis (module docstring)."""
     return _step_from_loss(
         pipeline, make_loss_fn(pipeline, meta_net, loss_type, train_unet,
-                               gnet), optimizer)
+                               gnet, mesh), optimizer, mesh)
 
 
 def make_cached_train_step(pipeline, meta_net: MetaIdNet, optimizer,
                            loss_type: str = "none",
-                           gnet: Optional[nn.Module] = None):
+                           gnet: Optional[nn.Module] = None, mesh=None):
     """Fast-personalisation step over precomputed frozen features (see
     ``make_cached_loss_fn``)."""
     return _step_from_loss(
-        pipeline, make_cached_loss_fn(pipeline, meta_net, loss_type, gnet),
-        optimizer)
+        pipeline, make_cached_loss_fn(pipeline, meta_net, loss_type, gnet,
+                                      mesh), optimizer, mesh)
 
 
 def make_eval_step(pipeline, meta_net: MetaIdNet, loss_type: str = "none",
                    train_unet: bool = False, cached: bool = False,
-                   gnet: Optional[nn.Module] = None):
+                   gnet: Optional[nn.Module] = None, mesh=None):
     """Loss-only step for validation: no gradients, no optimizer, and the
     momentum dictionaries are NOT advanced.
 
     Returns ``eval_fn(state, basis, batch, generator) -> logs``, captured
-    like the train step.
+    like the train step; over a ``mesh`` the logs are the global means.
     """
     if cached:
-        loss_fn = make_cached_loss_fn(pipeline, meta_net, loss_type, gnet)
+        loss_fn = make_cached_loss_fn(pipeline, meta_net, loss_type, gnet,
+                                      mesh)
     else:
         loss_fn = make_loss_fn(pipeline, meta_net, loss_type, train_unet,
-                               gnet)
+                               gnet, mesh)
+    group = _data_group(mesh)
 
     def body(manager_state, basis, batch):
         loss, (_, logs) = loss_fn(manager_state, basis, batch, None)
         logs["loss"] = loss
-        return logs
+        return _mean_logs(logs, group)
 
     def make(run):
         @torch.no_grad()
         def eval_fn(state: TrainState, basis, batch, generator):
             batch = draw_step_noise(batch, generator,
                                     latent_shape(pipeline, batch),
-                                    pipeline.cfg.timesteps, pipeline.device)
+                                    pipeline.cfg.timesteps, pipeline.device,
+                                    mesh)
             return run(state.manager_state, basis, batch)
         return eval_fn
 

@@ -31,12 +31,21 @@ graphs are captured anew for the new trainable set.  ``frozen_bf16`` casts
 the weights before any step is built, so every graph reads the cast ones.
 
 The loader is any iterable of batch dicts (numpy arrays or tensors, layouts
-as in ``train.step``), such as ``data.face_id.PrefetchLoader``.  Not ported
-yet: the mesh / FSDP options (``fsdp``, ``n_data_shards != 1``; ROADMAP A10),
-which raise when set.
+as in ``train.step``), such as ``data.face_id.PrefetchLoader``.
+
+Data parallel over a ``mesh`` (``parallel.mesh.make_mesh``; one process per
+rank, ``cfg.n_data_shards`` its ``data`` size): the loader yields the global
+batch, each rank takes its block of rows (``shard_batch``) and the steps
+compute the global step (``train.step``).  The frozen weights stay whole on
+every rank (as the JAX trainer, no tensor-parallel rule: the ``model`` axis
+holds copies) unless ``cfg.fsdp`` shards the large frozen leaves over
+``data``.  Rank 0 alone writes the checkpoints, ``metrics.jsonl`` and the
+TensorBoard file; the logged losses are the global means.  Under NCCL the
+steps run on their CUDA graphs; under gloo uncaptured (``runs_eagerly``).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -51,6 +60,7 @@ import torch
 
 from celebbasis_tpu_torch.core import manager as mgr
 from celebbasis_tpu_torch.core.meta_net import MetaIdNet
+from celebbasis_tpu_torch.parallel import mesh as pmesh
 from celebbasis_tpu_torch.train import step as tstep
 from celebbasis_tpu_torch.utils.precision import cast_float_params
 
@@ -71,10 +81,10 @@ class TrainerConfig:
     model_lr: float = 0.0
     cache_latents: int = 0   # >0: precompute N batches of frozen features
     frozen_bf16: bool = False  # store frozen UNet/VAE/CLIP/FR weights bf16
-    fsdp: bool = False       # not ported: raises when set
+    fsdp: bool = False       # shard large frozen leaves over the 'data' axis
     log_every: int = 10
     seed: int = 23
-    n_data_shards: int = 1   # not ported: raises unless 1
+    n_data_shards: int = 1   # the mesh's 'data' size
     tensorboard: bool = False  # also write a TensorBoard event file
 
 
@@ -97,21 +107,27 @@ def effective_lr(cfg: TrainerConfig) -> float:
 class Trainer:
     """Owns the optimizer and the step function for one run.  The pipeline
     and the MetaIdNet come frozen (as ``loader.assemble`` returns them) and
-    lie on one device; the trainer marks what trains."""
+    lie on one device; the trainer marks what trains, and over a ``mesh``
+    places the frozen weights (module docstring)."""
 
     def __init__(self, pipeline, meta_net: MetaIdNet, basis: torch.Tensor,
                  loader, cfg: TrainerConfig, run_dir: Optional[str] = None,
                  callbacks=(), val_loader=None, val_every: int = 200,
-                 val_batches: int = 4):
-        if cfg.fsdp:
-            raise NotImplementedError("TrainerConfig.fsdp is not ported yet "
-                                      "(ROADMAP A10)")
-        if cfg.n_data_shards != 1:
-            raise NotImplementedError("data-parallel training is not ported "
-                                      "yet (n_data_shards must be 1; ROADMAP "
-                                      "A10)")
+                 val_batches: int = 4, mesh=None):
+        if cfg.n_data_shards != pmesh.axis_size(mesh, pmesh.DATA):
+            raise ValueError(f"n_data_shards={cfg.n_data_shards} but the "
+                             f"mesh's data axis has "
+                             f"{pmesh.axis_size(mesh, pmesh.DATA)} ranks")
+        if cfg.fsdp and mesh is None:
+            raise ValueError("fsdp shards over a mesh's data axis: pass "
+                             "the mesh")
+        if cfg.fsdp and pipeline.manager_cfg.test_mode == "image":
+            raise ValueError("test_mode 'image' saves the whole MetaIdNet, "
+                             "whose face net fsdp shards")
         if cfg.cache_latents > 0 and cfg.unfreeze_model:
             raise ValueError("cache_latents requires the frozen-UNet path")
+        self.mesh = mesh
+        self.writer = pmesh.is_writer(mesh)
         self.pipeline = pipeline
         self.meta_net = meta_net
         self.cfg = cfg
@@ -125,7 +141,7 @@ class Trainer:
         self.run_dir = run_dir or make_run_dir(cfg)
         self.metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
         self.tb = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and self.writer:
             from celebbasis_tpu_torch.utils.tb import TBWriter
             self.tb = TBWriter(os.path.join(self.run_dir, "tensorboard"))
 
@@ -142,25 +158,16 @@ class Trainer:
         self.trainable = tstep.build_trainable(
             meta_net, unet=pipeline.unet if cfg.unfreeze_model else None,
             gnet=self.gnet)
+        if mesh is not None:
+            # frozen weights replicated, or their large leaves sharded over
+            # 'data' (what trains is never sharded)
+            for module in (pipeline, meta_net):
+                pmesh.shard_params(module, mesh, fsdp=cfg.fsdp)
         self.optimizer = tstep.make_optimizer(
             self.trainable, effective_lr(cfg),
             cfg.model_lr if cfg.unfreeze_model else None,
             accumulate=cfg.accumulate)
-        if cfg.cache_latents > 0:
-            self.step_fn = tstep.make_cached_train_step(
-                pipeline, meta_net, self.optimizer, loss_type=cfg.loss_type,
-                gnet=self.gnet)
-        else:
-            self.step_fn = tstep.make_train_step(
-                pipeline, meta_net, self.optimizer, loss_type=cfg.loss_type,
-                train_unet=cfg.unfreeze_model, gnet=self.gnet)
-        # validation in cached mode without a val loader runs over held-out
-        # cached batches, so it takes the cached eval step
-        self._eval_cached = cfg.cache_latents > 0 and val_loader is None
-        self.eval_fn = tstep.make_eval_step(
-            pipeline, meta_net, loss_type=cfg.loss_type,
-            train_unet=cfg.unfreeze_model, cached=self._eval_cached,
-            gnet=self.gnet)
+        self._build_steps()
         self._cache = None
         self._val_cache = None
         self._state = None           # the live state while fit runs
@@ -189,20 +196,41 @@ class Trainer:
         cfg = self.cfg
         if cfg.cache_latents > 0:
             raise ValueError("the mode swap needs the uncached path")
+        if cfg.fsdp:
+            raise ValueError("the mode swap trains the UNet, whose frozen "
+                             "weights fsdp has sharded")
         cfg.unfreeze_model, cfg.model_lr = True, model_lr
         self.trainable = tstep.build_trainable(
             self.meta_net, unet=self.pipeline.unet, gnet=self.gnet)
         self.optimizer = tstep.make_optimizer(
             self.trainable, effective_lr(cfg), model_lr,
             accumulate=cfg.accumulate)
-        self.step_fn = tstep.make_train_step(
-            self.pipeline, self.meta_net, self.optimizer,
-            loss_type=cfg.loss_type, train_unet=True, gnet=self.gnet)
-        self.eval_fn = tstep.make_eval_step(
-            self.pipeline, self.meta_net, loss_type=cfg.loss_type,
-            train_unet=True, gnet=self.gnet)
+        self._build_steps()
         return tstep.TrainState(state.step, self.trainable, self.optimizer,
                                 state.manager_state, state.generator)
+
+    def _build_steps(self) -> None:
+        """The train and eval steps for the current trainable set; gloo's
+        collectives cannot be captured, so over a gloo mesh they run
+        uncaptured."""
+        cfg, mesh = self.cfg, self.mesh
+        common = dict(loss_type=cfg.loss_type, gnet=self.gnet, mesh=mesh)
+        if cfg.cache_latents > 0:
+            step = tstep.make_cached_train_step(
+                self.pipeline, self.meta_net, self.optimizer, **common)
+        else:
+            step = tstep.make_train_step(
+                self.pipeline, self.meta_net, self.optimizer,
+                train_unet=cfg.unfreeze_model, **common)
+        # validation in cached mode without a val loader runs over held-out
+        # cached batches, so it takes the cached eval step
+        self._eval_cached = cfg.cache_latents > 0 and self.val_loader is None
+        evaluate = tstep.make_eval_step(
+            self.pipeline, self.meta_net, train_unet=cfg.unfreeze_model,
+            cached=self._eval_cached, **common)
+        eager = pmesh.runs_eagerly(mesh)
+        self.step_fn = step.eager if eager else step
+        self.eval_fn = evaluate.eager if eager else evaluate
 
     # -- checkpointing --------------------------------------------------------
     def save(self, state: tstep.TrainState, tag: Optional[str] = None) -> str:
@@ -211,8 +239,10 @@ class Trainer:
         step = state.step // max(self.cfg.accumulate, 1)
         name = tag or f"embeddings_gs-{step}.pt"
         path = os.path.join(self.run_dir, "checkpoints", name)
-        mgr.save_checkpoint(self.pipeline.manager_cfg, state.manager_state,
-                            path, meta_net=self.meta_net)
+        if self.writer:          # every rank holds the same state
+            mgr.save_checkpoint(self.pipeline.manager_cfg,
+                                state.manager_state, path,
+                                meta_net=self.meta_net)
         return path
 
     def melk(self, signum=None, frame=None) -> None:
@@ -232,8 +262,10 @@ class Trainer:
         n_val = self.val_batches if self._eval_cached else 0
         print(f"[trainer] caching {cfg.cache_latents}+{n_val} augmented "
               f"batches of frozen features")
-        cache = tstep.precompute_cache(self.pipeline, self.meta_net,
-                                       self.loader, cfg.cache_latents + n_val)
+        cache = tstep.precompute_cache(
+            self.pipeline, self.meta_net,
+            (pmesh.shard_batch(b, self.mesh) for b in self.loader),
+            cfg.cache_latents + n_val)
         self._cache = cache[: cfg.cache_latents]
         self._val_cache = cache[cfg.cache_latents:]
 
@@ -242,9 +274,11 @@ class Trainer:
         it = iter(loader)
         try:
             for batch in it:
-                yield {k: torch.as_tensor(v).to(self.device)
-                       for k, v in batch.items()
-                       if k in keys or k.startswith("override_")}
+                batch = {k: v for k, v in batch.items()
+                         if k in keys or k.startswith("override_")}
+                # this rank's rows of the global batch
+                yield {k: torch.as_tensor(v).to(self.device) for k, v in
+                       pmesh.shard_batch(batch, self.mesh).items()}
         finally:
             if hasattr(it, "close"):
                 it.close()           # stops a prefetching loader's thread
@@ -288,6 +322,8 @@ class Trainer:
 
     # -- main loop ------------------------------------------------------------
     def _log(self, log_f, rec: dict, scalars: dict) -> None:
+        if log_f is None:
+            return
         log_f.write(json.dumps(rec) + "\n")
         log_f.flush()
         if self.tb is not None:
@@ -307,7 +343,8 @@ class Trainer:
         main = threading.current_thread() is threading.main_thread()
         previous = signal.signal(signal.SIGUSR1, self.melk) if main else None
         try:
-            with open(self.metrics_path, "a") as log_f:
+            with (open(self.metrics_path, "a") if self.writer
+                  else contextlib.nullcontext()) as log_f:
                 while step < cfg.max_steps and not self._interrupted:
                     batches, seen = self._batches(), False
                     try:

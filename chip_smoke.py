@@ -214,7 +214,33 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
                classifier step (#3-#5 launched);
 16. ``warmup`` ``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults
                in a process of its own: the kernel libraries built, the
-               train-step and txt2img graphs captured, seconds of each.
+               train-step and txt2img graphs captured, seconds of each;
+17. ``mesh``   the mesh paths at full width through ``torchrun``
+               (``torch_scripts/mesh_ranks.py``, random weights from the
+               CLIs' seed, the output convs drawn, 512x512 PNG faces):
+               over NCCL at world size 1 on the graphs, ``cli/train.py
+               --mesh 1`` and ``--mesh 1 --fsdp`` (three uncached steps)
+               give the one-process losses, MLP, first gradient and manager
+               state bit for bit, and ``cli/txt2img.py --mesh 1 --tp 1``
+               its pixels; over gloo with two ranks on the one card,
+               uncaptured, ``--mesh 2`` and ``--mesh 2 --fsdp`` (two steps
+               at global batch 4) hold the one-process run at the same
+               learning rate within 1e-3 and 3e-3 of the steps' losses, its
+               first gradient to cosine >= 0.99 and |diff| / |grad| <= 0.1,
+               that gradient within 1e-3 of one process's mean over the
+               batch's halves each run alone (the witness of bf16 rounding
+               at a rank's batch), the MLP's change over the run to cosine
+               >= 0.98 and |diff| / |change| <= 0.25, both ranks' manager
+               state and MLP equal, ``--mesh 2 --fsdp`` stores on each rank
+               exactly the frozen bytes the rule predicts, ``txt2img --mesh
+               2`` in float32 (TF32 off) the one-process pixels within one
+               level, in bf16 within one level of one process sampling one
+               image a call and within 1.5x the plain attention route's
+               mean distance of the two-image run, and ``--tp 2``
+               (4 local heads, 32 packed launches a UNet call a rank)
+               within a mean of 8 levels (beside it the distance of the
+               one-process run on the plain attention route); ms a step by
+               rank, peak memory, seconds in gloo's collectives.
 
 The generation and training paths run as CUDA graphs (``utils/graphs.py``):
 a graph's warm-up and capture run its Python (hooks that count UNet calls
@@ -2875,6 +2901,28 @@ def phase_checkpoint(work):
 
 # -- phase 10 -----------------------------------------------------------------
 
+def write_face_pickle(faces, config, size, seed=77):
+    """Random-pixel aligned-face PNGs of ``size`` and their
+    ``ffhq.pickle`` in the folder ``faces`` (made here), as many as
+    ``config``'s training data asks for; -> the folder."""
+    from celebbasis_tpu_torch.cli.serve import encode_png
+    from celebbasis_tpu_torch.utils.config import load_run_spec
+
+    data = load_run_spec([config]).train_data
+    # the config picks identities by position (specific_ids), so the pickle
+    # holds as many files as the highest position asked for, plus one
+    n_files = max(data.specific_ids or [data.num_ids - 1]) + 1
+    os.makedirs(faces)
+    paths = []
+    for i, img in enumerate(face_crops(size, seed, k=n_files)):
+        paths.append(os.path.join(faces, f"{i:05d}.png"))
+        with open(paths[-1], "wb") as f:
+            f.write(encode_png(img))
+    with open(os.path.join(faces, "ffhq.pickle"), "wb") as f:
+        pickle.dump(paths, f)
+    return faces
+
+
 def train_cli(keep_dir, checkpoints):
     """``cli/train.main`` at 512x512 from the checkpoint phase's files, on a
     synthetic aligned-face pickle: six uncached steps with validation,
@@ -2883,24 +2931,12 @@ def train_cli(keep_dir, checkpoints):
     into ``keep_dir`` for the generate phase.  -> (launches by run, record
     by run)."""
     from celebbasis_tpu_torch.cli import train
-    from celebbasis_tpu_torch.cli.serve import encode_png
     from celebbasis_tpu_torch.utils.config import load_run_spec
     from celebbasis_tpu_torch.utils.tb import read_scalars
 
     config = os.path.join(REPO, "configs", "aigc_id.yaml")
     data = load_run_spec([config]).train_data
-    # the config picks identities by position (specific_ids), so the pickle
-    # holds as many files as the highest position asked for, plus one
-    n_files = max(data.specific_ids or [data.num_ids - 1]) + 1
-    faces = os.path.join(keep_dir, "faces")
-    os.makedirs(faces)
-    paths = []
-    for i, img in enumerate(face_crops(512, 77, k=n_files)):
-        paths.append(os.path.join(faces, f"{i:05d}.png"))
-        with open(paths[-1], "wb") as f:
-            f.write(encode_png(img))
-    with open(os.path.join(faces, "ffhq.pickle"), "wb") as f:
-        pickle.dump(paths, f)
+    faces = write_face_pickle(os.path.join(keep_dir, "faces"), config, 512)
     logdir = os.path.join(keep_dir, "logs")
     common = ["--base", config, "--logdir", logdir, "--data_root", faces,
               "--actual_resume", checkpoints["sd"], "--fr_ckpt",
@@ -5236,6 +5272,263 @@ def phase_warmup():
     return rec
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+MESH_RANKS = os.path.join(REPO, "torch_scripts", "mesh_ranks.py")
+MESH_TIMEOUT_S = 420          # a torchrun launch, all its ranks
+MESH_TRAIN_STEPS = 3          # nccl1: uncached steps a run
+# gloo2 against one process at the same rate, bf16 (PERF.md 2 and 6): the
+# two steps' losses (the second starts from MLPs that the first gradient's
+# rounding at a rank's batch size has moved apart: 1.06e-3 read; a rate off
+# by the data ranks reads 3.3e-2), the first gradient
+MESH_REL_LOSS = (1e-3, 3e-3)
+MESH_GRAD_COS, MESH_GRAD_REL = 0.99, 0.1
+MESH_SPLIT_REL = 1e-3         # the first gradient against one process's mean
+                              # over the batch's halves, each alone (read: 0)
+MESH_MLP_COS, MESH_MLP_REL = 0.98, 0.25  # the MLP's change over the run (read
+                              # 0.9934 / 0.115; a rate off by the data ranks
+                              # reads |diff| / |change| 1.0)
+MESH_PLAIN_MEAN = 1.5         # bf16 --mesh 2 pixels against the two-sample
+                              # run: mean |diff| within 1.5x the plain
+                              # attention route's distance from the kernels'
+MESH_TP_MEAN = 8.0            # --tp 2 pixels, mean |diff| in levels: bf16
+                              # rounding moves a few; a wrong shard gives
+                              # unrelated images (PERF.md 2)
+
+
+def torchrun(nproc, args, timeout):
+    """``python -m torch.distributed.run`` with ``nproc`` ranks on this
+    machine, its own session so that a timeout ends every rank; its
+    ``[mesh]`` lines go to the log.  -> the output; raises on a non-zero
+    exit."""
+    import signal
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           f"--nproc_per_node={nproc}", "--master_addr=127.0.0.1",
+           f"--master_port={port}", MESH_RANKS, *args]
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise RuntimeError(f"mesh: {args[0]} ran past {timeout} s\n"
+                           f"{out[-6000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    for line in out.splitlines():
+        if line.startswith("[mesh]"):
+            print(line[:3000], flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"mesh: {args[0]} exited {proc.returncode}\n"
+                           f"{out[-8000:]}")
+    return out
+
+
+def _by_run(recs):
+    return {r["run"]: r for r in recs}
+
+
+def _pixels(a, b):
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    return {"max": int(d.max()), "mean": float(d.mean()),
+            "p99": float(np.percentile(d, 99))}
+
+
+def _cos(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def _rel(a, b) -> float:
+    """|a - b| / |b|."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def check_mesh_nccl1(ranks):
+    """World size 1 over NCCL, on the graphs: ``--mesh 1`` and ``--mesh 1
+    --fsdp`` give the one-process losses, MLP and manager state bit for
+    bit; ``--mesh 1 --tp 1`` its pixels."""
+    (r,) = ranks
+    ref = r["train"]
+    for name in ("train_mesh1", "train_mesh1_fsdp"):
+        got = r[name]
+        if got["losses"] != ref["losses"] or len(ref["losses"]) != \
+                MESH_TRAIN_STEPS or not all(
+                    torch.equal(got[k], ref[k]) for k in
+                    ("mlp", "first_grad", "id_coefficients",
+                     "id_embeddings")):
+            raise RuntimeError(f"mesh: {name} losses {got['losses']} against "
+                               f"{ref['losses']}, or its MLP / gradient / "
+                               f"manager state differ")
+        want = {n: c * (MESH_TRAIN_STEPS + 1)
+                for n, c in TRAIN_LAUNCHES.items() if c}
+        if got["launches"] != want or ref["launches"] != want:
+            raise RuntimeError(f"mesh: {name} launched {got['launches']}, "
+                               f"one process {ref['launches']}; expected "
+                               f"{want}")
+    if r["train_mesh1_fsdp"]["stored_bytes"] != \
+            r["train_mesh1_fsdp"]["fsdp_predicted"]:
+        raise RuntimeError("mesh: FSDP at world size 1 stores "
+                           f"{r['train_mesh1_fsdp']['stored_bytes']} bytes")
+    a, b = r["txt2img"], r["txt2img_mesh1_tp1"]
+    if not np.array_equal(a["images"], b["images"]) \
+            or a["files"] != b["files"]:
+        raise RuntimeError(f"mesh: --mesh 1 --tp 1 pixels "
+                           f"{_pixels(a['images'], b['images'])}")
+    for x in (a, b):
+        if x["launches"] != {"flash_attention_nhd":
+                             ATTN_PER_UNET * x["unet_calls"]}:
+            raise RuntimeError(f"mesh: txt2img launched {x['launches']} in "
+                               f"{x['unet_calls']} UNet calls")
+    return {"bits_equal": ["train_mesh1", "train_mesh1_fsdp",
+                           "txt2img_mesh1_tp1"],
+            "fsdp_bytes": r["train_mesh1_fsdp"]["stored_bytes"]}
+
+
+def check_mesh_gloo2(ranks):
+    """Two ranks over gloo on one card, uncaptured, against rank 0's runs
+    without a mesh.  Every figure is taken before any check raises."""
+    r0, r1 = ranks
+    ref = r0["train_b4"]
+    split = ref["split_grads"]
+    bad = []
+    # the witness: one process's eager whole-batch gradient is its step's,
+    # and its mean over the batch's halves, each run alone
+    out = {"split": {"whole_vs_step": _rel(split["whole"],
+                                           ref["first_grad"]),
+                     "halves_vs_whole": _rel(split["halves"],
+                                             split["whole"])}}
+    for name in ("train_mesh2", "train_mesh2_fsdp"):
+        got, other = r0[name], r1[name]
+        out[name] = rec = {
+            "loss_rel": [abs(a - b) / abs(b) for a, b in zip(
+                got["losses"], ref["losses"], strict=True)],
+            "grad_cos": _cos(got["first_grad"], ref["first_grad"]),
+            "grad_rel": _rel(got["first_grad"], ref["first_grad"]),
+            "split_rel": _rel(got["first_grad"], split["halves"]),
+            "mlp_cos": _cos(got["mlp"] - got["mlp0"],
+                            ref["mlp"] - ref["mlp0"]),
+            "mlp_rel": _rel(got["mlp"] - got["mlp0"],
+                            ref["mlp"] - ref["mlp0"])}
+        if any(x > lim for x, lim in zip(rec["loss_rel"], MESH_REL_LOSS)) \
+                or rec["grad_cos"] < MESH_GRAD_COS \
+                or rec["grad_rel"] > MESH_GRAD_REL \
+                or rec["split_rel"] > MESH_SPLIT_REL \
+                or rec["mlp_cos"] < MESH_MLP_COS \
+                or rec["mlp_rel"] > MESH_MLP_REL \
+                or not torch.equal(got["mlp0"], ref["mlp0"]):
+            bad.append(f"{name} against one process")
+        if not all(torch.equal(got[k], other[k]) for k in
+                   ("id_coefficients", "id_embeddings", "mlp")):
+            bad.append(f"{name}'s ranks hold different manager states or "
+                       f"MLPs")
+        if any(x["launches"].get(n, 0) != c * 2 for x in (got, other)
+               for n, c in TRAIN_LAUNCHES.items() if c):
+            bad.append(f"{name} launched {got['launches']} / "
+                       f"{other['launches']}")
+    out["fsdp_bytes"] = [[x["train_mesh2_fsdp"][k] for k in
+                          ("stored_bytes", "fsdp_predicted", "whole_bytes")]
+                         for x in (r0, r1)]
+    if any(stored != predicted or not stored < whole
+           for stored, predicted, whole in out["fsdp_bytes"]):
+        bad.append("FSDP bytes stored / predicted / whole")
+    one, plain = r0["txt2img"]["images"], r0["txt2img_plain"]["images"]
+    out["plain_route"] = _pixels(plain, one)
+    out["n1_vs_two"] = _pixels(r0["txt2img_n1"]["images"], one)
+    for name in ("txt2img_mesh2", "txt2img_mesh2_fp32", "txt2img_tp2"):
+        ref = r0["txt2img_fp32" if "fp32" in name else "txt2img"]
+        for rank, x in enumerate((r0, r1)):
+            out[f"{name}_r{rank}"] = px = _pixels(x[name]["images"],
+                                                  ref["images"])
+            calls = x[name]["unet_calls"]
+            if x[name]["launches"] != {"flash_attention_nhd":
+                                       ATTN_PER_UNET * calls} or not calls:
+                bad.append(f"{name} rank {rank} launched "
+                           f"{x[name]['launches']} in {calls} UNet calls")
+            if name == "txt2img_mesh2_fp32":
+                off = px["max"] > 1
+            elif name == "txt2img_tp2":
+                off = px["mean"] > MESH_TP_MEAN \
+                    or 4 not in x[name]["local_heads"]
+            else:      # bf16: a rank samples one at a time, as txt2img_n1
+                out[f"{name}_vs_n1_r{rank}"] = n1 = _pixels(
+                    x[name]["images"], r0["txt2img_n1"]["images"])
+                off = n1["max"] > 1 or px["mean"] > \
+                    MESH_PLAIN_MEAN * out["plain_route"]["mean"]
+            if off:
+                bad.append(f"{name} rank {rank} pixels")
+        if r0[name]["files"] != ref["files"] or r1[name]["files"]:
+            bad.append(f"{name} wrote {r0[name]['files']} / "
+                       f"{r1[name]['files']}")
+    if bad:
+        raise RuntimeError(f"mesh: {'; '.join(bad)}: {json.dumps(out)}")
+    return out
+
+
+def phase_mesh():
+    """``cli/train.py --mesh/--fsdp`` and ``cli/txt2img.py --mesh/--tp`` at
+    full width through ``torchrun`` (module docstring, phase 17).  -> the
+    ranks' records, the checks' figures and the phase's wall."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {}
+    try:
+        write_face_pickle(os.path.join(work, "faces"),
+                          os.path.join(REPO, "configs", "aigc_id.yaml"), 512)
+        for task, nproc, check in (("nccl1", 1, check_mesh_nccl1),
+                                   ("gloo2", 2, check_mesh_gloo2)):
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            torchrun(nproc, [task, work, "--steps", str(MESH_TRAIN_STEPS)],
+                     MESH_TIMEOUT_S)
+            ranks = [_by_run(torch.load(os.path.join(
+                work, f"{task}_rank{r}.pt"), weights_only=False))
+                for r in range(nproc)]
+            out[task] = {"ranks": ranks, "wall_s": time.perf_counter() - t,
+                         "checks": check(ranks)}
+            log("mesh", f"{task}: {out[task]['wall_s']:.1f} s; checks "
+                        f"{json.dumps(out[task]['checks'])}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_wall_s"] = time.perf_counter() - t0
+    log("mesh", f"phase {out['phase_wall_s']:.1f} s")
+    return out
+
+
+def mesh_launches(mesh, kernel):
+    """A kernel's launches in the mesh phase's runs, by task, run and
+    rank."""
+    return {f"mesh_{task}_{name}_r{r}": rec["launches"].get(kernel, 0)
+            for task in ("nccl1", "gloo2")
+            for r, ranks in enumerate(mesh[task]["ranks"])
+            for name, rec in ranks.items()}
+
+
+def mesh_summary(mesh):
+    """The mesh phase's ms a step by rank, peaks, gloo's collective seconds
+    and walls."""
+    med = lambda xs: round(float(np.median(xs[1:])), 1) if xs else None
+    out = {"phase_s": round(mesh["phase_wall_s"], 1)}
+    for task in ("nccl1", "gloo2"):
+        for r, ranks in enumerate(mesh[task]["ranks"]):
+            for name, rec in ranks.items():
+                out[f"{task}_{name}_r{r}"] = {
+                    "wall_s": round(rec["wall_s"], 1),
+                    "step_ms": med(rec.get("step_ms", [])),
+                    "peak_gib": round(rec.get("peak_gib", 0), 2),
+                    "collective_s": round(rec["collective_s"], 2)}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5276,6 +5569,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     warmup = phase_warmup()
+    mesh = phase_mesh()
 
     kernels = []
     for entry, replaces in KERNELS.items():
@@ -5295,6 +5589,7 @@ def main() -> int:
         by_path.update({f"legacy_{name}": legacy[name]["launches"].get(
             entry, 0) for name in ("evaluate_model", "sample_diffusion",
                                    "inpaint")})
+        by_path.update(mesh_launches(mesh, entry))
         kernels.append({
             "name": entry, "route": "cuda", "source": FWD_SOURCE,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -5342,7 +5637,8 @@ def main() -> int:
                    "legacy_train_1p4b":
                        legacy_train["1p4b"]["launches"].get(name, 0),
                    "classifier":
-                       legacy_train["classifier"]["launches"].get(name, 0)}
+                       legacy_train["classifier"]["launches"].get(name, 0),
+                   **mesh_launches(mesh, name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -5454,7 +5750,8 @@ def main() -> int:
                 f"{warmup['train_s']:.1f} s, txt2img graph "
                 f"{warmup['txt2img_s']:.1f} s); legacy "
                 f"{json.dumps(legacy_summary(legacy))}; legacy_train "
-                f"{json.dumps(legacy_train_summary(legacy_train))}")
+                f"{json.dumps(legacy_train_summary(legacy_train))}; mesh "
+                f"{json.dumps(mesh_summary(mesh))}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

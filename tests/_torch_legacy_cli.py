@@ -6,9 +6,9 @@ process at float32 with the port's draws passed in.
 The JAX CLIs build their models in bf16 and draw their start latents from
 ``jax.random``; ``jax_cli`` runs one with ``build_legacy_ldm`` at float32,
 ``LegacyLDM.init_params`` skipped (every part it samples with comes from the
-checkpoint) and ``ddim_sample`` handed, call by call, the start latents the
-port's CLI draws for the same images (image i from ``sample_seed(--seed,
-i)``).  ``port_fp32`` has the port's CLIs, bf16 as well, build theirs at
+checkpoint), its first and conditioning stages compiled, and
+``ddim_sample`` handed, call by call, the start latents the port's CLI
+draws for the same images (image i from ``sample_seed(--seed, i)``).  ``port_fp32`` has the port's CLIs, bf16 as well, build theirs at
 float32 in the same way.
 """
 import functools
@@ -23,7 +23,7 @@ from celebbasis_tpu.utils import bridge as jbridge
 from celebbasis_tpu_torch import legacy as tlegacy
 from celebbasis_tpu_torch.diffusion.sampler import batched_normal, sample_seed
 
-from _torch_port_helpers import np_tree, random_params
+from _torch_port_helpers import CompiledApply, np_tree, random_params
 
 
 def write_reference_ckpt(cfg, path, seed=0):
@@ -84,8 +84,15 @@ def jax_cli(monkeypatch, cli_module, argv, x_Ts):
     monkeypatch.setattr(jlegacy, "ddim_sample", ddim_sample)
     monkeypatch.setattr(jlegacy.LegacyLDM, "init_params",
                         lambda self, rng: {})
-    monkeypatch.setattr(cli_module, "build_legacy_ldm", functools.partial(
-        jlegacy.build_legacy_ldm, dtype=jnp.float32))
+    def build(*args, **kw):
+        ldm = jlegacy.build_legacy_ldm(*args, **dict(kw, dtype=jnp.float32))
+        # the stages the sampler calls outside its scan, compiled
+        for part in ("first_stage", "cond_stage"):
+            if getattr(ldm, part, None) is not None:
+                setattr(ldm, part, CompiledApply(getattr(ldm, part)))
+        return ldm
+
+    monkeypatch.setattr(cli_module, "build_legacy_ldm", build)
     out = cli_module.main(argv)
     return out, len(x_Ts) - len(queue)
 

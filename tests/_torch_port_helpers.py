@@ -245,13 +245,77 @@ def write_photos(folder, n, hw=(160, 192), seed=0):
     return paths
 
 
+def compiled(fn):
+    """``fn`` compiled with ``jax.jit``, its array arguments (positional or
+    keyword; pytrees of arrays too) traced and every other argument
+    (configs, method names, flags, hook functions, None) fixed per compile:
+    a JAX oracle called op by op pays one compile an op and a shape,
+    compiled it pays one."""
+    cache = {}
+
+    def traced(a):
+        leaves = jax.tree_util.tree_leaves(a)
+        return bool(leaves) and all(isinstance(x, (jax.Array, np.ndarray))
+                                    for x in leaves)
+
+    def ident(a):       # unhashable fixed arguments count by identity
+        try:
+            hash(a)
+            return a
+        except TypeError:
+            return ("id", id(a))
+
+    def call(*args, **kw):
+        pos = [traced(a) for a in args]
+        names = sorted(k for k, v in kw.items() if traced(v))
+        fixed_args = tuple(None if d else a for a, d in zip(args, pos))
+        fixed_kw = tuple(sorted((k, v) for k, v in kw.items()
+                                if k not in names))
+        key = (tuple(map(ident, fixed_args)),
+               tuple((k, ident(v)) for k, v in fixed_kw), tuple(names),
+               tuple(pos))
+        run = cache.get(key)
+        if run is None:
+            def body(arrays, arrays_kw, fixed_args=fixed_args,
+                     fixed_kw=fixed_kw):
+                it = iter(arrays)
+                return fn(*(next(it) if d else a
+                            for a, d in zip(fixed_args, pos)),
+                          **dict(fixed_kw), **arrays_kw)
+            run = cache[key] = jax.jit(body)
+        return run([a for a, d in zip(args, pos) if d],
+                   {k: kw[k] for k in names})
+    return call
+
+
+def compiled_optimizer(tx):
+    """An optax transformation whose ``init`` and ``update`` are compiled
+    (a JAX trainer that applies its optimizer outside ``jit`` otherwise
+    compiles every leaf's ops one by one)."""
+    import optax
+    return optax.GradientTransformation(jax.jit(tx.init), jax.jit(tx.update))
+
+
+class CompiledApply:
+    """A flax module whose ``apply`` runs ``compiled``; everything else is
+    the module's."""
+
+    def __init__(self, module):
+        self.module, self.apply = module, compiled(module.apply)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+
 def stash_grads():
     """An optax link that passes the updates on and keeps them as its
     state: chained before the JAX trainer's optimizer, the step's returned
     state holds the raw gradients, so that one compiled step gives both."""
     import optax
     return optax.GradientTransformation(
-        lambda p: jax.tree_util.tree_map(jax.numpy.zeros_like, p),
+        # numpy zeros: no compile a leaf when the optimizer is set up
+        lambda p: jax.tree_util.tree_map(
+            lambda x: np.zeros(x.shape, x.dtype), p),
         lambda u, s, p=None: (u, u))
 
 

@@ -22,6 +22,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -32,7 +33,8 @@ from celebbasis_tpu_torch.train import classifier as tclf
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import (assert_adamw_close,  # noqa: F401
-                                 assert_trained_grads_close, np_tree,
+                                 assert_trained_grads_close,
+                                 compiled_optimizer, np_tree,
                                  one_blas_thread, random_params)
 
 KEY = jax.random.key(0)
@@ -79,7 +81,7 @@ def test_encoder_unet_pools_match_jax():
         _close(got.numpy(), ref)
 
 
-def test_classifier_step_matches_jax():
+def test_classifier_step_matches_jax(monkeypatch):
     jcfg, tcfg = _trunk_cfgs()
     kw = dict(num_classes=CLASSES, image_size=SIDE, pool="attention",
               timesteps=100)
@@ -108,6 +110,11 @@ def test_classifier_step_matches_jax():
                                noise_override=torch.from_numpy(noise))
     grads = {n: p.grad for n, p in tc.model.named_parameters()}
 
+    # the JAX trainer's optimizer, compiled
+    make = jc.make_optimizer
+    monkeypatch.setattr(jc, "make_optimizer",
+                        lambda *a, **k: compiled_optimizer(make(*a, **k)))
+    monkeypatch.setattr(optax, "apply_updates", jax.jit(optax.apply_updates))
     jstate = jc.init_state(params, lr=lr)
     args = (jnp.asarray(z), jnp.asarray(labels), jax.random.key(1),
             jnp.asarray(t), jnp.asarray(noise))

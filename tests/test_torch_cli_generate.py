@@ -217,9 +217,12 @@ def test_clis_refuse_what_is_not_ported_and_need_a_device(pictures,
     base = ["--config", CFG, "--device", "cpu", "--outdir", str(tmp_path)]
     with pytest.raises(FileNotFoundError):  # ported: the reader opens it
         txt2img.main(base + ["--ti_embedding", str(tmp_path / "ti.pt")])
-    for flag in ("--mesh", "--tp"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            txt2img.main(base + [flag, "2"])
+    # a mesh needs its processes (tests/test_torch_mesh.py starts them)
+    for flags, match in ((["--mesh", "2"], "torchrun"),
+                         (["--tp", "3"], "torchrun"),
+                         (["--mesh", "3", "--n_samples", "4"], "divide")):
+        with pytest.raises(ValueError, match=match):
+            txt2img.main(base + flags)
     for args in (["--ckpt", str(tmp_path / "sd.ckpt")],
                  ["--fr_ckpt", str(tmp_path / "backbone.pth")]):
         with pytest.raises(FileNotFoundError):  # the readers open the file

@@ -126,8 +126,12 @@ def test_cached_contra_run_and_resume(data_root, tmp_path):
 def test_train_cli_refuses_what_is_not_ported_and_needs_a_device(data_root,
                                                                  tmp_path):
     base = _common(data_root, tmp_path)
-    for flags in (["--mesh", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="A10"):
+    # a mesh of two needs two processes (tests/test_torch_mesh.py starts
+    # them); --fsdp shards over a mesh
+    for flags, match in ((["--mesh", "2"], "torchrun"),
+                         (["--mesh", "1", "2", "3"], "data and a model"),
+                         (["--fsdp"], "--mesh")):
+        with pytest.raises(ValueError, match=match):
             train.main(base + flags)
     if torch.cuda.is_available():
         return

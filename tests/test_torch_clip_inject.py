@@ -22,13 +22,16 @@ from celebbasis_tpu_torch.core import manager as tmgr
 from celebbasis_tpu_torch.models import clip_text as tclip
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import (manifest_shapes, module_shapes, np_tree,
-                                 randomize_zero_leaves, t)
+from _torch_port_helpers import (compiled, manifest_shapes, module_shapes,
+                                 np_tree, randomize_zero_leaves, t)
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L, D, REPS = 77, 16, 2
 PH = [900, 901, 902]
+# the JAX oracles, compiled (one compile a shape instead of one an op)
+j_inject_batch = compiled(jinj.inject_batch)
+j_test_inject = compiled(jmgr.test_inject)
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +39,8 @@ def clip_pair():
     cfg = jclip.CLIPTextConfig.tiny()
     jm = jclip.CLIPTextEncoder(cfg, jnp.float32)
     ids = jnp.zeros((1, cfg.max_length), jnp.int32)
-    params = randomize_zero_leaves(jm.init(jax.random.key(0), ids), seed=1)
+    params = randomize_zero_leaves(jax.jit(jm.init)(jax.random.key(0), ids),
+                                   seed=1)
     tm = tclip.CLIPTextEncoder(tclip.CLIPTextConfig.tiny(), torch.float32)
     bridge.load_jax_params(tm, np_tree(params))
     return jm, params, tm.eval()
@@ -44,21 +48,22 @@ def clip_pair():
 
 def test_clip_token_embed_and_encode(clip_pair):
     jm, params, tm = clip_pair
+    apply = compiled(jm.apply)
     r = np.random.default_rng(0)
     ids = r.integers(0, 1024, (3, 77)).astype(np.int32)
-    je = jm.apply(params, jnp.asarray(ids),
-                  method=jclip.CLIPTextEncoder.token_embed)
+    je = apply(params, jnp.asarray(ids),
+               method=jclip.CLIPTextEncoder.token_embed)
     te = tm.token_embed(t(ids).long())
     np.testing.assert_array_equal(te.detach().numpy(), np.asarray(je))
     emb = r.standard_normal((3, 77, 64)).astype(np.float32)
-    ref = np.asarray(jm.apply(params, jnp.asarray(emb),
-                              method=jclip.CLIPTextEncoder.encode))
+    ref = np.asarray(apply(params, jnp.asarray(emb),
+                           method=jclip.CLIPTextEncoder.encode))
     with torch.no_grad():
         got = tm.encode(t(emb)).numpy()
         full = tm(t(ids).long()).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5)
     np.testing.assert_allclose(
-        full, np.asarray(jm.apply(params, jnp.asarray(ids))), atol=1e-5)
+        full, np.asarray(apply(params, jnp.asarray(ids))), atol=1e-5)
 
 
 def test_clip_sd_v1_shapes_match_manifest():
@@ -97,7 +102,7 @@ def test_inject_matches_jax_and_numpy_oracle(name):
     np.testing.assert_array_equal(
         oracle, jinj.inject_reference_numpy(tok, emb, idv, PH, num_active,
                                             REPS))
-    ref = np.asarray(jinj.inject_batch(
+    ref = np.asarray(j_inject_batch(
         jnp.asarray(tok[None], jnp.int32), jnp.asarray(emb[None]),
         jnp.asarray(idv[None]), jnp.asarray(PH, jnp.int32),
         jnp.asarray([num_active], jnp.int32), REPS))[0]
@@ -170,7 +175,7 @@ def test_test_inject_modes(mode):
     pred_z = r.standard_normal((2, 3, 2, D)).astype(np.float32)
     jstate = jmgr.ManagerState(jnp.asarray(emb_state), jnp.asarray(coeff))
     tstate = bridge.manager_state_from_jax(jstate)
-    ref = np.asarray(jmgr.test_inject(
+    ref = np.asarray(j_test_inject(
         jcfg, jstate, jnp.asarray(basis), jnp.asarray(toks, jnp.int32),
         jnp.asarray(embeds), jnp.asarray(ids), jnp.asarray(num_ids),
         pred_z=jnp.asarray(pred_z) if mode == "image" else None))

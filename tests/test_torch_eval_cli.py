@@ -11,8 +11,9 @@
   that folder gives the JAX scores to 1e-4 (absolute, the scores are
   cosines and distances of unit vectors) with one set of tiny weights;
 * the legacy family's training (``LegacyLDM.make_train_step``) is ported
-  (its parity: ``test_torch_legacy_train``) and returns a step; what is not
-  ported yet, the loader's per-host shard, raises naming ROADMAP A10;
+  (its parity: ``test_torch_legacy_train``) and returns a step; the
+  loader's per-host shard needs a mesh or a process group
+  (``test_torch_mesh`` runs it), and raises without;
   ``cli/evaluate_model.py`` is ported and asks for its ``--data-dir`` (``test_torch_legacy_eval_cli``; the alignment cropper:
   ``test_torch_align_cli``); the plain-Python copies (templates, grid,
   survey) equal JAX's.
@@ -172,7 +173,7 @@ def test_score_calculator_matches_jax(folder):
 def test_what_is_not_ported_raises(folder):
     # the legacy family is ported, training (tests/test_torch_legacy_train)
     # and sampling (tests/test_torch_legacy_*); the loader's per-host shard
-    # is not (ROADMAP A10)
+    # is too, and needs a mesh or a process group (tests/test_torch_mesh)
     import yaml
 
     from celebbasis_tpu_torch import legacy
@@ -180,7 +181,7 @@ def test_what_is_not_ported_raises(folder):
     with open(os.path.join(REPO, "configs", "tiny_legacy.yaml")) as f:
         ldm = legacy.build_legacy_ldm(yaml.safe_load(f), torch.float32)
     assert callable(ldm.make_train_step(None))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="process group"):
         PrefetchLoader.for_host(None, None, 2)
     with pytest.raises(SystemExit):          # it needs --data-dir
         evaluate_model.main([])

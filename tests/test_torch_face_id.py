@@ -152,7 +152,22 @@ def test_worker_errors_reach_the_caller_and_for_host_raises(pickles):
                                   shuffle=False)
     with pytest.raises(FileNotFoundError):
         list(loader)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # for_host shards by process: without a mesh or a process group it
+    # raises (tests/test_torch_mesh.py runs it over two processes); a shard
+    # given by hand is the JAX loader's strided slice of one global order
+    with pytest.raises(ValueError, match="process group"):
         tface.PrefetchLoader.for_host(ds, CLIPTokenizer.synthetic(1024), 2)
+    with pytest.raises(ValueError, match="shard 2 of 2"):
+        tface.PrefetchLoader(ds, CLIPTokenizer.synthetic(1024), 2,
+                             shard_id=2, num_shards=2)
+    tcfg, jcfg = _configs(pickles["flat"], "flat")
+    ours = tface.PrefetchLoader(tface.FaceIdDataset(tcfg),
+                                CLIPTokenizer.synthetic(1024), 2, seed=5,
+                                shard_id=1, num_shards=2)
+    ref = jface.PrefetchLoader(jface.FaceIdDataset(jcfg),
+                               JTokenizer.synthetic(1024), 2, seed=5,
+                               shard_id=1, num_shards=2)
+    for a, b in zip(ours, ref, strict=True):
+        _assert_batches_equal(a, b)
     with pytest.raises(ValueError, match="not enough identities"):
         tface.FaceIdDataset(dataclasses.replace(tcfg, num_ids=9))

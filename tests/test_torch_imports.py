@@ -53,6 +53,7 @@ print("LEGACY_TRAIN", sorted(n for n in names if n.endswith(
     (".train_legacy", ".train_ae", ".ae_loss", ".ae_trainer", ".classifier",
      ".lr_schedule", ".lpips", ".degradation", ".image_ops", ".registry",
      ".misc", "data.legacy"))))
+print("MESH", sorted(n for n in names if ".parallel" in n))
 print("KERNEL_MODULES", sorted(n for n in names if n.endswith(
     (".flash_attention", ".geglu", ".quant"))))
 print("BAD", bad)
@@ -107,6 +108,9 @@ def test_imports_pull_in_no_jax_and_build_nothing():
             "align.preprocess", "cli.align", "cli.preprocess_pipnet",
             "cli.train_pipnet", "cli.train_pipnet_gssl",
             "utils.bridge_align")))
+    # and the mesh, the last module of the JAX package to port
+    assert lines["MESH"] == str(sorted(
+        f"celebbasis_tpu_torch.{m}" for m in ("parallel", "parallel.mesh")))
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -31,7 +31,7 @@ from celebbasis_tpu_torch.ops.basic import to_nchw, to_nhwc
 from celebbasis_tpu_torch.text import bert_tokenizer as ttok
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import np_tree, random_params, t
+from _torch_port_helpers import compiled, np_tree, random_params, t
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 KEY = jax.random.key(0)
@@ -85,9 +85,10 @@ def test_bert_tokenizer_text_encoder_and_class_embedder(tmp_path):
     vec = _x((cfg.dim,), 2)
     j_inject = lambda i, e: jnp.where((i == 7)[..., None], vec, e)
     t_inject = lambda i, e: torch.where((i == 7)[..., None], t(vec), e)
+    apply = compiled(jm.apply)
     with torch.no_grad():
         for jx, tx in ((None, None), (j_inject, t_inject)):
-            ref = jm.apply(params, jnp.asarray(ids, jnp.int32), jx)
+            ref = apply(params, jnp.asarray(ids, jnp.int32), jx)
             _close(tm(t(ids).long(), tx), ref)
         plain = tm(t(ids).long())
         injected = tm(t(ids).long(), t_inject)
@@ -191,8 +192,8 @@ def test_vq_encode_quantize_decode():
         h = tm.encode(t(x))
     _close(h, h_ref)
     # the quantizer on the same latents (the JAX encoder's)
-    zq_ref, loss_ref, idx_ref = jm.apply(
-        params, jnp.asarray(h_ref), method=lambda m, z: m.quantize(z))
+    zq_ref, loss_ref, idx_ref = jax.jit(lambda p, z: jm.apply(
+        p, z, method=lambda m, v: m.quantize(v)))(params, jnp.asarray(h_ref))
     with torch.no_grad():
         zq, loss, idx = tm.quantize(t(h_ref))
         d = tm.quantize.distances(t(h_ref))
@@ -224,6 +225,6 @@ def test_spatial_rescaler():
             params, tm = _pair(jm, tm, jnp.zeros((1, 16, 16, 5)), seed=15)
         else:
             params = {}
-        ref = jm.apply(params, jnp.asarray(seg))
+        ref = jax.jit(jm.apply)(params, jnp.asarray(seg))
         with torch.no_grad():
             _close(tm(t(seg)), ref)

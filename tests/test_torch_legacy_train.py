@@ -141,14 +141,14 @@ def test_legacy_trainer_bert_trainable_three_steps_with_ema(monkeypatch):
     monkeypatch.setattr(jtrain, "optax", oshim)
     step, init_opt, cond_trainable = jtrain.make_legacy_trainer(jl, cfg, B)
     assert cond_trainable
-    opt = init_opt(params)
+    opt = jax.jit(init_opt)(params)
     jema = ema_init(params["unet"])
     with torch.no_grad():
         z = jnp.asarray(tl.encode_first_stage(x).numpy())
     jids = jnp.asarray(ids.numpy().astype(np.int32))
     for k in range(3):
         params, opt, loss = step(params, opt, z, jids, jax.random.key(k))
-        jema = ema_update(jema, params["unet"])
+        jema = jax.jit(ema_update)(jema, params["unet"])
         assert abs(losses[k] - float(loss)) <= 1e-5 * abs(float(loss)), k
         if k == 0:
             jgrads = bridge.from_jax_params(np_tree(opt[0]))

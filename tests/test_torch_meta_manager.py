@@ -22,7 +22,7 @@ from celebbasis_tpu_torch.core import manager as tmgr
 from celebbasis_tpu_torch.core import meta_net as tmeta
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import (np_tree, random_params,
+from _torch_port_helpers import (compiled, np_tree, random_params,
                                  randomize_all_leaves, t)
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
@@ -124,8 +124,8 @@ def test_deep_style_vectorizer_matches_jax():
     """depth > 1: residual pre-LayerNorm EqualLinears, lr_mul at use time."""
     x = np.random.default_rng(9).standard_normal((5, 24)).astype(np.float32)
     jmlp = jmeta.StyleVectorizer(32, depth=3, lr_mul=0.5)
-    params = randomize_all_leaves(jmlp.init(jax.random.key(1),
-                                            jnp.asarray(x)), seed=3)
+    params = randomize_all_leaves(jax.jit(jmlp.init)(jax.random.key(1),
+                                                     jnp.asarray(x)), seed=3)
     tmlp = tmeta.StyleVectorizer(24, 32, depth=3, lr_mul=0.5)
     bridge.load_jax_params(tmlp, np_tree(params))      # strict
     # EqualLinear's weight is (out, in) on both sides: carried untransposed
@@ -133,7 +133,8 @@ def test_deep_style_vectorizer_matches_jax():
         tmlp.layer_0.weight.detach().numpy(),
         np.asarray(params["params"]["layer_0"]["weight"]))
     np.testing.assert_allclose(tmlp(t(x)).detach().numpy(),
-                               np.asarray(jmlp.apply(params, jnp.asarray(x))),
+                               np.asarray(jax.jit(jmlp.apply)(
+                                   params, jnp.asarray(x))),
                                atol=1e-5)
 
 
@@ -148,8 +149,8 @@ def test_coef_table_variant_matches_jax():
     faces = r.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
     basis = r.standard_normal((2, 17, 32)).astype(np.float32)
     ids = np.array([3, 1])
-    params = jnet.init(jax.random.key(2), jnp.asarray(faces),
-                       jnp.asarray(ids), jnp.asarray(basis))
+    params = jax.jit(jnet.init)(jax.random.key(2), jnp.asarray(faces),
+                                jnp.asarray(ids), jnp.asarray(basis))
     assert set(params["params"]) == {"coef_table"}
     tnet = tmeta.MetaIdNet(dataclasses.replace(tmeta.MetaNetConfig.tiny(),
                                                **over), dtype=torch.float32)
@@ -157,8 +158,8 @@ def test_coef_table_variant_matches_jax():
                                strict=False)
     assert res.unexpected_keys == []
     assert all(k.startswith(("fr_net.", "mlp.")) for k in res.missing_keys)
-    jz, jc = jnet.apply(params, jnp.asarray(faces), jnp.asarray(ids),
-                        jnp.asarray(basis))
+    jz, jc = jax.jit(jnet.apply)(params, jnp.asarray(faces),
+                                 jnp.asarray(ids), jnp.asarray(basis))
     tz, tc = tnet(t(faces), L(ids), t(basis))
     np.testing.assert_allclose(tc.detach().numpy(), np.asarray(jc), atol=1e-6)
     np.testing.assert_allclose(tz.detach().numpy(), np.asarray(jz), atol=1e-4)
@@ -221,7 +222,7 @@ def test_train_inject_matches_jax():
     embeds = r.standard_normal((B, Lq, 16)).astype(np.float32)
     ids = np.array([[2, 2, 0], [1, 0, 0]])     # id 2 twice in row 0
     num_ids = np.array([2, 1])
-    jout, jnew = jmgr.train_inject(
+    jout, jnew = compiled(jmgr.train_inject)(
         jcfg, jstate, jnp.asarray(tokens, jnp.int32), jnp.asarray(embeds),
         jnp.asarray(z), jnp.asarray(c), jnp.asarray(ids, jnp.int32),
         jnp.asarray(num_ids, jnp.int32))
@@ -246,11 +247,11 @@ def test_id_neg_loss_matches_jax(loss_type):
     if loss_type == "contra":
         gnet = jlosses.ContrastiveGNet(meta_dim=16)
         gparams = randomize_all_leaves(
-            gnet.init(jax.random.key(0), jnp.zeros((1, 32))), seed=6)
+            jax.jit(gnet.init)(jax.random.key(0), jnp.zeros((1, 32))), seed=6)
         tgnet = tlosses.ContrastiveGNet(32, meta_dim=16)
         bridge.load_jax_params(tgnet, np_tree(gparams))
-    jl, jlogs = jmgr.id_neg_loss(loss_type, jnp.asarray(z), jnp.asarray(c),
-                                 gnet, gparams)
+    jl, jlogs = compiled(jmgr.id_neg_loss)(loss_type, jnp.asarray(z),
+                                           jnp.asarray(c), gnet, gparams)
     tl, tlogs = tmgr.id_neg_loss(loss_type, t(z), t(c), tgnet)
     np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl),
                                rtol=1e-5, atol=1e-9)
@@ -277,7 +278,8 @@ def test_loss_helpers_match_jax_and_reject_unknown_types():
         np.float32)
     np.testing.assert_allclose(
         tlosses.info_nce_loss(t(feats)).numpy(),
-        np.asarray(jlosses.info_nce_loss(jnp.asarray(feats))), rtol=1e-5)
+        np.asarray(jax.jit(jlosses.info_nce_loss)(jnp.asarray(feats))),
+        rtol=1e-5)
     with pytest.raises(ValueError):
         tmgr.id_neg_loss("l3_reg", t(z), t(c))
     with pytest.raises(ValueError):

@@ -19,7 +19,7 @@ from celebbasis_tpu_torch.ops import geglu as tgeglu
 from celebbasis_tpu_torch.ops.resize import (upsample2x_nearest,
                                              upsample2x_nearest_nchw)
 
-from _torch_port_helpers import t
+from _torch_port_helpers import compiled, t
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 
@@ -30,7 +30,8 @@ def rng(seed=0):
 @pytest.mark.parametrize("dim", [32, 33, 320])
 def test_timestep_embedding(dim):
     ts = np.array([0, 1, 500.5, 981], np.float32)
-    ref = np.asarray(jbasic.timestep_embedding(jnp.asarray(ts), dim))
+    ref = np.asarray(compiled(jbasic.timestep_embedding)(jnp.asarray(ts),
+                                                          dim))
     got = tbasic.timestep_embedding(t(ts), dim).numpy()
     # 1e-4: one fp32 ulp of an argument near 1e3 is 6e-5, and the two
     # libraries' exp() give frequencies that differ by an ulp
@@ -51,7 +52,8 @@ def test_group_norm_eps_and_layout():
     scale = r.standard_normal(64).astype(np.float32)
     bias = r.standard_normal(64).astype(np.float32)
     params = {"params": {"GroupNorm_0": {"scale": scale, "bias": bias}}}
-    ref = np.asarray(jbasic.GroupNorm().apply(params, jnp.asarray(x)))
+    ref = np.asarray(compiled(jbasic.GroupNorm().apply)(params,
+                                                         jnp.asarray(x)))
     gn = tbasic.GroupNorm(64)
     gn.load_state_dict({"weight": t(scale), "bias": t(bias)})
     got = tbasic.to_nhwc(gn(tbasic.to_nchw(t(x)))).detach().numpy()
@@ -74,7 +76,8 @@ def test_layer_norm():
     scale = r.standard_normal(48).astype(np.float32)
     bias = r.standard_normal(48).astype(np.float32)
     params = {"params": {"LayerNorm_0": {"scale": scale, "bias": bias}}}
-    ref = np.asarray(jbasic.LayerNorm().apply(params, jnp.asarray(x)))
+    ref = np.asarray(compiled(jbasic.LayerNorm().apply)(params,
+                                                         jnp.asarray(x)))
     ln = tbasic.LayerNorm(48)
     ln.load_state_dict({"weight": t(scale), "bias": t(bias)})
     np.testing.assert_allclose(ln(t(x)).detach().numpy(), ref, atol=1e-5)
@@ -99,7 +102,8 @@ def test_norms_bf16_input_fp32_affine_round_once(norm):
         jmod, mod = jbasic.LayerNorm(), tbasic.LayerNorm(64)
         run = mod
     name = type(jmod).__name__ + "_0"
-    ref = jmod.apply({"params": {name: {"scale": scale, "bias": bias}}}, xb)
+    ref = compiled(jmod.apply)(
+        {"params": {name: {"scale": scale, "bias": bias}}}, xb)
     mod.load_state_dict({"weight": t(scale), "bias": t(bias)})
     xt = t(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
     with torch.no_grad():
@@ -145,8 +149,8 @@ def _geglu_inputs(C=16):
 def test_geglu_block_tanh_gelu_fast_variance_ln():
     a = _geglu_inputs()
     order = ("x", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2")
-    ref = np.asarray(jgeglu.geglu_block(*(jnp.asarray(a[k]) for k in order),
-                                        impl="xla"))
+    ref = np.asarray(compiled(jgeglu.geglu_block)(
+        *(jnp.asarray(a[k]) for k in order), impl="xla"))
     got = tgeglu.geglu_block(*(t(a[k]) for k in order), impl="xla").numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5)
     # the exact (erf) GELU is a different function: the port must not use it
@@ -162,8 +166,8 @@ def test_geglu_block_tanh_gelu_fast_variance_ln():
 def test_geglu_ffn_and_impl_guard():
     a = _geglu_inputs()
     order = ("x", "w1", "b1", "w2", "b2")
-    ref = np.asarray(jgeglu.geglu_ffn(*(jnp.asarray(a[k]) for k in order),
-                                      impl="xla"))
+    ref = np.asarray(compiled(jgeglu.geglu_ffn)(
+        *(jnp.asarray(a[k]) for k in order), impl="xla"))
     got = tgeglu.geglu_ffn(*(t(a[k]) for k in order)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5)
     # the JAX package's route names do not carry over: the kernel route is
@@ -191,9 +195,9 @@ def test_attention_plain_route(shape, masked):
     v = r.standard_normal((B, M, H * D)).astype(np.float32)
     jm = jattn.causal_mask(N) if masked else None
     tm = tattn.causal_mask(N) if masked else None
-    ref = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(k),
-                                     jnp.asarray(v), num_heads=H, mask=jm,
-                                     impl="xla"))
+    ref = np.asarray(compiled(jattn.attention)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=H, mask=jm,
+        impl="xla"))
     got = tattn.attention(t(q), t(k), t(v), num_heads=H, mask=tm,
                           impl="xla").numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5)

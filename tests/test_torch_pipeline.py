@@ -22,7 +22,7 @@ from celebbasis_tpu_torch.core.basis import build_celeb_basis, reconstruct
 from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import np_tree, random_params, t
+from _torch_port_helpers import compiled, np_tree, random_params, t
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 NAMES = ["Anne Hathaway", "Barack Obama", "Elon Musk", "Robert Downey",
@@ -85,7 +85,7 @@ def test_basis_construction_matches_jax(both):
 def test_conditioning_with_injection_matches_jax(both):
     k = len(both["tp"].manager_cfg.placeholder_token_ids)
     tokens, _, ids, num_ids, _ = _requests(both["ttok"], k)
-    ref = np.asarray(both["jp"].conditioning(
+    ref = np.asarray(compiled(both["jp"].conditioning)(
         both["params"], jnp.asarray(tokens), both["jstate"], both["jbasis"],
         jnp.asarray(ids), jnp.asarray(num_ids)))
     with torch.no_grad():

@@ -127,7 +127,7 @@ def test_one_gssl_step_matches_jax(params):
     opt = optax.chain(stash_grads(), jpt.make_optimizer(jcfg, 3))
     jnew, jstate, jtotal, _ = jpg.make_gssl_train_step(
         jpg.PIPNetGSSL(JCFG), opt, nb_idx, jcfg)(
-        jax.tree_util.tree_map(jnp.array, params), opt.init(params),
+        jax.device_put(params), jax.jit(opt.init)(params),
         jnp.asarray(x), jnp.asarray(lms), jnp.asarray(MIXED))
 
     lr = tcfg.init_lr

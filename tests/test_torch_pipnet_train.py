@@ -35,7 +35,8 @@ from celebbasis_tpu_torch.align import pipnet_train as tpt
 from celebbasis_tpu_torch.utils import bridge, bridge_align
 
 from _torch_port_helpers import (assert_adam_step_close, assert_grads_close,
-                                 np_tree, random_params, stash_grads)
+                                 compiled_optimizer, np_tree, random_params,
+                                 stash_grads)
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 JCFG = jpip.PIPNetConfig.tiny()
@@ -148,7 +149,7 @@ def one_step():
 
     opt = optax.chain(stash_grads(), jpt.make_optimizer(cfg, 5))
     new, state, total, parts = jpt.make_train_step(model, opt, nb_idx, cfg)(
-        jax.tree_util.tree_map(jnp.array, params), opt.init(params),
+        jax.device_put(params), jax.jit(opt.init)(params),
         jnp.asarray(images), jnp.asarray(lms))
     return dict(params=params, images=images, lms=lms, nb_idx=nb_idx,
                 meanface=meanface, total=float(total),
@@ -189,7 +190,7 @@ def test_schedule_and_weight_decay_equal_optax():
         rng = np.random.default_rng(int(pretrained))
         p0 = rng.standard_normal(64).astype(np.float32)
         grads = rng.standard_normal((16, 64)).astype(np.float32)
-        jopt = jpt.make_optimizer(jcfg, spe)
+        jopt = compiled_optimizer(jpt.make_optimizer(jcfg, spe))
         jp, jstate = jnp.asarray(p0), jopt.init(jnp.asarray(p0))
         tp = torch.tensor(p0, requires_grad=True)
         opt, lr_sched = tpt.make_optimizer(tcfg, spe, [tp])

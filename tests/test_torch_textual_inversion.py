@@ -33,7 +33,8 @@ from celebbasis_tpu_torch.pipeline import finish_images
 from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import np_tree, random_params, t, tiny_pipelines
+from _torch_port_helpers import (compiled, np_tree, random_params, t,
+                                 tiny_pipelines)
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 NAMES = ["Anne Hathaway", "Barack Obama", "Elon Musk", "Robert Downey",
@@ -146,8 +147,9 @@ def test_margin_heads_and_ema_match_jax():
                                jnp.asarray(x), jnp.asarray(labels), seed=4)
         head = tlosses.MarginHead(8, 16, kind=kind, s=16.0, **kw)
         bridge.load_jax_params(head, np_tree(params))
+        apply = compiled(jhead.apply)
         for lab in (labels, None):
-            ref = np.asarray(jhead.apply(
+            ref = np.asarray(apply(
                 params, jnp.asarray(x),
                 None if lab is None else jnp.asarray(lab)))
             got = head(t(x), None if lab is None else t(lab).long())

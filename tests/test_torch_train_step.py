@@ -32,7 +32,7 @@ from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 from celebbasis_tpu_torch.train import step as tstep
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import np_tree, random_params, t
+from _torch_port_helpers import compiled_optimizer, np_tree, random_params, t
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 NAMES = ["Anne Hathaway", "Barack Obama", "Elon Musk", "Robert Downey",
@@ -276,7 +276,9 @@ def test_optimizer_matches_optax(accumulate):
     r = np.random.default_rng(0)
     w = {"meta": r.standard_normal((4, 3)).astype(np.float32),
          "unet": r.standard_normal((5,)).astype(np.float32)}
-    jopt = jstep.make_optimizer(LR, model_lr=3e-3, accumulate=accumulate)
+    jopt = compiled_optimizer(jstep.make_optimizer(LR, model_lr=3e-3,
+                                                   accumulate=accumulate))
+    apply_updates = jax.jit(optax.apply_updates)
     jparams = {k: jnp.asarray(v) for k, v in w.items()}
     jos = jopt.init(jparams)
     tparams = {k: [torch.nn.Parameter(t(v))] for k, v in w.items()}
@@ -287,7 +289,7 @@ def test_optimizer_matches_optax(accumulate):
              for k, v in w.items()}
         upd, jos = jopt.update({k: jnp.asarray(v) for k, v in g.items()},
                                jos, jparams)
-        jparams = optax.apply_updates(jparams, upd)
+        jparams = apply_updates(jparams, upd)
         topt.zero_grad()
         for k in w:
             tparams[k][0].grad = t(g[k])

@@ -143,8 +143,10 @@ def test_cached_fit_and_accumulation(tmp_path, asm):
 
 
 def test_options_that_are_not_ported_raise(tmp_path, asm):
-    for bad in (dict(fsdp=True), dict(n_data_shards=2)):
-        with pytest.raises(NotImplementedError, match="A10"):
+    # the mesh options need their mesh (tests/test_torch_mesh.py runs them)
+    for bad, match in ((dict(fsdp=True), "mesh"),
+                       (dict(n_data_shards=2), "data axis has 1")):
+        with pytest.raises(ValueError, match=match):
             ttrainer.Trainer(asm.pipeline, asm.meta_net, asm.basis, [],
                              ttrainer.TrainerConfig(logdir=str(tmp_path),
                                                     **bad))

@@ -18,7 +18,7 @@ from celebbasis_tpu_torch.models import iresnet as tres
 from celebbasis_tpu_torch.ops import warp as twarp
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import np_tree, random_params, t
+from _torch_port_helpers import compiled, np_tree, random_params, t
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 
@@ -27,7 +27,7 @@ def test_grid_sample_matches_jax(align_corners):
     rng = np.random.default_rng(0)
     img = rng.standard_normal((9, 11, 3)).astype(np.float32)
     grid = rng.uniform(-1.3, 1.3, (5, 7, 2)).astype(np.float32)  # some outside
-    ref = np.asarray(jwarp.grid_sample_bilinear(
+    ref = np.asarray(compiled(jwarp.grid_sample_bilinear)(
         jnp.asarray(img), jnp.asarray(grid), align_corners))
     got = twarp.grid_sample_bilinear(t(img), t(grid), align_corners)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
