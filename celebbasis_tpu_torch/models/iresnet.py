@@ -63,11 +63,17 @@ class FrozenBN(nn.Module):
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """``shard`` (a ``parallel.mesh.ModelShard``): x holds this rank's
+        block of the channels, normalised with its slice of the
+        statistics and the affine."""
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        inv = torch.rsqrt(self.var.float() + self.epsilon) * self.weight.float()
-        return ((x.float() - self.mean.float().view(shape)) * inv.view(shape)
-                + self.bias.float().view(shape))
+        mean, var, w, b = self.mean, self.var, self.weight, self.bias
+        if shard is not None:
+            mean, var, w, b = (shard.block(t, 0) for t in (mean, var, w, b))
+        inv = torch.rsqrt(var.float() + self.epsilon) * w.float()
+        return ((x.float() - mean.float().view(shape)) * inv.view(shape)
+                + b.float().view(shape))
 
 
 class PReLU(nn.Module):
@@ -77,12 +83,23 @@ class PReLU(nn.Module):
         super().__init__()
         self.alpha = nn.Parameter(torch.full((dim,), 0.25))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        alpha = self.alpha.to(x.dtype).view((1, -1) + (1,) * (x.ndim - 2))
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        alpha = self.alpha if shard is None else shard.block(self.alpha, 0)
+        alpha = alpha.to(x.dtype).view((1, -1) + (1,) * (x.ndim - 2))
         return torch.where(x >= 0, x, alpha * x)
 
 
 class IBasicBlock(nn.Module):
+    """BN -> conv1 -> BN -> PReLU -> conv2 -> BN, plus the shortcut.  Under
+    ``conv_tp`` (``parallel.mesh.shard_params``; ``tp`` is this rank's
+    ``ModelShard``) conv1 holds a block of the output channels and conv2
+    the matching input channels: bn2 and the PReLU take this rank's slice of
+    their channels, and conv2 sums its partial product over the model group
+    (``ops.basic.Conv``) before bn3."""
+
+    runs_conv_tp = True
+    tp = None
+
     def __init__(self, in_planes: int, planes: int, stride: int,
                  dtype: torch.dtype):
         super().__init__()
@@ -101,7 +118,7 @@ class IBasicBlock(nn.Module):
 
     def forward(self, x):
         h = self.conv1(self.bn1(x).to(self.dtype))
-        h = self.prelu(self.bn2(h)).to(self.dtype)
+        h = self.prelu(self.bn2(h, self.tp), self.tp).to(self.dtype)
         h = self.bn3(self.conv2(h))
         sc = self.down_bn(self.down_conv(x)) if hasattr(self, "down_conv") \
             else x

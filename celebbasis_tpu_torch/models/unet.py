@@ -65,7 +65,7 @@ from celebbasis_tpu_torch.ops.geglu import (geglu_block, geglu_ffn,
                                             geglu_xla, ln_xla)
 from celebbasis_tpu_torch.ops.geglu import resolved_impl as geglu_impl
 from celebbasis_tpu_torch.ops.resize import upsample2x_nearest_nchw
-from celebbasis_tpu_torch.parallel.mesh import all_reduce_sum
+from celebbasis_tpu_torch.parallel.mesh import all_reduce_sum, copy_to_model
 
 
 @dataclass(frozen=True)
@@ -108,15 +108,28 @@ class UNetConfig:
                           attention_resolutions=(1, 2))
 
 
-def dropout(h: torch.Tensor, p: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+def dropout(h: torch.Tensor, p: float, generator: torch.Generator | None,
+            shard=None) -> torch.Tensor:
     """Inverted dropout: zero each entry with probability ``p`` (a mask drawn
-    from ``generator`` on h's device) and scale the rest by 1 / (1 - p)."""
+    from ``generator`` on h's device) and scale the rest by 1 / (1 - p).
+    With a channel ``shard`` (h holds this rank's channels) the mask is
+    drawn for every channel and this rank keeps its block of it."""
     if generator is None:
         raise ValueError("dropout in training mode needs the generator "
                          "handed to set_dropout_generator")
-    keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
+    shape = list(h.shape)
+    if shard is not None:
+        shape[1] *= shard.size
+    keep = torch.rand(shape, generator=generator, device=h.device) >= p
+    if shard is not None:
+        keep = shard.block(keep, 1)
     return h * keep.to(h.dtype) * (1.0 / (1.0 - p))
+
+
+# scale and shift are the two halves of emb_proj's output: under conv TP a
+# rank takes its block of each (a contiguous block of the whole would give
+# one rank the scales of every channel)
+SCALE_SHIFT_CHUNKS = 2
 
 
 class ResBlock(nn.Module):
@@ -124,7 +137,18 @@ class ResBlock(nn.Module):
     residual.  ``scale_shift`` is the FiLM conditioning ``norm2(h) * (1 +
     scale) + shift``; ``up`` / ``down`` put a parameter-free nearest 2x
     upsample or 2x2 average pool into both branches (resblock_updown).
-    x: (B, C, H, W) view; emb: (B, E)."""
+    x: (B, C, H, W) view; emb: (B, E).
+
+    Under ``conv_tp`` (``parallel.mesh.shard_params``; ``tp`` is this rank's
+    ``ModelShard``) conv1 holds a block of the output channels and skip a
+    block of the input channels: h, the time embedding's slice, norm2 and
+    dropout are this rank's channels, conv2 (replicated) takes its slice of
+    input channels, and its partial product and skip's are summed over the
+    model group in one all-reduce, before the biases and the residual are
+    added once."""
+
+    runs_conv_tp = True
+    tp = None
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int,
                  dtype: torch.dtype, scale_shift: bool = False,
@@ -142,25 +166,47 @@ class ResBlock(nn.Module):
             self.skip = Conv(in_ch, out_ch, 1, dtype=dtype)
 
     def forward(self, x, emb):
+        tp = self.tp
         h = F.silu(self.norm1(x))
         if self.up:
             h, x = upsample2x_nearest_nchw(h), upsample2x_nearest_nchw(x)
         elif self.down:
             h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
         h = self.conv1(h)
+        if tp is not None:
+            emb = copy_to_model(emb, tp.group)
         emb_out = self.emb_proj(F.silu(emb))[:, :, None, None]
+        if tp is not None:
+            emb_out = tp.block(emb_out, 1, SCALE_SHIFT_CHUNKS
+                               if self.scale_shift else 1)
         if self.scale_shift:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = self.norm2(h) * (1 + scale) + shift
+            h = self.norm2(h, tp) * (1 + scale) + shift
         else:
-            h = self.norm2(h + emb_out)
+            h = self.norm2(h + emb_out, tp)
         h = F.silu(h)
         if self.p_drop and self.training and torch.is_grad_enabled():
-            h = dropout(h, self.p_drop, self.generator)
+            h = dropout(h, self.p_drop, self.generator, tp)
+        if tp is not None:
+            return self._sum_shards(h, x, tp)
         h = self.conv2(h)
         if hasattr(self, "skip"):
             x = self.skip(x)
         return x + h
+
+    def _sum_shards(self, h, x, tp):
+        """conv2 on this rank's channels h plus skip on x's block of input
+        channels, summed over the model group; the biases and the residual
+        once."""
+        y = self.conv2.product(h, tp.block(self.conv2.weight, 1))
+        if hasattr(self, "skip"):
+            x_in = tp.block(copy_to_model(x, tp.group), 1)
+            y = y + self.skip.product(x_in, self.skip.weight)
+        bias = lambda b: b.to(y.dtype)[:, None, None]
+        y = all_reduce_sum(y, tp.group) + bias(self.conv2.bias)
+        if hasattr(self, "skip"):
+            return y + bias(self.skip.bias)
+        return x + y
 
 
 class AttentionBlock(nn.Module):
@@ -217,10 +263,12 @@ class FeedForwardGEGLU(nn.Module):
 
     Under tensor parallelism (``parallel.mesh.shard_params``) ``proj_in``
     holds this rank's block of h and of the gate, ``proj_out`` the matching
-    input rows, and ``proj_out.tp_group`` is set: the partial products are
-    summed over the group, then ``proj_out``'s bias and the residual are
-    added once.  That runs on the ``"xla"`` route; the fused kernel adds the
-    residual inside, so the ``"cuda"`` route raises there."""
+    input rows, and ``proj_out.tp_group`` is set.  The block then runs
+    LayerNorm apart (``ln_xla``) and the bare GEGLU on this rank's blocks
+    without the output bias: on the ``"xla"`` route ``geglu_xla``, on the
+    ``"cuda"`` route the ``geglu_ffn`` kernel (the fused block kernel would
+    add the residual once per rank).  The partial products are summed over
+    the group, then ``proj_out``'s bias and the residual are added once."""
 
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
@@ -237,13 +285,13 @@ class FeedForwardGEGLU(nn.Module):
             if ln is None:
                 return geglu_ffn(x, w1, b1, w2, b2)
             return geglu_block(x, ln[0], ln[1], w1, b1, w2, b2)
-        if geglu_impl() != "xla":
-            raise ValueError("tensor-parallel FF blocks take the 'xla' GEGLU "
-                             "route: the fused kernel adds the residual "
-                             "inside, once per rank")
         u = x if ln is None else ln_xla(x, ln[0], ln[1])
-        y = all_reduce_sum(geglu_xla(u, w1, b1, w2, None), group)
-        y = y + b2.to(y.dtype)
+        u = copy_to_model(u, group)
+        if geglu_impl() == "xla":
+            part = geglu_xla(u, w1, b1, w2, None)
+        else:
+            part = geglu_ffn(u, w1, b1, w2, None, impl="cuda")
+        y = all_reduce_sum(part, group) + b2.to(part.dtype)
         return y if ln is None else x + y
 
 

@@ -76,6 +76,17 @@ class VAEConfig:
 
 
 class VAEResBlock(nn.Module):
+    """GN -> SiLU -> conv1, GN -> SiLU -> conv2, residual (through the 1x1
+    ``nin_shortcut`` where the width changes).  Under ``conv_tp``
+    (``parallel.mesh.shard_params``; ``tp`` is this rank's ``ModelShard``)
+    conv1 holds a block of the output channels and conv2 the matching input
+    channels: norm2 runs on this rank's channels and conv2 sums its partial
+    product over the model group (``ops.basic.Conv``); ``nin_shortcut``
+    stays replicated."""
+
+    runs_conv_tp = True
+    tp = None
+
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype):
         super().__init__()
         self.norm1 = GroupNorm(in_ch)
@@ -87,7 +98,7 @@ class VAEResBlock(nn.Module):
 
     def forward(self, x):
         h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(F.silu(self.norm2(h, self.tp)))
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h

@@ -33,7 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from celebbasis_tpu_torch.parallel.mesh import all_reduce_sum
+from celebbasis_tpu_torch.parallel.mesh import (all_reduce_shared,
+                                                all_reduce_sum, copy_to_model)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -75,7 +76,15 @@ def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 class GroupNorm(nn.Module):
     """float32 GroupNorm(32, eps=1e-6) over the channel axis of a
-    ``(B, C, ...)`` tensor (axis 1)."""
+    ``(B, C, ...)`` tensor (axis 1).
+
+    ``shard`` (a ``parallel.mesh.ModelShard``): x holds this rank's block of
+    the channels, and the affine, which stays whole, is read through this
+    rank's slice of it.  Where the shards split the groups evenly, each
+    rank normalises its whole groups alone; where groups straddle the
+    shards, the per-group sums and sums of squares are summed over the
+    model group in one all-reduce (``group_sums``,
+    ``group_norm_from_sums``)."""
 
     def __init__(self, channels: int, num_groups: int = 32,
                  epsilon: float = 1e-6):
@@ -84,13 +93,60 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _native_fp32_stats(x, self.weight, self.bias):
-            return F.group_norm(x, self.num_groups, self.weight, self.bias,
-                                self.epsilon)
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                         self.bias.float(), self.epsilon)
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        w, b, groups = self.weight, self.bias, self.num_groups
+        if shard is not None:
+            w, b = shard.block(w, 0), shard.block(b, 0)
+            if groups % shard.size:
+                n = w.shape[0]
+                channels, first = n * shard.size, n * shard.index
+                sums = all_reduce_shared(
+                    group_sums(x, groups, channels, first), shard.group)
+                return group_norm_from_sums(x, sums, groups, channels, first,
+                                            w, b, self.epsilon)
+            groups //= shard.size
+        if _native_fp32_stats(x, w, b):
+            return F.group_norm(x, groups, w, b, self.epsilon)
+        y = F.group_norm(x.float(), groups, w.float(), b.float(),
+                         self.epsilon)
         return y.to(x.dtype)
+
+
+def _group_of(first: int, n: int, channels: int, groups: int,
+              device) -> torch.Tensor:
+    """The group of each of the channels ``first .. first + n``."""
+    return torch.arange(first, first + n, device=device) // (
+        channels // groups)
+
+
+def group_sums(x: torch.Tensor, groups: int, channels: int,
+               first: int) -> torch.Tensor:
+    """The float32 sum and sum of squares, ``(B, groups, 2)``, that the
+    channels ``first .. first + x.shape[1]`` of a ``(B, channels, ...)``
+    tensor's GroupNorm contribute to each group (zero where they reach none):
+    summed over the blocks of a channel split, they are the whole tensor's."""
+    xf = x.float().flatten(2)
+    per = torch.stack([xf.sum(-1), xf.square().sum(-1)], dim=-1)
+    gid = _group_of(first, x.shape[1], channels, groups, x.device)
+    return per.new_zeros(x.shape[0], groups, 2).index_add(1, gid, per)
+
+
+def group_norm_from_sums(x: torch.Tensor, sums: torch.Tensor, groups: int,
+                         channels: int, first: int, weight: torch.Tensor,
+                         bias: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """GroupNorm of the block of channels ``first ..`` that ``x`` holds,
+    from the whole tensor's per-group ``sums`` (``group_sums``, summed over
+    the blocks): float32 statistics and affine (``weight`` / ``bias``: the
+    block's), one rounding to x's type."""
+    B, n = x.shape[:2]
+    count = channels // groups * x[0, 0].numel()
+    mean = sums[..., 0] / count
+    var = (sums[..., 1] / count - mean.square()).clamp_min(0.0)
+    gid = _group_of(first, n, channels, groups, x.device)
+    shape = (B, n) + (1,) * (x.ndim - 2)
+    scale = torch.rsqrt(var + epsilon)[:, gid] * weight.float()
+    y = (x.float() - mean[:, gid].view(shape)) * scale.view(shape)
+    return (y + bias.float().view((1, n) + (1,) * (x.ndim - 2))).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -123,9 +179,12 @@ class Dense(nn.Linear):
     Under tensor parallelism (``parallel.mesh.shard_params``) a row-parallel
     layer holds a block of the input features and ``tp_group`` is set: its
     partial product is summed over that group, then the bias is added
-    once."""
+    once.  A column-parallel layer holds a block of the output features and
+    ``tp_input_group`` is set: the gradient of its replicated input is
+    summed over that group."""
 
     tp_group = None
+    tp_input_group = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -135,6 +194,8 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
+        if self.tp_input_group is not None:
+            x = copy_to_model(x, self.tp_input_group)
         if self.tp_group is None:
             return F.linear(x.to(dt), self.weight.to(dt), b)
         y = all_reduce_sum(F.linear(x.to(dt), self.weight.to(dt)),
@@ -145,7 +206,11 @@ class Dense(nn.Linear):
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` on ``(B, C, H, W)`` that computes in ``dtype``.
     ``kernel``, ``stride`` and ``padding`` may be pairs; ``padding`` defaults
-    to half a square kernel."""
+    to half a square kernel.  ``tp_group`` / ``tp_input_group``: a row- /
+    column-parallel conv over channel shards, as ``Dense``."""
+
+    tp_group = None
+    tp_input_group = None
 
     def __init__(self, in_ch: int, out_ch: int, kernel=3, stride=1,
                  padding=None, dtype: torch.dtype = torch.float32,
@@ -155,11 +220,24 @@ class Conv(nn.Conv2d):
                          bias=bias)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+        """This layer's convolution with ``weight`` and ``bias`` in place of
+        its own (a slice of them), in the compute type."""
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
+        return F.conv2d(x.to(dt), weight.to(dt),
+                        None if bias is None else bias.to(dt), self.stride,
                         self.padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_input_group is not None:
+            x = copy_to_model(x, self.tp_input_group)
+        if self.tp_group is None:
+            return self.product(x, self.weight, self.bias)
+        y = all_reduce_sum(self.product(x, self.weight), self.tp_group)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype)[:, None, None]
 
 
 class ZeroConv(Conv):

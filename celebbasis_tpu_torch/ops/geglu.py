@@ -134,8 +134,9 @@ def _gated_product(u, w1, b1, w2):
 
 def geglu_ffn_plain(x, w1, b1, w2, b2):
     """What the ``geglu_ffn`` kernel computes: ``y W2 + b2`` in fp32, one
-    rounding to x's type."""
-    return (_gated_product(x, w1, b1, w2) + b2.float()).to(x.dtype)
+    rounding to x's type (``b2`` None: no bias)."""
+    acc = _gated_product(x, w1, b1, w2)
+    return (acc if b2 is None else acc + b2.float()).to(x.dtype)
 
 
 def geglu_block_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -212,6 +213,8 @@ def _forward_cuda(x2d, ln_scale, ln_bias, w1, b1, w2, b2):
         raise TypeError(f"geglu kernels take float32 or bfloat16 x; got {dt}")
     rows, C = x2d.shape
     inner = w2.shape[0]
+    if b2 is None:              # no output bias: the kernel adds zeros
+        b2 = torch.zeros(C, dtype=torch.float32, device=x2d.device)
     if w1.shape != (C, 2 * inner) or w2.shape != (inner, C) \
             or b1.shape != (2 * inner,) or b2.shape != (C,):
         raise ValueError(f"bad shapes x{tuple(x2d.shape)} w1{tuple(w1.shape)} "
@@ -308,7 +311,9 @@ def geglu_block(x, ln_scale, ln_bias, w1, b1, w2, b2,
 
 
 def geglu_ffn(x, w1, b1, w2, b2, impl: str | None = None):
-    """GEGLU feed-forward.  x: (..., C); w1: (C, 2*inner); w2: (inner, C)."""
+    """GEGLU feed-forward.  x: (..., C); w1: (C, 2*inner); w2: (inner, C);
+    ``b2`` (C,) or None (no output bias: a tensor-parallel rank's partial
+    product)."""
     impl = impl or resolved_impl()
     _check_impl(impl)
     if impl == "xla":

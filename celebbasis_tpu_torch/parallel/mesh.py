@@ -10,13 +10,24 @@ inserted them.
   replicated (or, with ``fsdp``, the large ones are sharded and all-gathered
   where they are read), and the trainable MLP's gradients are averaged over
   it (``train.trainer``).
-* ``model``: Megatron tensor parallelism for sampling.  Column-parallel
-  q/k/v and MLP-in projections hold a block of the output features (whole
-  heads), row-parallel output projections a block of the input features; a
-  row-parallel layer sums its partial product over the model group and adds
-  its replicated bias once (``ops.basic.Dense``,
+* ``model``: Megatron tensor parallelism.  Column-parallel q/k/v and MLP-in
+  projections hold a block of the output features (whole heads), row-
+  parallel output projections a block of the input features; a row-parallel
+  layer sums its partial product over the model group and adds its
+  replicated bias once (``ops.basic.Dense``,
   ``models.unet.FeedForwardGEGLU``).  Attention then runs on ``heads / M``
-  local heads at the same head dim.
+  local heads at the same head dim.  With ``conv_tp`` the residual blocks'
+  convolutions are channel parallel too (``_TP_CONV_RULES``): ``conv1`` by
+  output channel, ``conv2`` / ``skip`` by input channel, and the block
+  between them (its norm, the time embedding) works on this rank's
+  channels (``ModelShard``).
+
+Gradients pass through every tensor-parallel layer, as GSPMD's do through
+the JAX package's sharded weights: the row-parallel sum is an all-reduce
+whose backward is the identity (``all_reduce_sum``), the input of a
+column-parallel layer is the identity whose backward sums the partial
+gradients (``copy_to_model``), and statistics that every rank reads only
+in part are summed both ways (``all_reduce_shared``).
 
 The rules are pure functions of the port's parameter names and layouts.
 The JAX rules name flax paths and flax layouts: a dense kernel is ``(in,
@@ -30,6 +41,7 @@ from __future__ import annotations
 import os
 import re
 import socket
+from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -169,7 +181,7 @@ _TP_RULES = [
 ]
 
 # Conv channel-parallel rules, off by default (the JAX package keeps them for
-# experiments only).  JAX HWIO -> port OIHW:
+# experiments; no CLI of either package sets them).  JAX HWIO -> port OIHW:
 #
 #   conv1/kernel        (None, None, None, model) O   (model, None, None, None)
 #   conv1/bias          (model,)                      (model,)
@@ -177,9 +189,12 @@ _TP_RULES = [
 #
 # A zero-initialised output conv (``ZeroConv``, kind "zero_conv") takes none
 # of them: in the JAX tree its kernel sits one level down, under
-# ``conv2/Conv_0/``, where the patterns do not reach.  ``shard_params``
-# refuses these rules: a ResBlock's GroupNorm would normalise groups that
-# straddle the channel shards.
+# ``conv2/Conv_0/``, where the patterns do not reach.  The blocks that own
+# the claimed convs (``runs_conv_tp``: the UNet's and the VAE's residual
+# blocks, IResNet's basic block) run on this rank's channels between conv1
+# and the sum after conv2; a GroupNorm among them normalises whole local
+# groups, or sums the statistics of groups that straddle the shards over
+# the model group (``ops.basic.GroupNorm``).
 _TP_CONV_RULES = [
     (re.compile(r"(conv1)\.weight"), (MODEL, None, None, None)),
     (re.compile(r"(conv1)\.bias"), (MODEL,)),
@@ -312,14 +327,104 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(out.unbind(0), dim=dim)
 
 
+def _grad_path(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+class _ReduceSum(torch.autograd.Function):
+    """The row-parallel sum: all-reduce forward, identity backward (every
+    rank holds the whole gradient of the replicated sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        dist.all_reduce(x, group=group)
+        ctx.mark_dirty(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The input of a column-parallel layer: identity forward; backward sums
+    the partial gradients that each rank's block of outputs sends back."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceShared(torch.autograd.Function):
+    """A sum of partials that every rank reads only in part (a GroupNorm's
+    statistics over channel shards): all-reduce both ways."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        dist.all_reduce(x, group=group)
+        ctx.mark_dirty(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """Sums ``x`` over ``group`` in place.  Inference only: the tensor-
-    parallel layers that call it take no gradient, as in the JAX package,
-    where ``--tp`` is a sampling option."""
-    if x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("tensor-parallel layers run without gradients")
+    """Sums the partial products ``x`` of a row-parallel layer over
+    ``group``, in place; under autograd the gradient passes back unchanged
+    to each rank's partial."""
+    if _grad_path(x):
+        return _ReduceSum.apply(x, group)
     dist.all_reduce(x, group=group)
     return x
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, the replicated input of a column-parallel layer; under
+    autograd its gradient is summed over ``group``.  Without a gradient to
+    take, ``x`` itself."""
+    return _CopyToModel.apply(x, group) if _grad_path(x) else x
+
+
+def all_reduce_shared(x: torch.Tensor, group) -> torch.Tensor:
+    """Sums partial statistics ``x`` over ``group`` in place; under autograd
+    their gradient is summed too, since each rank reads the sum only for its
+    own channels."""
+    if _grad_path(x):
+        return _ReduceShared.apply(x, group)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+@dataclass(frozen=True)
+class ModelShard:
+    """This rank's block (``index`` of ``size``) of a channel axis split over
+    the model ``group``, as ``shard_params`` gives it to the blocks that run
+    channel-parallel convs."""
+    index: int
+    size: int
+    group: Any
+
+    def block(self, t: torch.Tensor, dim: int,
+              chunks: int = 1) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim``: a view, or with
+        ``chunks`` the blocks of each of that many equal parts, joined."""
+        if chunks > 1:
+            return torch.cat([self.block(p, dim)
+                              for p in t.chunk(chunks, dim=dim)], dim=dim)
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -404,22 +509,42 @@ def _set_param(owner: nn.Module, attr: str, value: torch.Tensor,
     return p
 
 
+def _conv_blocks(module: nn.Module, todo, conv_tp: bool) -> list:
+    """The blocks whose convs the conv rules claimed; raises where a claimed
+    conv's owner is not the direct child of a block that runs them
+    (``runs_conv_tp``), since its neighbours would see a channel shard."""
+    if not conv_tp:
+        return []
+    claimed = {id(owner): name for name, owner, attr, p, spec in todo
+               if MODEL in spec and param_partition_spec(
+                   name, p.ndim, True, False, _kind(owner, attr))
+               == REPLICATED}
+    blocks = [m for m in module.modules()
+              if getattr(m, "runs_conv_tp", False)
+              and id(getattr(m, "conv1", None)) in claimed]
+    inside = {id(c) for m in blocks for c in m.children()}
+    for key, name in claimed.items():
+        if key not in inside:
+            raise ValueError(f"conv_tp claims {name}, whose block does not "
+                             f"run channel-parallel convs")
+    return blocks
+
+
 def shard_params(module: nn.Module, mesh, use_tp: bool = False,
                  conv_tp: bool = False, fsdp: bool = False,
                  min_size: Optional[int] = None) -> nn.Module:
     """Places ``module``'s parameters on the mesh, in place: TP-sharded over
-    ``model`` where a rule claims them (``use_tp``), and with ``fsdp`` the
-    frozen leaves no TP rule claimed sharded over ``data`` by the FSDP rule
-    (each rank stores 1/n_data of them and gathers them where they are
-    read).  Everything else stays replicated.  Modules that own ``heads``
-    and a column-parallel query projection then run ``heads / n_model``
-    local heads; ``n_model`` must divide their heads.  Returns ``module``."""
-    if use_tp and conv_tp:
-        raise ValueError("conv_tp is not run by the port: a ResBlock's "
-                         "GroupNorm would normalise groups that straddle "
-                         "the channel shards")
+    ``model`` where a rule claims them (``use_tp``; with ``conv_tp`` also
+    the residual blocks' convs), and with ``fsdp`` the frozen leaves no TP
+    rule claimed sharded over ``data`` by the FSDP rule (each rank stores
+    1/n_data of them and gathers them where they are read).  Everything
+    else stays replicated and whole: a block that runs on a channel shard
+    takes its slice of a replicated leaf as a view at each forward.
+    Modules that own ``heads`` and a column-parallel query projection then
+    run ``heads / n_model`` local heads; ``n_model`` must divide their
+    heads.  Returns ``module``."""
     n_data, n_model = axis_size(mesh, DATA), axis_size(mesh, MODEL)
-    specs = param_shardings(module, n_data, use_tp, False, fsdp, min_size)
+    specs = param_shardings(module, n_data, use_tp, conv_tp, fsdp, min_size)
     todo = [(name, owner, attr, p, specs[name])
             for name, owner, attr, p, _ in leaves(module)
             if specs[name] != REPLICATED]
@@ -439,8 +564,14 @@ def shard_params(module: nn.Module, mesh, use_tp: bool = False,
         if p.shape[spec.index(axis)] % (n * _chunks(name)):
             raise ValueError(f"{name} {tuple(p.shape)} does not split over "
                              f"{n} {axis} shards")
+    blocks = _conv_blocks(module, todo, conv_tp)
     for m in heads:
         m.heads //= n_model
+    if blocks:
+        shard = ModelShard(axis_index(mesh, MODEL), n_model,
+                           mesh.get_group(MODEL))
+        for m in blocks:
+            m.tp = shard
     with torch.no_grad():
         for name, owner, attr, p, spec in todo:
             if MODEL in spec:
@@ -450,6 +581,8 @@ def shard_params(module: nn.Module, mesh, use_tp: bool = False,
                     p.requires_grad)
                 if dim == 1:          # row parallel: sum the partials
                     owner.tp_group = mesh.get_group(MODEL)
+                else:                 # column parallel: sum the input's grad
+                    owner.tp_input_group = mesh.get_group(MODEL)
             else:
                 dim = spec.index(DATA)
                 _set_param(owner, attr, _block(

@@ -50,7 +50,12 @@ the ``id_neg_loss`` term sees every rank's predictions (its gradient flows
 back to each rank's rows); the trained gradients are averaged over ``data``
 with one all-reduce; the logs are the means over ``data``.  The collectives
 are NCCL's under a CUDA graph, or gloo's (``trainer.Trainer`` then runs the
-uncaptured steps).
+uncaptured steps).  On a (data, model) mesh whose frozen weights
+``parallel.mesh.shard_params`` split by the tensor-parallel rules
+(``use_tp``, ``conv_tp``), the model ranks of a data rank take the same rows
+and draws, the gradient passes back through the tensor-parallel layers
+(their autograd collectives), and the MLP's gradient, which each of them
+holds whole, is averaged over ``data`` alone.
 """
 from __future__ import annotations
 

@@ -239,8 +239,20 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
                mean distance of the two-image run, and ``--tp 2``
                (4 local heads, 32 packed launches a UNet call a rank)
                within a mean of 8 levels (beside it the distance of the
-               one-process run on the plain attention route); ms a step by
-               rank, peak memory, seconds in gloo's collectives.
+               one-process run on the plain attention route); tensor
+               parallelism beyond the CLIs' flags (``mesh_ranks.TP_EXTRA``):
+               the W2 step on a (1, 2) mesh with TP-sharded frozen weights,
+               with and without ``conv_tp``, against one process at a
+               rank's batch and rate (the limits above, both ranks equal,
+               #3/#4/#5 at 4 local heads; with ``conv_tp`` also in float32,
+               TF32 off, against one float32 process: losses 1e-5,
+               gradient |diff| / |grad| 1e-3), ``txt2img --tp 2`` with
+               ``conv_tp`` in bf16 (mean 8 levels) and float32 (one
+               level), ``--tp 2`` on the GEGLU kernel route (#6 on each
+               rank's blocks, 16 launches a UNet call) and one FF block of
+               it against the whole plain block (float32, 2e-5 of the
+               largest output); ms a step by rank, peak memory, seconds in
+               gloo's collectives.
 
 The generation and training paths run as CUDA graphs (``utils/graphs.py``):
 a graph's warm-up and capture run its Python (hooks that count UNet calls
@@ -349,6 +361,10 @@ GEGLU_RAGGED_SHAPES = ((100, 320, None), (300, 640, None),
                        (1100, 1280, None), (200, 960, None),
                        (100, 768, None), (300, 640, 1000),
                        (200, 1280, 4744))
+# the serving shapes at --tp 2: a rank's half of the inner width, no output
+# bias (models.unet.FeedForwardGEGLU on the "cuda" route under TP)
+GEGLU_TP_SHAPES = ((16384, 320, 640), (4096, 640, 1280), (1024, 1280, 2560),
+                   (256, 1280, 2560))
 # fp32: summation order only, over up to 5120 terms
 GEGLU_F32_REL_TOL = 2e-5
 # bf16: geglu.bf16_mean_error of the outputs against the plain version; on
@@ -1105,14 +1121,17 @@ def geglu_bound(rows, C, dtype):
                                        else "bytes")
 
 
-def check_geglu(entry, rows, C, dtype, timed, inner=None):
+def check_geglu(entry, rows, C, dtype, timed, inner=None, bias=True):
     """One GEGLU kernel (`entry` "geglu_block" or "geglu_ffn") against its
-    plain version (inner = 4C unless given): fp32 within GEGLU_F32_REL_TOL
-    of the largest output; bf16 by fa.bf16_error_ratio <= 1 and
-    geglu.bf16_mean_error <= GEGLU_BF16_MEAN_ERR."""
+    plain version (inner = 4C unless given; without ``bias`` no output bias,
+    as a tensor-parallel rank's partial product): fp32 within
+    GEGLU_F32_REL_TOL of the largest output; bf16 by fa.bf16_error_ratio <=
+    1 and geglu.bf16_mean_error <= GEGLU_BF16_MEAN_ERR."""
     inner = inner or 4 * C
     x, (lns, lnb), w1, b1, w2, b2 = geglu_inputs(rows, C, dtype,
                                                  rows * 7 + C, inner)
+    if not bias:
+        b2 = None
     if entry == "geglu_block":
         run = lambda: geglu.geglu_block(x, lns, lnb, w1, b1, w2, b2,
                                         impl="cuda")
@@ -1133,7 +1152,7 @@ def check_geglu(entry, rows, C, dtype, timed, inner=None):
                            f"vs plain {ref.shape} {ref.dtype}")
     err = (out.float() - ref.float()).abs().max().item()
     how = geglu.plan(x.device, dtype, rows, C, inner)
-    rec = {"rows": rows, "C": C, "inner": inner,
+    rec = {"rows": rows, "C": C, "inner": inner, "bias": bias,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "ref_max": ref.float().abs().max().item(),
            "splits": how["splits"], "cluster": how["cluster"],
@@ -1168,7 +1187,8 @@ def check_geglu(entry, rows, C, dtype, timed, inner=None):
 def phase_geglu_kernels():
     """Both GEGLU kernels at the serving and training shapes in bf16 and
     fp32, and at GEGLU_RAGGED_SHAPES; the serving shapes in bf16 are
-    timed."""
+    timed; ``geglu_ffn`` also at GEGLU_TP_SHAPES without an output bias
+    (the tensor-parallel FF block's call)."""
     records = {}
     for entry in GEGLU_KERNELS:
         shapes = []
@@ -1179,6 +1199,10 @@ def phase_geglu_kernels():
             for rows, C, inner in GEGLU_RAGGED_SHAPES:
                 shapes.append(check_geglu(entry, rows, C, dtype, False,
                                           inner))
+            if entry == "geglu_ffn":
+                for rows, C, inner in GEGLU_TP_SHAPES:
+                    shapes.append(check_geglu(entry, rows, C, dtype, False,
+                                              inner, bias=False))
         records[entry] = shapes
     return records
 
@@ -5291,6 +5315,11 @@ MESH_MLP_COS, MESH_MLP_REL = 0.98, 0.25  # the MLP's change over the run (read
 MESH_PLAIN_MEAN = 1.5         # bf16 --mesh 2 pixels against the two-sample
                               # run: mean |diff| within 1.5x the plain
                               # attention route's distance from the kernels'
+# the TP W2 step with conv_tp in float32 (TF32 off) against one process in
+# float32: summation order alone (a wrong shard or a gradient summed twice
+# is off by O(1)); the witness that its bf16 distance is rounding
+MESH_FP32_REL_LOSS = (1e-5, 1e-5)
+MESH_FP32_GRAD_COS, MESH_FP32_GRAD_REL = 0.999999, 1e-3
 MESH_TP_MEAN = 8.0            # --tp 2 pixels, mean |diff| in levels: bf16
                               # rounding moves a few; a wrong shard gives
                               # unrelated images (PERF.md 2)
@@ -5396,7 +5425,10 @@ def check_mesh_nccl1(ranks):
 
 def check_mesh_gloo2(ranks):
     """Two ranks over gloo on one card, uncaptured, against rank 0's runs
-    without a mesh.  Every figure is taken before any check raises."""
+    without a mesh: data parallel, FSDP, and tensor parallel (the W2 step
+    with and without ``conv_tp``; sampling with ``--tp 2``, with
+    ``conv_tp`` in bf16 and float32, and on the GEGLU kernel route).  Every
+    figure is taken before any check raises."""
     r0, r1 = ranks
     ref = r0["train_b4"]
     split = ref["split_grads"]
@@ -5435,6 +5467,41 @@ def check_mesh_gloo2(ranks):
                for n, c in TRAIN_LAUNCHES.items() if c):
             bad.append(f"{name} launched {got['launches']} / "
                        f"{other['launches']}")
+    # the W2 step with TP-sharded frozen weights (a (1, 2) mesh, without
+    # and with conv_tp) against one process at a rank's batch and rate
+    for name in ("train_tp2", "train_tp2_conv", "train_tp2_conv_fp32"):
+        got, other = r0[name], r1[name]
+        ref2 = r0["train_b2_fp32" if "fp32" in name else "train_b2"]
+        loss_lim, grad_cos, grad_rel = (
+            (MESH_FP32_REL_LOSS, MESH_FP32_GRAD_COS, MESH_FP32_GRAD_REL)
+            if "fp32" in name else (MESH_REL_LOSS, MESH_GRAD_COS,
+                                    MESH_GRAD_REL))
+        out[name] = rec = {
+            "loss_rel": [abs(a - b) / abs(b) for a, b in zip(
+                got["losses"], ref2["losses"], strict=True)],
+            "grad_cos": _cos(got["first_grad"], ref2["first_grad"]),
+            "grad_rel": _rel(got["first_grad"], ref2["first_grad"]),
+            "mlp_cos": _cos(got["mlp"] - got["mlp0"],
+                            ref2["mlp"] - ref2["mlp0"]),
+            "mlp_rel": _rel(got["mlp"] - got["mlp0"],
+                            ref2["mlp"] - ref2["mlp0"]),
+            "local_heads": got["local_heads"]}
+        # the loss and gradient limits (the MLP's change is reported: they
+        # train at the reference's rate, and the change's limits were set
+        # to catch a rate off by the data ranks)
+        if any(x > lim for x, lim in zip(rec["loss_rel"], loss_lim)) \
+                or rec["grad_cos"] < grad_cos or rec["grad_rel"] > grad_rel \
+                or not torch.equal(got["mlp0"], ref2["mlp0"]) \
+                or 4 not in got["local_heads"]:
+            bad.append(f"{name} against one process")
+        if not all(torch.equal(got[k], other[k]) for k in
+                   ("id_coefficients", "id_embeddings", "mlp")):
+            bad.append(f"{name}'s ranks hold different manager states or "
+                       f"MLPs")
+        if any(x["launches"].get(n, 0) != c * 2 for x in (got, other)
+               for n, c in TRAIN_LAUNCHES.items() if c):
+            bad.append(f"{name} launched {got['launches']} / "
+                       f"{other['launches']}")
     out["fsdp_bytes"] = [[x["train_mesh2_fsdp"][k] for k in
                           ("stored_bytes", "fsdp_predicted", "whole_bytes")]
                          for x in (r0, r1)]
@@ -5444,21 +5511,28 @@ def check_mesh_gloo2(ranks):
     one, plain = r0["txt2img"]["images"], r0["txt2img_plain"]["images"]
     out["plain_route"] = _pixels(plain, one)
     out["n1_vs_two"] = _pixels(r0["txt2img_n1"]["images"], one)
-    for name in ("txt2img_mesh2", "txt2img_mesh2_fp32", "txt2img_tp2"):
+    for name in ("txt2img_mesh2", "txt2img_mesh2_fp32", "txt2img_tp2",
+                 "txt2img_tp2_conv", "txt2img_tp2_conv_fp32",
+                 "txt2img_tp2_geglu"):
         ref = r0["txt2img_fp32" if "fp32" in name else "txt2img"]
+        tp = name.startswith("txt2img_tp2")
         for rank, x in enumerate((r0, r1)):
             out[f"{name}_r{rank}"] = px = _pixels(x[name]["images"],
                                                   ref["images"])
             calls = x[name]["unet_calls"]
-            if x[name]["launches"] != {"flash_attention_nhd":
-                                       ATTN_PER_UNET * calls} or not calls:
+            want = {"flash_attention_nhd": ATTN_PER_UNET * calls}
+            if name == "txt2img_tp2_geglu":   # #6 on this rank's blocks
+                want["geglu_ffn"] = GEGLU_PER_UNET * calls
+            if x[name]["launches"] != want or not calls:
                 bad.append(f"{name} rank {rank} launched "
                            f"{x[name]['launches']} in {calls} UNet calls")
-            if name == "txt2img_mesh2_fp32":
+            if tp and 4 not in x[name]["local_heads"]:
+                bad.append(f"{name} rank {rank} local heads "
+                           f"{x[name]['local_heads']}")
+            if "fp32" in name:
                 off = px["max"] > 1
-            elif name == "txt2img_tp2":
-                off = px["mean"] > MESH_TP_MEAN \
-                    or 4 not in x[name]["local_heads"]
+            elif tp:
+                off = px["mean"] > MESH_TP_MEAN
             else:      # bf16: a rank samples one at a time, as txt2img_n1
                 out[f"{name}_vs_n1_r{rank}"] = n1 = _pixels(
                     x[name]["images"], r0["txt2img_n1"]["images"])
@@ -5469,6 +5543,14 @@ def check_mesh_gloo2(ranks):
         if r0[name]["files"] != ref["files"] or r1[name]["files"]:
             bad.append(f"{name} wrote {r0[name]['files']} / "
                        f"{r1[name]['files']}")
+    # one tensor-parallel FF block on #6 against the whole plain block
+    for rank, x in enumerate((r0, r1)):
+        blk = x["geglu_tp_block"]
+        out[f"geglu_tp_block_r{rank}"] = {
+            k: blk[k] for k in ("max_abs_err", "scale", "launches")}
+        if not blk["max_abs_err"] <= GEGLU_F32_REL_TOL * blk["scale"] \
+                or blk["launches"] != {"geglu_ffn": 1}:
+            bad.append(f"geglu_tp_block rank {rank}")
     if bad:
         raise RuntimeError(f"mesh: {'; '.join(bad)}: {json.dumps(out)}")
     return out
@@ -5505,12 +5587,12 @@ def phase_mesh():
 
 
 def mesh_launches(mesh, kernel):
-    """A kernel's launches in the mesh phase's runs, by task, run and
-    rank."""
+    """A kernel's launches in the mesh phase's runs of a path, by task, run
+    and rank (not the FF block held against its plain version)."""
     return {f"mesh_{task}_{name}_r{r}": rec["launches"].get(kernel, 0)
             for task in ("nccl1", "gloo2")
             for r, ranks in enumerate(mesh[task]["ranks"])
-            for name, rec in ranks.items()}
+            for name, rec in ranks.items() if name != "geglu_tp_block"}
 
 
 def mesh_summary(mesh):
@@ -5683,11 +5765,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": GEGLU_SOURCE,
             "replaces": replaces,
             # geglu_block: the serving and training runs on the GEGLU kernel
-            # route; geglu_ffn is on no path of the port (nor of the JAX
-            # package): only the kernels phase launches it
+            # route; geglu_ffn: tensor-parallel sampling on that route (the
+            # mesh phase; the kernels phase's launches are apart)
             "launches": (launches["geglu_block"]
                          + train_launches["geglu_block"])
-            if name == "geglu_block" else 0,
+            if name == "geglu_block" else sum(
+                mesh_launches(mesh, "geglu_ffn").values()),
+            "launches_by_path": {k: v for k, v in mesh_launches(
+                mesh, name).items() if v},
             "kernels_phase_launches": len(recs),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "max_err_ratio": max(r.get("err_ratio", 0.0) for r in recs),

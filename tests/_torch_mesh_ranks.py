@@ -8,7 +8,10 @@ runs every multi-rank case in one group (``run_rank``) and writes its
 results to ``WORK_DIR/rank<r>.pt``; ``references(work)`` computes what they
 are compared with, in one process without a mesh.  Tiny configs, float32,
 one thread; the model comes from ``loader.assemble`` with a tiny face net
-and drawn UNet output convs, so that every layer takes part.  JAX-free.
+and drawn UNet output convs, so that every layer takes part.  The cases
+held against the JAX package read its weights, batch and requests from
+``WORK_DIR/jax_side.pt`` (written by the test as the port's state dicts and
+numpy arrays).  JAX-free.
 """
 import dataclasses
 import os
@@ -147,10 +150,13 @@ def txt2img(work, tag, *flags):
 
 
 def geglu_split(mesh):
-    """A tensor-parallel FF block against the whole one, with proj_in split
-    half by half (the rule) and in one contiguous block; -> max |diff| of
-    each."""
+    """A tensor-parallel FF block against the whole one (``"xla"`` route),
+    with proj_in split half by half (the rule) and in one contiguous block,
+    and split half by half on the ``"cuda"`` route (on the CPU the plain
+    version of the ``geglu_ffn`` kernel); -> max |diff| of each, the largest
+    output and the GEGLU kernels' launch counts (none on the CPU)."""
     from celebbasis_tpu_torch.models.unet import FeedForwardGEGLU
+    from celebbasis_tpu_torch.ops import geglu
     from celebbasis_tpu_torch.parallel import mesh as pmesh
 
     def block():
@@ -164,17 +170,169 @@ def geglu_split(mesh):
     g = torch.Generator().manual_seed(5)
     ln = (torch.rand(32, generator=g) + 0.5,
           torch.randn(32, generator=g) * 0.1)
+    geglu.reset_launch_count()
     with torch.no_grad():
         want = block().ff(x, ln)
-        out = {}
-        for name, chunks in (("halves", pmesh._TP_CHUNKS), ("contiguous", [])):
+        out = {"scale": float(want.abs().max())}
+        for name, chunks, route in (
+                ("halves", pmesh._TP_CHUNKS, None),
+                ("contiguous", [], None),
+                ("cuda_route", pmesh._TP_CHUNKS, "cuda")):
             saved, pmesh._TP_CHUNKS = pmesh._TP_CHUNKS, chunks
+            geglu.set_default_impl(route)
             try:
                 ff = pmesh.shard_params(block(), mesh, use_tp=True).ff
                 out[name] = float((ff(x, ln) - want).abs().max())
             finally:
                 pmesh._TP_CHUNKS = saved
+                geglu.set_default_impl(None)
+    out["launches"] = geglu.launch_counts()
     return out
+
+
+def scale_shift_split(mesh):
+    """A FiLM ResBlock (``scale_shift``, with a skip conv) channel-parallel
+    under ``conv_tp`` against the whole one, with scale and shift split block
+    by block (the rule) and as one contiguous block of emb_proj's output;
+    -> max |diff| of the output, and of the gradients of x and of the time
+    embedding (block by block), each beside the largest reference entry."""
+    from celebbasis_tpu_torch.models import unet
+    from celebbasis_tpu_torch.parallel import mesh as pmesh
+
+    def block():
+        torch.manual_seed(8)
+        holder = torch.nn.Module()
+        holder.res = unet.ResBlock(32, 64, 16, torch.float32,
+                                   scale_shift=True)
+        for p in holder.parameters():
+            torch.nn.init.normal_(p, std=0.2)
+        return holder
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 32, 6, 6, generator=g)
+    emb = torch.randn(2, 16, generator=g)
+    up = torch.randn(2, 64, 6, 6, generator=g)
+
+    def run(res):
+        xs, es = x.clone().requires_grad_(), emb.clone().requires_grad_()
+        out = res(xs, es)
+        out.backward(up)
+        return out.detach(), xs.grad, es.grad
+    want = run(block().res)
+    out = {"scale": [float(w.abs().max()) for w in want]}
+    for name, chunks in (("blocks", 2), ("contiguous", 1)):
+        saved, unet.SCALE_SHIFT_CHUNKS = unet.SCALE_SHIFT_CHUNKS, chunks
+        try:
+            res = pmesh.shard_params(block(), mesh, use_tp=True,
+                                     conv_tp=True).res
+            got = run(res)
+        finally:
+            unet.SCALE_SHIFT_CHUNKS = saved
+        out[name] = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    return out
+
+
+def group_norm_straddle(mesh):
+    """A GroupNorm of 3 groups over 48 channels split in two (the middle
+    group straddles the ranks) against the unsplit norm: max |diff| of the
+    output and of x's gradient, beside the largest reference entries."""
+    from celebbasis_tpu_torch.ops.basic import GroupNorm
+    from celebbasis_tpu_torch.parallel import mesh as pmesh
+
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(2, 48, 5, 7, generator=g) * 1.5 + 0.3
+    up = torch.randn(2, 48, 5, 7, generator=g)
+    norm = GroupNorm(48, num_groups=3)
+    with torch.no_grad():
+        norm.weight.uniform_(0.5, 1.5, generator=g)
+        norm.bias.normal_(generator=g)
+    xs = x.clone().requires_grad_()
+    want = norm(xs)
+    want.backward(up)
+    shard = pmesh.ModelShard(pmesh.axis_index(mesh, pmesh.MODEL), 2,
+                             mesh.get_group(pmesh.MODEL))
+    mine = shard.block(x, 1).clone().requires_grad_()
+    got = norm(mine, shard)
+    got.backward(shard.block(up, 1))
+    return {"out": float((got - shard.block(want, 1)).abs().max()),
+            "grad": float((mine.grad - shard.block(xs.grad, 1)).abs().max()),
+            "scale": [float(want.abs().max()), float(xs.grad.abs().max())]}
+
+
+def jax_side_models(side):
+    """The tiny pipeline and face net on the JAX side's weights, frozen,
+    and the basis and manager state beside them."""
+    from celebbasis_tpu_torch import pipeline as tpipe
+    from celebbasis_tpu_torch.core import meta_net as tmeta
+    from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
+
+    pipe = tpipe.CelebBasisPipeline(tpipe.PipelineConfig.tiny(),
+                                    CLIPTokenizer.synthetic(1024))
+    pipe.load_state_dict(side["pipeline"], strict=True)
+    net = tmeta.MetaIdNet(dataclasses.replace(tmeta.MetaNetConfig.tiny(),
+                                              **side["meta_cfg"]),
+                          dtype=torch.float32)
+    net.load_state_dict(side["meta"], strict=True)
+    return (pipe.requires_grad_(False).eval(),
+            net.requires_grad_(False).eval())
+
+
+def conv_tp_sample(side, mesh):
+    """The tiny txt2img (float images, given x_T) with the pipeline sharded
+    by every TP rule, ``conv_tp`` included; -> the images, each leaf's
+    shape before and after, its spec, and the refusal of a block that does
+    not run channel-parallel convs."""
+    from celebbasis_tpu_torch.align.pipnet import Bottleneck
+    from celebbasis_tpu_torch.parallel import mesh as pmesh
+
+    pipe, _ = jax_side_models(side)
+    specs = pmesh.param_shardings(pipe, use_tp=True, conv_tp=True)
+    whole = {n: tuple(p.shape) for n, _, _, p, _ in pmesh.leaves(pipe)}
+    pmesh.shard_params(pipe, mesh, use_tp=True, conv_tp=True)
+    shapes = {n: tuple(p.shape) for n, _, _, p, _ in pmesh.leaves(pipe)}
+    req = {k: torch.as_tensor(v) for k, v in side["request"].items()}
+    fn = pipe.make_txt2img_fn(num_steps=3, guidance_scale=5.0,
+                              image_size=SIZE, output="float")
+    with torch.no_grad():
+        img = fn(side["mstate"], side["basis"], req["tokens"].long(),
+                 req["uncond"].long(), req["ids"].long(),
+                 req["num_ids"].long(), None, x_T=req["x_T"])
+    holder = torch.nn.Module()
+    holder.block = Bottleneck(16, 8, 1)
+    try:
+        pmesh.shard_params(holder, mesh, use_tp=True, conv_tp=True)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    return {"images": img, "whole": whole, "shapes": shapes,
+            "specs": specs, "refused": refused,
+            "blocks": sum(m.tp is not None for m in pipe.modules()
+                          if getattr(m, "runs_conv_tp", False))}
+
+
+def tp_train_step(side, mesh, conv_tp):
+    """One ``make_train_step`` step of the tiny W2 step with the pipeline
+    and the face net sharded by the TP rules (``conv_tp`` too, or not), on
+    the JAX side's batch and draws; -> the logged loss and the MLP's
+    gradient by the port's names."""
+    from celebbasis_tpu_torch.parallel import mesh as pmesh
+    from celebbasis_tpu_torch.train import step as tstep
+
+    pipe, net = jax_side_models(side)
+    trainable = tstep.build_trainable(net)
+    for m in (pipe, net):
+        pmesh.shard_params(m, mesh, use_tp=True, conv_tp=conv_tp)
+    opt = tstep.make_optimizer(trainable, 1e-2)
+    step = tstep.make_train_step(pipe, net, opt, mesh=mesh)
+    state = tstep.init_train_state(torch.Generator().manual_seed(0),
+                                   trainable, opt, side["mstate"])
+    batch = {k: torch.as_tensor(v).long() if v.dtype.kind == "i"
+             else torch.as_tensor(v) for k, v in side["batch"].items()}
+    state, logs = step(state, side["basis"], batch)
+    return {"loss": float(logs["loss"]),
+            "grads": {n: p.grad.clone()
+                      for n, p in net.mlp.named_parameters(prefix="mlp")},
+            "local_heads": sorted({m.heads for m in pipe.modules()
+                                   if hasattr(m, "heads")})}
 
 
 def for_host_batches(work, mesh):
@@ -266,6 +424,12 @@ def run_rank(work):
     out["for_host"] = for_host_batches(work, dp)
     tp = pmesh.make_mesh(1, 2, device="cpu")
     out["geglu"] = geglu_split(tp)
+    out["scale_shift"] = scale_shift_split(tp)
+    out["gn_straddle"] = group_norm_straddle(tp)
+    side = torch.load(os.path.join(work, "jax_side.pt"), weights_only=False)
+    out["conv_tp_sample"] = conv_tp_sample(side, tp)
+    out["tp_step"] = {case: tp_train_step(side, tp, case == "conv_tp")
+                      for case in ("tp", "conv_tp")}
     pipe = assembled().pipeline
     pmesh.shard_params(pipe, tp, use_tp=True)
     out["tp_heads"] = sorted({m.heads for m in pipe.modules()

@@ -43,7 +43,8 @@ from celebbasis_tpu_torch.train.ae_trainer import AETrainer
 from celebbasis_tpu_torch.utils import bridge
 
 from _torch_port_helpers import (assert_adamw_close,  # noqa: F401
-                                 assert_trained_grads_close, np_tree,
+                                 assert_trained_grads_close,
+                                 compiled_optimizer, np_tree,
                                  one_blas_thread, random_params,
                                  stash_grads)
 
@@ -124,8 +125,8 @@ def test_ae_trainer_step_matches_jax(kind, monkeypatch):
         dcfg = dict(dkw, n_classes=16, perceptual_weight=0.0)
         jl = jloss.VQLPIPSWithDiscriminator(jloss.DiscLossConfig(**dcfg))
         tl = tloss.VQLPIPSWithDiscriminator(tloss.DiscLossConfig(**dcfg))
-    adam = lambda lr: optax.chain(stash_grads(),
-                                  optax.adam(lr, b1=0.5, b2=0.9))
+    adam = lambda lr: compiled_optimizer(optax.chain(
+        stash_grads(), optax.adam(lr, b1=0.5, b2=0.9)))
     jt = jtrainer.AETrainer(jmodel, jl, LR, tx_g=adam(LR * G_FACTOR),
                             tx_d=adam(LR))
     params = random_params(lambda k: jt.init(k, image_size=32).params, KEY,

@@ -21,7 +21,6 @@ from a seed:
 import dataclasses
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,7 +37,7 @@ from celebbasis_tpu_torch.align import faceboxes as tfb
 from celebbasis_tpu_torch.align import pipnet as tpip
 from celebbasis_tpu_torch.cli import align as tcli
 
-from _torch_port_helpers import align_params, write_photos
+from _torch_port_helpers import align_params, compiled, write_photos
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 JCFG = dataclasses.replace(jpip.PIPNetConfig.tiny(), num_lms=98)
@@ -78,6 +77,8 @@ def _tuple(d):
 
 def test_detector_device_and_host_parts_match_jax(nets, photos):
     jdet, tdet = nets["jdet"], nets["tdet"]
+    # one compile a shape (scale 1 and 1.3), not one a photo
+    net_apply, decode = compiled(jdet.net.apply), compiled(jfb.decode_boxes)
     for i, path in enumerate(photos):
         rgb = _rgb(path)
         scale = 1.0 if i % 2 == 0 else 1.3
@@ -85,8 +86,8 @@ def test_detector_device_and_host_parts_match_jax(nets, photos):
         sh, sw = img.shape[:2]
         priors = jfb.prior_boxes((sh, sw))
         x = img[None].astype(np.float32) - np.float32(tfb.MEANS)
-        jloc, jconf = jax.jit(jdet.net.apply)(jdet.params, jnp.asarray(x))
-        jboxes = np.asarray(jfb.decode_boxes(jloc[0], jnp.asarray(priors)))
+        jloc, jconf = net_apply(jdet.params, jnp.asarray(x))
+        jboxes = np.asarray(decode(jloc[0], jnp.asarray(priors)))
         with torch.no_grad():
             tloc, tconf = tdet.net(torch.from_numpy(x))
         tboxes = tfb.decode_boxes(tloc[0], torch.from_numpy(priors))

@@ -14,7 +14,9 @@ configuration swapped for it on both sides):
 import dataclasses
 import os
 import pickle
+import types
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -97,6 +99,17 @@ def test_cli_annotate_and_video_frames(files, tiny_pipnet, tmp_path):
         f"frame_{i:06d}.jpg" for i in range(3)]
 
 
+def _shapes_only_init(monkeypatch):
+    """The JAX align CLI's net loaders compile each net's ``init`` and then
+    replace its parameters by the checkpoint's: with both checkpoints given,
+    only the shapes of that init are needed, so its ``jax.jit`` traces them
+    (``jax.eval_shape``) instead of compiling."""
+    shim = types.SimpleNamespace(
+        random=jax.random,
+        jit=lambda fn: lambda *a, **k: jax.eval_shape(fn, *a, **k))
+    monkeypatch.setattr(jcli, "jax", shim)
+
+
 def _eval_folder(root, n_items=2, n_gen=2, size=64, seed=7):
     """A generated-evaluation folder (the gen_imgs contract) of random
     JPEGs."""
@@ -125,8 +138,9 @@ def _eval_folder(root, n_items=2, n_gen=2, size=64, seed=7):
 
 
 def test_cropper_and_eval_imgs_match_the_jax_cropper(files, tiny_pipnet,
-                                                     tmp_path):
+                                                     tmp_path, monkeypatch):
     gen = _eval_folder(tmp_path)
+    _shapes_only_init(monkeypatch)
     jcrop = jeval_cli.build_cropper(files["fb"], files["pip"], None, 64)
     tcrop = eval_imgs.build_cropper(files["fb"], files["pip"], None, 64,
                                     device="cpu")

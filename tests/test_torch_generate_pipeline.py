@@ -22,7 +22,8 @@ from celebbasis_tpu.core import meta_net as jmeta
 from celebbasis_tpu_torch.core import meta_net as tmeta
 from celebbasis_tpu_torch.utils import bridge
 
-from _torch_port_helpers import np_tree, random_params, t, tiny_pipelines
+from _torch_port_helpers import (compiled, np_tree, random_params, t,
+                                 tiny_pipelines)
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 NAMES = ["Anne Hathaway", "Barack Obama", "Elon Musk", "Robert Downey",
@@ -78,8 +79,8 @@ def test_tiny_faces_txt2img_matches_jax(both):
     num_ids = np.array([2, 1])
     key = jax.random.key(4)
     lat = SIZE // both["tp"].latent_factor
-    x_T = np.asarray(jax.random.normal(jax.random.split(key)[1],
-                                       (B, lat, lat, 4)))
+    x_T = np.asarray(compiled(lambda k, shape: jax.random.normal(
+        jax.random.split(k)[1], shape))(key, (B, lat, lat, 4)))
 
     def ref():
         jfn = both["jp"].make_txt2img_faces_fn(

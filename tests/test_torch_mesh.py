@@ -5,6 +5,10 @@
   equal the JAX functions on every leaf of the tiny UNet, VAE and CLIP,
   each JAX spec carried to the port's name and layout as
   ``utils.bridge.from_jax_params`` carries the leaf.
+* A GroupNorm whose groups straddle a channel split (96 channels in 32
+  groups, split 3 ways) computed from the blocks' summed statistics
+  (``group_sums``, ``group_norm_from_sums``) equals the unsplit norm
+  within 1e-5 (float32, unit-scale inputs).
 * One gloo group of two processes on the CPU (``_torch_mesh_ranks.py``,
   started once for the module) runs every multi-rank case, held against
   the port's one-process runs at the same global batch: the data-parallel
@@ -13,23 +17,43 @@
   2e-6; the manager state equal on both ranks), the FSDP bytes a rank
   stores, ``PrefetchLoader.for_host`` against the JAX loader's shards,
   ``--mesh 2`` and ``--tp 2`` sampling at ``tests/test_tp_sampling.py``'s
-  rtol 1e-4, atol 2e-4 (fp32) and through ``cli/txt2img.py``, and the
-  GEGLU block's ``proj_in`` split half by half (a contiguous split fails).
+  rtol 1e-4, atol 2e-4 (fp32) and through ``cli/txt2img.py``, the GEGLU
+  block's ``proj_in`` split half by half (a contiguous split fails), its
+  ``"cuda"`` route under TP (the ``geglu_ffn`` kernel's plain version on
+  the CPU) within 2e-5 of the largest output of the whole ``"xla"``
+  block, a FiLM ResBlock under ``conv_tp`` with scale and shift split
+  block by block (output and input gradients within 1e-5 of the largest
+  entry; a contiguous split fails), and a GroupNorm whose middle group
+  straddles the two ranks (output and gradient within 1e-5).
+* Against the JAX package on one device, on its tiny weights carried over
+  (``jax_side.pt``): ``conv_tp`` sampling (UNet, VAE and CLIP sharded by
+  every rule) at ``test_tp_sampling.py``'s rtol 1e-4, atol 2e-4, with
+  JAX's replicated leaves whole on every rank; the W2 train step
+  (``make_train_step``) with TP-sharded frozen weights, ``use_tp`` alone
+  and with ``conv_tp``: loss rtol 1e-5, the MLP gradient within 1e-4 of
+  its largest entry.
 """
+import concurrent.futures
+import dataclasses
 import os
 import socket
 import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 from celebbasis_tpu.parallel import mesh as jmesh
+from celebbasis_tpu_torch.ops import basic as tbasic
 from celebbasis_tpu_torch.parallel import mesh as tmesh
 
 import _torch_mesh_ranks as ranks_mod
+from _torch_port_helpers import np_tree, random_params, stash_grads, \
+    tiny_pipelines
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -103,9 +127,113 @@ def test_partition_rules_equal_jax_on_every_leaf():
         if want == jmesh.P():
             want = jmesh.fsdp_partition_spec(leaf.shape, 2, min_size=64)
         assert specs[name] == _to_port(want, ours[name][1], leaf.ndim), name
-    # the option the port does not run
-    with pytest.raises(ValueError, match="GroupNorm"):
-        tmesh.shard_params(tp, None, use_tp=True, conv_tp=True)
+
+
+def test_straddling_group_norm_equals_the_unsplit_norm():
+    """96 channels in 32 groups split 3 ways: every block but the first
+    starts inside a group."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 96, 5, 7, generator=g) * 1.5 + 0.3
+    norm = tbasic.GroupNorm(96)
+    with torch.no_grad():
+        norm.weight.uniform_(0.5, 1.5, generator=g)
+        norm.bias.normal_(generator=g)
+        want = norm(x)
+        blocks = x.chunk(3, dim=1)
+        sums = sum(tbasic.group_sums(b, 32, 96, 32 * i)
+                   for i, b in enumerate(blocks))
+        got = torch.cat([tbasic.group_norm_from_sums(
+            b, sums, 32, 96, 32 * i, norm.weight[32 * i:32 * (i + 1)],
+            norm.bias[32 * i:32 * (i + 1)], norm.epsilon)
+            for i, b in enumerate(blocks)], dim=1)
+        # one block's own statistics are not the group's
+        alone = tbasic.group_norm_from_sums(
+            blocks[1], tbasic.group_sums(blocks[1], 32, 96, 32), 32, 96, 32,
+            norm.weight[32:64], norm.bias[32:64], norm.epsilon)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    assert (alone - want[:, 32:64]).abs().max() > 1e-2
+
+
+NAMES = ["Anne Hathaway", "Barack Obama", "Elon Musk", "Robert Downey",
+         "Taylor Swift", "Emma Watson", "Brad Pitt", "Scarlett Johansson",
+         "Leonardo DiCaprio", "Oprah Winfrey", "Keanu Reeves", "Rihanna"]
+META = dict(inner_dim=8, token_dim=64)
+LR = 1e-2
+
+
+def _jax_side(work):
+    """The tiny pipeline, face net, basis, manager state, a W2 batch with
+    its draws and a sampling request made on the JAX side; the port's copy
+    of them goes to ``work/jax_side.pt`` for the ranks.  -> the JAX side."""
+    from celebbasis_tpu.core import meta_net as jmeta
+    from celebbasis_tpu_torch.core import meta_net as tmeta
+    from celebbasis_tpu_torch.utils import bridge
+
+    d = tiny_pipelines(ranks_mod.SIZE, NAMES)
+    jnet = jmeta.MetaIdNet(dataclasses.replace(jmeta.MetaNetConfig.tiny(),
+                                               **META), dtype=jnp.float32)
+    r = np.random.default_rng(11)
+    B, size, tok = 2, ranks_mod.SIZE, d["tok"]
+    lat = size // d["tp"].latent_factor
+    k = len(d["tp"].manager_cfg.placeholder_token_ids)
+    batch = {
+        "image": r.uniform(-1, 1, (B, size, size, 3)).astype(np.float32),
+        "tokens": np.asarray(tok(["face of sks person",
+                                  "a photo of sks person and ks person"])),
+        "faces": r.uniform(-1, 1, (B, 2, 40, 40, 3)).astype(np.float32),
+        "ids": np.array([[0, 1], [0, 1]], np.int32),
+        "num_ids": np.array([1, 2], np.int32),
+        "override_znoise": r.standard_normal((B, lat, lat, 4)).astype(
+            np.float32),
+        "override_t": r.integers(0, 1000, (B,)).astype(np.int32),
+        "override_noise": r.standard_normal((B, lat, lat, 4)).astype(
+            np.float32)}
+    request = {
+        "tokens": np.asarray(tok(["a photo of a sks person",
+                                  "a ks person and a sks person"])),
+        "uncond": np.asarray(tok([""] * B)),
+        "ids": np.array([[1, 0] + [0] * (k - 2), [2, 3] + [0] * (k - 2)],
+                        np.int32),
+        "num_ids": np.array([1, 2], np.int32),
+        "x_T": r.standard_normal((B, lat, lat, 4)).astype(np.float32)}
+    meta_params = random_params(
+        jnet.init, jax.random.key(1), jnp.asarray(batch["faces"][:, 0]),
+        jnp.zeros((B,), jnp.int32), d["jbasis"], seed=2)
+    tnet = tmeta.MetaIdNet(dataclasses.replace(tmeta.MetaNetConfig.tiny(),
+                                               **META), dtype=torch.float32)
+    bridge.load_jax_params(tnet, np_tree(meta_params))
+    torch.save({"pipeline": d["tp"].state_dict(), "meta": tnet.state_dict(),
+                "meta_cfg": META, "basis": d["tbasis"], "mstate": d["tstate"],
+                "batch": batch, "request": request},
+               os.path.join(work, "jax_side.pt"))
+    return dict(d, jnet=jnet, meta_params=meta_params, batch=batch,
+                request=request)
+
+
+def _jax_references(side):
+    """The JAX package's one-device txt2img on the request and W2 step on
+    the batch (its loss and MLP gradient, from ``stash_grads``)."""
+    from celebbasis_tpu.train import step as jstep
+    from celebbasis_tpu_torch.utils import bridge
+
+    jp, req = side["jp"], {k: jnp.asarray(v)
+                           for k, v in side["request"].items()}
+    sample = np.asarray(jp.make_txt2img_fn(
+        num_steps=3, guidance_scale=5.0, image_size=ranks_mod.SIZE,
+        output="float")(side["params"], side["jstate"], side["jbasis"],
+                        req["tokens"], req["uncond"], req["ids"],
+                        req["num_ids"], jax.random.key(0), req["x_T"]))
+    trainable, meta_frozen = jstep.split_meta_params(side["meta_params"])
+    frozen = {**side["params"], "meta_frozen": meta_frozen}
+    opt = optax.chain(stash_grads(), jstep.make_optimizer(LR))
+    state = jstep.init_train_state(jax.random.key(3), trainable, opt,
+                                   side["jstate"])
+    state, logs = jax.jit(jstep.make_train_step(side["jp"], side["jnet"],
+                                                opt))(
+        state, frozen, side["jbasis"],
+        {k: jnp.asarray(v) for k, v in side["batch"].items()})
+    return {"sample": sample, "loss": float(logs["loss"]),
+            "mlp": bridge.from_jax_params(np_tree(state.opt_state[0]))}
 
 
 def _free_port():
@@ -117,10 +245,12 @@ def _free_port():
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Starts the two-process gloo group once (``_torch_mesh_ranks.py``, one
-    thread each) and meanwhile computes the one-process references here;
-    -> (references, [rank 0's results, rank 1's], the work folder)."""
+    thread each) and meanwhile computes the one-process references here,
+    the JAX package's in a thread of their own; -> (references, [rank 0's
+    results, rank 1's], the work folder)."""
     work = str(tmp_path_factory.mktemp("mesh"))
     ranks_mod.write_faces(work)
+    side = _jax_side(work)
     env = dict(os.environ, MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()), WORLD_SIZE="2",
                OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
@@ -132,7 +262,11 @@ def ranks(tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(2)]
     try:
-        ref = ranks_mod.references(work)
+        # the JAX references compile while the port's run beside them
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            jax_refs = pool.submit(_jax_references, side)
+            ref = ranks_mod.references(work)
+            ref["jax"] = jax_refs.result()
         logs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
         for p in procs:
@@ -213,3 +347,74 @@ def test_geglu_proj_in_splits_half_by_half(ranks):
     for r in ranks[1]:
         assert r["geglu"]["halves"] < 1e-5
         assert r["geglu"]["contiguous"] > 1e-2
+
+
+def test_geglu_cuda_route_under_tp_matches_the_xla_block(ranks):
+    for r in ranks[1]:
+        got = r["geglu"]
+        assert got["cuda_route"] <= 2e-5 * got["scale"]
+        # the plain version of the kernel: no launch on the CPU
+        assert got["launches"] == {"geglu_block": 0, "geglu_ffn": 0}
+
+
+def test_scale_shift_splits_block_by_block(ranks):
+    for r in ranks[1]:
+        got = r["scale_shift"]
+        # output, x's gradient, the time embedding's gradient
+        for diff, scale in zip(got["blocks"], got["scale"], strict=True):
+            assert diff <= 1e-5 * scale
+        assert got["contiguous"][0] > 1e-2 * got["scale"][0]
+
+
+def test_straddling_group_norm_over_two_ranks(ranks):
+    for r in ranks[1]:
+        got = r["gn_straddle"]
+        assert got["out"] <= 1e-5 * got["scale"][0]
+        assert got["grad"] <= 1e-5 * got["scale"][1]
+
+
+def test_conv_tp_sampling_matches_jax(ranks):
+    ref, results, _ = ranks
+    want = ref["jax"]["sample"]
+    assert want.std() > 0.05
+    for r in results:
+        got = r["conv_tp_sample"]
+        np.testing.assert_allclose(got["images"].numpy(), want, rtol=1e-4,
+                                   atol=2e-4)
+        # the UNet's and the VAE's residual blocks ran channel parallel
+        assert got["blocks"] == sum(
+            1 for n in got["specs"] if n.endswith("conv1.weight"))
+        assert got["blocks"] > 0
+        # claimed leaves hold this rank's half, every other leaf is whole
+        halves = 0
+        for name, spec in got["specs"].items():
+            want_shape = list(got["whole"][name])
+            if tmesh.MODEL in spec:
+                want_shape[spec.index(tmesh.MODEL)] //= 2
+                halves += 1
+            assert got["shapes"][name] == tuple(want_shape), name
+        assert halves > 0
+        for name in ("unet.down_0_res_0.norm2.weight",
+                     "unet.down_0_res_0.emb_proj.weight",
+                     "unet.down_0_res_0.conv2.weight",
+                     "vae.encoder.down_1_res_0.nin_shortcut.weight"):
+            assert got["specs"][name] == () and \
+                got["shapes"][name] == got["whole"][name], name
+        assert "does not run channel-parallel convs" in got["refused"]
+
+
+@pytest.mark.parametrize("case", ["tp", "conv_tp"])
+def test_tp_train_step_matches_jax(ranks, case):
+    ref, results, _ = ranks
+    want = ref["jax"]
+    floor = 1e-3 * max(float(g.abs().max()) for g in want["mlp"].values())
+    for r in results:
+        got = r["tp_step"][case]
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+        assert set(got["grads"]) == set(want["mlp"])
+        for name, g in want["mlp"].items():
+            scale = max(float(g.abs().max()), floor)
+            np.testing.assert_allclose(got["grads"][name].numpy(),
+                                       g.numpy(), atol=1e-4 * scale,
+                                       err_msg=name)
+        assert got["local_heads"] == [2]

@@ -16,6 +16,8 @@ package's, on the CPU at a tiny ResNet-18-style configuration with a
   ``init_rngs``: loss histories within 1e-4 (relative), pseudo-labels
   within 5e-3 (the test says why).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,7 +147,26 @@ def test_one_gssl_step_matches_jax(params):
                            bridge.from_jax_params(np_tree(jnew)), lr)
 
 
-def test_self_train_from_the_jax_initial_states():
+def _one_init_compile(monkeypatch):
+    """The JAX curriculum wraps ``model.init`` in a fresh ``jax.jit`` each
+    round, and the initial states take one more: its ``jax.jit`` keeps one
+    jitted function for each method of equal flax modules (dataclass
+    equality), so that every init of the run shares one compile.  -> that
+    ``jit``."""
+    jits = {}
+
+    def jit(fn, **kw):
+        key = (getattr(fn, "__func__", fn), getattr(fn, "__self__", None),
+               tuple(sorted(kw.items())))
+        if key not in jits:
+            jits[key] = jax.jit(fn, **kw)
+        return jits[key]
+    monkeypatch.setattr(jpg, "jax", types.SimpleNamespace(
+        **{**vars(jax), "jit": jit}))
+    return jit
+
+
+def test_self_train_from_the_jax_initial_states(monkeypatch):
     """The warmup and one curriculum round ('cls3'), one epoch each, batch
     2, four labeled and three unlabeled rows, each round starting from the
     state the JAX curriculum draws from its ``init_rngs``; an identity
@@ -159,7 +180,7 @@ def test_self_train_from_the_jax_initial_states():
     # of the time threefry's takes, and the JAX curriculum compiles one per
     # round
     keys = [jax.random.key(10 + i, impl="unsafe_rbg") for i in range(2)]
-    init = jax.jit(jpg.PIPNetGSSL(JCFG).init)
+    init = _one_init_compile(monkeypatch)(jpg.PIPNetGSSL(JCFG).init)
     init_states = [bridge.from_jax_params(np_tree(init(
         k, jnp.zeros((1, S, S, 3))))) for k in keys]
     seen = {"jax": [], "torch": []}

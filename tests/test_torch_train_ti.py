@@ -36,7 +36,8 @@ from celebbasis_tpu_torch.core import textual_inversion as tti
 from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
 from celebbasis_tpu_torch.train.step import make_optimizer
 
-from _torch_port_helpers import t, tiny_pipelines, tiny_sd_checkpoint
+from _torch_port_helpers import (compiled_optimizer, t, tiny_pipelines,
+                                 tiny_sd_checkpoint)
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,7 +84,7 @@ def test_ti_loss_gradient_and_adamw_step_match_jax(d):
             np.float32),
     }
 
-    opt = _capturing(jmake_optimizer(LR))
+    opt = compiled_optimizer(_capturing(jmake_optimizer(LR)))
     step = jtrain_ti.make_ti_train_step(d["jp"], jcfg,
                                         jnp.asarray(ph, jnp.int32), opt)
     jparams = jnp.asarray(vecs.numpy())

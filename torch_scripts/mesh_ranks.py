@@ -16,18 +16,27 @@ train steps without a mesh, with ``--mesh 1`` and with ``--mesh 1
 steps at the global batch without a mesh, at the rate ``--mesh 2`` takes
 (``scale_lr`` multiplies it by the data ranks), and takes its first step's
 gradient also as the mean over the batch's halves (``split_gradients``),
-while rank 1 waits; then both train with ``--mesh 2`` and ``--mesh 2
---fsdp``; rank 0 samples without a mesh (bf16 on the kernel and on the
-plain attention route, float32, and bf16 one sample a call as each rank of
-``--mesh 2`` samples), then both with ``--mesh 2`` (bf16 and float32) and
-with ``--tp 2``.
+and two steps at a rank's batch (bf16 and float32), while rank 1 waits;
+then both train with ``--mesh 2``, ``--mesh 2 --fsdp``, and on a ``--mesh
+1 2`` (data, model) mesh with the frozen weights tensor parallel, without
+and with ``conv_tp`` (and with it in float32, TF32 off, beside the float32
+one-process run); rank 0 samples without a mesh (bf16 on the kernel and on
+the plain attention route, float32, and bf16 one sample a call as each
+rank of ``--mesh 2`` samples), then both with ``--mesh 2`` (bf16 and
+float32), with ``--tp 2``, with ``--tp 2`` and ``conv_tp`` (bf16 and
+float32), and with ``--tp 2`` on the GEGLU kernel route; and both hold one
+tensor-parallel FF block at the UNet's widest level on the kernel route
+against the whole block on the plain route (float32, TF32 off:
+``geglu_tp_block``).  No CLI sets ``conv_tp`` or trains with TP: the
+wrapper of ``shard_params`` below adds them to the CLIs' calls
+(``TP_EXTRA``).
 
 ``WORK`` holds ``faces/ffhq.pickle`` (aligned-face PNGs, written by the
 caller).  Each rank writes ``WORK/<task>_rank<r>.pt``: per run the logged
 losses, the MLP before and after the run and its gradient after the first
-step (and the split gradients), the
-manager state, ms a step to a sync, peak memory, flash launches, UNet calls,
-the FSDP bytes stored and predicted, the images, and (gloo) the seconds
+step (and the split gradients), the manager state, ms a step to a sync,
+peak memory, flash and GEGLU launches, UNet calls, the FSDP bytes stored
+and predicted, the images, and (gloo) the seconds
 spent in collectives.  ``chip_smoke.phase_mesh`` checks them.  The weights
 are random from the CLIs' seed with the UNet's output convs drawn.
 ``--config``, ``--size``, ``--steps`` and ``--device cpu`` rehearse the
@@ -53,6 +62,7 @@ from celebbasis_tpu_torch import loader  # noqa: E402
 from celebbasis_tpu_torch.cli import train as train_cli  # noqa: E402
 from celebbasis_tpu_torch.cli import txt2img as txt2img_cli  # noqa: E402
 from celebbasis_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from celebbasis_tpu_torch.ops import geglu  # noqa: E402
 from celebbasis_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from celebbasis_tpu_torch.train import step as tstep  # noqa: E402
 from celebbasis_tpu_torch.utils.config import load_run_spec  # noqa: E402
@@ -206,23 +216,30 @@ def split_gradients(tr, state, basis, batch) -> dict:
 
 
 def measured(name, device, fn, time_collectives=False, fp32=False,
-             witness=False):
-    """Runs ``fn(runs)`` with the flash counters at 0 and the peak memory
-    reset (``fp32``: the CLIs' models compute in float32, TF32 off;
+             witness=False, tp=None, geglu_route=None):
+    """Runs ``fn(runs)`` with the flash and GEGLU counters at 0 and the peak
+    memory reset (``fp32``: the CLIs' models compute in float32, TF32 off;
     ``witness``: the train CLI's first step also takes ``split_gradients``,
-    whose launches the counts hold); -> (its result, a record)."""
+    whose launches the counts hold; ``tp``: what ``shard_params`` adds to
+    the CLIs' calls; ``geglu_route``: the GEGLU route); -> (its result, a
+    record)."""
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     sync(device)
     fa.reset_launch_count()
+    geglu.reset_launch_count()
     t0 = time.perf_counter()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     if fp32:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    TP_EXTRA.clear()
+    TP_EXTRA.update(tp or {})
+    TP_HEADS.clear()
+    geglu.set_default_impl(geglu_route)
     try:
         with Runs(device, time_collectives, fp32, witness) as runs:
             out = fn(runs)
@@ -230,8 +247,11 @@ def measured(name, device, fn, time_collectives=False, fp32=False,
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
+        TP_EXTRA.clear()
+        geglu.set_default_impl(None)
+    counts = {**fa.launch_counts(), **geglu.launch_counts()}
     rec = {"run": name, "wall_s": time.perf_counter() - t0,
-           "launches": {k: v for k, v in fa.launch_counts().items() if v},
+           "launches": {k: v for k, v in counts.items() if v},
            "unet_calls": runs.unet_calls,
            "collective_s": runs.collective_s,
            "collectives": runs.collectives}
@@ -249,6 +269,8 @@ def measured(name, device, fn, time_collectives=False, fp32=False,
             whole_bytes=tr.whole_bytes)
     if isinstance(out, np.ndarray):
         rec["images"] = out
+    elif isinstance(out, dict):
+        rec.update(out)
     log(f"{name}: {rec['wall_s']:.1f} s, losses {rec.get('losses')}, ms a "
         f"step {[round(x, 1) for x in rec.get('step_ms', [])]}, launches "
         f"{json.dumps(rec['launches'])}, UNet calls {rec['unet_calls']}, "
@@ -295,19 +317,23 @@ def main(argv=None) -> None:
     base_lr = load_run_spec([args.config]).trainer.base_lr
     recs = []
 
-    def train(name, flags, steps, batch, witness=False):
+    def train(name, flags, steps, batch, witness=False, tp=None,
+              fp32=False):
         logdir = os.path.join(args.work, f"{args.task}_{name}")
         recs.append(measured(name, dev, lambda runs: train_cli.main(
             train_args + ["--logdir", logdir, "--max_steps", str(steps),
                           f"data.params.batch_size={batch}"] + flags),
-            time_collectives=gloo, witness=witness))
+            time_collectives=gloo, witness=witness, tp=tp, fp32=fp32))
+        if tp:
+            recs[-1]["local_heads"] = TP_HEADS[:]
 
-    def sample(name, flags, fp32=False):
+    def sample(name, flags, fp32=False, tp=None, geglu_route=None):
         outdir = os.path.join(args.work, f"{args.task}_{name}_r{rank}")
         recs.append(measured(name, dev, lambda runs: txt2img_cli.main(
             sample_args + ["--outdir", outdir] + flags
             + ["--precision", "fp32"] * fp32),
-            time_collectives=gloo, fp32=fp32))
+            time_collectives=gloo, fp32=fp32, tp=tp,
+            geglu_route=geglu_route))
         recs[-1]["files"] = sorted(
             os.path.relpath(os.path.join(d, f), outdir)
             for d, _, fs in os.walk(outdir) for f in fs)
@@ -327,10 +353,21 @@ def main(argv=None) -> None:
             train("train_b4",
                   [f"model.params.base_learning_rate={base_lr * world}"],
                   2, 2 * world, witness=True)
+            # the TP runs' reference: a rank's batch at its rate (one data
+            # rank: scale_lr keeps it)
+            train("train_b2", [], 2, 2)
+            train("train_b2_fp32", [], 2, 2, fp32=True)
         dist.barrier()
         train("train_mesh2", ["--mesh", str(world)], 2, 2 * world)
         train("train_mesh2_fsdp", ["--mesh", str(world), "--fsdp"], 2,
               2 * world)
+        tp_mesh = ["--mesh", "1", str(world)]
+        train("train_tp2", tp_mesh, 2, 2, tp={"use_tp": True})
+        train("train_tp2_conv", tp_mesh, 2, 2,
+              tp={"use_tp": True, "conv_tp": True})
+        # the witness that the bf16 distance is rounding: float32, TF32 off
+        train("train_tp2_conv_fp32", tp_mesh, 2, 2,
+              tp={"use_tp": True, "conv_tp": True}, fp32=True)
         if rank == 0:
             sample("txt2img", [])
             sample("txt2img_fp32", [], fp32=True)
@@ -351,22 +388,64 @@ def main(argv=None) -> None:
         sample("txt2img_mesh2", ["--mesh", str(world)])
         sample("txt2img_mesh2_fp32", ["--mesh", str(world)], fp32=True)
         sample("txt2img_tp2", ["--tp", str(world)])
+        sample("txt2img_tp2_conv", ["--tp", str(world)],
+               tp={"conv_tp": True})
+        sample("txt2img_tp2_conv_fp32", ["--tp", str(world)], fp32=True,
+               tp={"conv_tp": True})
+        sample("txt2img_tp2_geglu", ["--tp", str(world)],
+               geglu_route="cuda")
+        recs.append(measured("geglu_tp_block", dev,
+                             lambda runs: geglu_tp_block(dev, world),
+                             fp32=True))
     torch.save(recs, os.path.join(args.work, f"{args.task}_rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
 
 
+def geglu_tp_block(device, world):
+    """One FF block of the UNet's widest level (4096 tokens x 320, batch 2)
+    sharded over a (1, world) mesh, on the GEGLU kernel route (#6 on this
+    rank's blocks), against the whole block on the plain route; float32
+    (the caller turns TF32 off).  -> the record's figures."""
+    from celebbasis_tpu_torch.models.unet import FeedForwardGEGLU
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    holder = torch.nn.Module()
+    holder.ff = FeedForwardGEGLU(320, torch.float32).to(device)
+    with torch.no_grad():
+        for p in holder.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=device)
+                    * p.shape[-1] ** -0.5)
+        x = torch.randn(2, 4096, 320, generator=gen, device=device)
+        ln = (torch.rand(320, generator=gen, device=device) + 0.5,
+              torch.randn(320, generator=gen, device=device) * 0.1)
+        want = holder.ff(x, ln)
+        mesh = pmesh.make_mesh(1, world, device=device)
+        ff = pmesh.shard_params(holder, mesh, use_tp=True).ff
+        geglu.set_default_impl("cuda")
+        try:
+            got = ff(x, ln)
+        finally:
+            geglu.set_default_impl(None)
+    return {"max_abs_err": float((got - want).abs().max()),
+            "scale": float(want.abs().max())}
+
+
 # the local heads of every attention after --tp sharded them (read by a
 # wrapper of shard_params below)
 TP_HEADS: list = []
+# what the wrapper adds to the CLIs' shard_params calls: conv_tp (no CLI
+# sets it) and, for a train run, use_tp (no CLI trains with TP)
+TP_EXTRA: dict = {}
 _shard_params = pmesh.shard_params
 
 
 def _recording_shard_params(module, mesh, **kw):
+    kw.update(TP_EXTRA)
     out = _shard_params(module, mesh, **kw)
     if kw.get("use_tp"):
         TP_HEADS[:] = sorted({m.heads for m in module.modules()
-                              if hasattr(m, "heads")})
+                              if hasattr(m, "heads")} | set(TP_HEADS))
     return out
 
 
