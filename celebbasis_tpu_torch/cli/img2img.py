@@ -6,7 +6,8 @@ VAE-encode the init image, noise it to ``strength`` of the DDIM chain
 forward-noised original (white mask pixels = regenerate), and once more at
 the end.  Sample j draws its posterior and its noise from a generator seeded
 from ``(--seed, j)``.  Runs on ``cuda``; ``--device cpu`` asks for the CPU
-on purpose.
+on purpose.  The draws come first and the rest runs as one CUDA graph on a
+card (``make_img2img_fn``), the JAX CLI's ``jax.jit``.
 
     python -m celebbasis_tpu_torch.cli.img2img --init-img face.png \
         --prompt "a photo of a sks person" --strength 0.5
@@ -26,8 +27,8 @@ from celebbasis_tpu_torch.diffusion.sampler import (batched_normal,
                                                     step_constants,
                                                     stochastic_encode)
 from celebbasis_tpu_torch.diffusion.schedules import make_ddim_schedule
-from celebbasis_tpu_torch.models.vae import sample_posterior
 from celebbasis_tpu_torch.pipeline import finish_images
+from celebbasis_tpu_torch.utils import graphs
 from celebbasis_tpu_torch.utils.config import load_run_spec
 
 
@@ -42,27 +43,46 @@ def make_img2img_fn(pipe, num_steps: int, strength: float,
     latent size, 1 = regenerate.  ``override_z0`` / ``override_noise`` give
     the scaled latents and the encode noise in place of the draws (then
     ``generators`` may be None).  Strength 1.0 starts from pure noise.
+
+    The draws come first: generator j gives row j's posterior noise, then
+    its encode noise.  The conditioning, the VAE encode, the DDIM chain
+    (masked or not) and the decode then run as one captured ``body`` (a
+    CUDA graph per shape signature on a card, ``utils.graphs``);
+    ``fn.eager`` is the same function uncaptured.
     """
     ddim = make_ddim_schedule(pipe.schedule, num_steps, eta=0.0)
     t_enc = max(1, min(int(strength * num_steps), num_steps))
     steps = step_constants(ddim)[num_steps - t_enc:]
     scale_f = pipe.cfg.scale_factor
 
-    @torch.inference_mode()
-    def fn(manager_state, basis, init_image, mask, tokens, uncond_tokens,
-           ids, num_ids, generators, override_z0=None, override_noise=None):
+    def draws(init_image, generators, override_z0, override_noise):
+        """-> (row j's posterior noise (B, h, w, C) or None, the encode
+        noise)."""
+        B, dev = init_image.shape[0], init_image.device
+        f = pipe.latent_factor
+        shape = (B, init_image.shape[1] // f, init_image.shape[2] // f,
+                 pipe.vae.cfg.embed_dim)
+        post = None
+        if override_z0 is None:
+            post = torch.cat([torch.randn((1,) + shape[1:], generator=g,
+                                          device=g.device).to(dev)
+                              for g in generators])
+        else:
+            shape = override_z0.shape
+        noise = (batched_normal(generators, shape, dev)
+                 if override_noise is None else override_noise)
+        return post, noise
+
+    def body(manager_state, basis, init_image, mask, tokens, uncond_tokens,
+             ids, num_ids, z0, post, noise):
         B = tokens.shape[0]
         cond = pipe.conditioning(tokens, manager_state, basis, ids, num_ids)
         uncond = pipe.conditioning(uncond_tokens)
-        if override_z0 is None:
+        if z0 is None:
+            # row by row, as models.vae.sample_posterior computes a row
             mean, logvar = pipe.vae.encode(init_image)
-            z0 = torch.cat([sample_posterior(g, mean[i:i + 1],
-                                             logvar[i:i + 1])
-                            for i, g in enumerate(generators)]) * scale_f
-        else:
-            z0 = override_z0
-        noise = (batched_normal(generators, z0.shape, z0.device)
-                 if override_noise is None else override_noise)
+            z0 = torch.cat([mean[i:i + 1] + torch.exp(0.5 * logvar[i:i + 1])
+                            * post[i:i + 1] for i in range(B)]) * scale_f
         # the encode level is one DDIM index above the first decode step's;
         # at strength 1.0 there is none above: pure noise
         x = (stochastic_encode(z0, t_enc, ddim, noise=noise)
@@ -79,7 +99,18 @@ def make_img2img_fn(pipe, num_steps: int, strength: float,
             x = z0 * (1 - mask) + x * mask
         return finish_images(pipe.vae.decode(x / scale_f), output)
 
-    return fn
+    def make(run):
+        @torch.inference_mode()
+        def fn(manager_state, basis, init_image, mask, tokens, uncond_tokens,
+               ids, num_ids, generators, override_z0=None,
+               override_noise=None):
+            post, noise = draws(init_image, generators, override_z0,
+                                override_noise)
+            return run(manager_state, basis, init_image, mask, tokens,
+                       uncond_tokens, ids, num_ids, override_z0, post, noise)
+        return fn
+
+    return graphs.entry(make, body)
 
 
 def build_argparser() -> argparse.ArgumentParser:

@@ -20,7 +20,9 @@ chains draw everything before their first step (``x_T``, then
 ``step_noise``: each generator gives x_T first and then the steps' noise in
 order, as a chain that drew at each step would), or take the draws as
 tensors; the chain itself draws nothing, so that it can be captured in a
-CUDA graph (``pipeline.py``).
+CUDA graph (``pipeline.py``).  The 1,000-step DDPM chain (``DDPMChain``) is
+captured a segment at a time and draws each segment's noise just before
+the segment runs.
 """
 from __future__ import annotations
 
@@ -95,11 +97,13 @@ def _start_latents(generators, shape, device, x_T):
 
 
 def _eps_fn(eps_model: EpsModel, cond, uncond, cfg: SamplerConfig, batch):
-    """t (a Python int) and x -> eps, guided where the config asks for it."""
+    """t (a Python int, or a 0-d int64 tensor on x's device) and x -> eps,
+    guided where the config asks for it."""
     use_cfg = uncond is not None and cfg.guidance_scale != 1.0
 
     def eps(x, t):
-        tb = torch.full((batch,), t, dtype=torch.int64, device=x.device)
+        tb = (t.expand(batch) if isinstance(t, torch.Tensor) else
+              torch.full((batch,), t, dtype=torch.int64, device=x.device))
         if use_cfg:
             return guided_eps(eps_model, x, tb, cond, uncond,
                               cfg.guidance_scale)
@@ -187,46 +191,111 @@ def plms_sample(eps_model: EpsModel, ddim: DDIMSchedule, *,
     return x
 
 
+DDPM_SEGMENT = 20   # guided steps a captured segment of the DDPM chain
+
+
+class DDPMChain:
+    """The full-chain ancestral DDPM sampler over a ``NoiseSchedule``: T
+    posterior steps ``x_{t-1} ~ N(c1 x0 + c2 x_t, sigma_t^2)`` from the eps
+    prediction, with optional x0 clipping and no noise at t = 0.
+
+    The chain runs as segments of DDPM_SEGMENT guided steps, each one call
+    of a captured function (``utils.graphs``): on a card one graph of
+    DDPM_SEGMENT steps is captured at the first call and replayed
+    T/DDPM_SEGMENT times, with a second graph for the tail where
+    DDPM_SEGMENT does not divide T (the JAX package's segmented
+    ``lax.scan``).  A segment takes
+    its steps' timesteps and constants as device tensors, so every full
+    segment has one signature.  Step noise is ``batched_normal(generators)
+    * cfg.temperature`` at every step but the last (none at temperature 0);
+    each segment's noise is drawn just before its call, in the order a
+    chain drawing at each step would take it.  ``eager`` runs the same
+    segments uncaptured.
+    """
+
+    def __init__(self, eps_model: EpsModel, sched: NoiseSchedule,
+                 cfg: SamplerConfig = SamplerConfig(),
+                 clip_denoised: bool = True):
+        from celebbasis_tpu_torch.utils import graphs
+        self.eps_model, self.cfg = eps_model, cfg
+        self.clip_denoised = clip_denoised
+        self.T = sched.num_timesteps
+        self._ts = np.arange(self.T - 1, -1, -1)
+        log_var = np.asarray(sched.posterior_log_variance_clipped, np.float32)
+        # per step in chain order: sqrt(1/a), sqrt(1/a - 1), c1, c2, sigma
+        self._consts = np.stack([
+            np.asarray(a, np.float32)[self._ts] for a in (
+                sched.sqrt_recip_alphas_cumprod,
+                sched.sqrt_recipm1_alphas_cumprod,
+                sched.posterior_mean_coef1, sched.posterior_mean_coef2,
+                np.exp(0.5 * log_var))], axis=1)
+        self.segment = graphs.Captured(self._segment)
+
+    def _segment(self, x, cond, uncond, ts, consts, noise):
+        """len(ts) steps from x -> (x, the steps' x0 predictions
+        stacked)."""
+        eps_fn = _eps_fn(self.eps_model, cond, uncond, self.cfg, x.shape[0])
+        x0s = []
+        for j in range(ts.shape[0]):
+            sr, srm1, c1, c2, sigma = consts[j]
+            eps = eps_fn(x, ts[j])
+            x0 = sr * x - srm1 * eps
+            if self.clip_denoised:
+                x0 = x0.clamp(-1.0, 1.0)
+            x = c1 * x0 + c2 * x
+            if noise is not None:       # zeros at t = 0: x + 0 is x
+                x = x + sigma * (noise[j] * self.cfg.temperature)
+            x0s.append(x0)
+        return x, torch.stack(x0s)
+
+    def __call__(self, **kw):
+        """``(generators=..., shape=..., cond=..., uncond=None, x_T=None,
+        return_x0_every=0)`` -> x, or ``(x, x0s)`` with
+        ``return_x0_every=k``: x0s the x0 prediction at the end of every k
+        steps (and of the last step), stacked."""
+        return self._run(self.segment, **kw)
+
+    def eager(self, **kw):
+        """The same chain with its segments uncaptured (comparisons)."""
+        return self._run(self.segment.eager, **kw)
+
+    def _run(self, segment, *, generators, shape, cond, uncond=None,
+             x_T=None, return_x0_every: int = 0):
+        device = cond.device
+        x = _start_latents(generators, shape, device, x_T)
+        ts = torch.from_numpy(self._ts).to(device)
+        consts = torch.from_numpy(self._consts).to(device)
+        snaps = []
+        for s in range(0, self.T, DDPM_SEGMENT):
+            e = min(s + DDPM_SEGMENT, self.T)
+            noise = None
+            if self.cfg.temperature != 0.0:
+                noise = torch.stack([
+                    batched_normal(generators, shape, device) if t > 0
+                    else torch.zeros(shape, device=device)
+                    for t in self._ts[s:e]])
+            x, x0s = segment(x, cond, uncond, ts[s:e], consts[s:e], noise)
+            snaps += [x0s[i - s] for i in range(s, e)
+                      if return_x0_every > 0 and (
+                          (i + 1) % return_x0_every == 0 or i == self.T - 1)]
+        if return_x0_every <= 0:
+            return x
+        return x, torch.stack(snaps)
+
+
 def ddpm_sample(eps_model: EpsModel, sched: NoiseSchedule, *,
                 generators: Sequence[torch.Generator] | None, shape,
                 cond: torch.Tensor, uncond: torch.Tensor | None = None,
                 cfg: SamplerConfig = SamplerConfig(),
                 x_T: torch.Tensor | None = None,
                 clip_denoised: bool = True, return_x0_every: int = 0):
-    """Full-chain ancestral DDPM sampling over a ``NoiseSchedule``: T
-    posterior steps ``x_{t-1} ~ N(c1 x0 + c2 x_t, sigma_t^2)`` from the eps
-    prediction, with optional x0 clipping and no noise at t = 0.
-
-    Step noise is ``batched_normal(generators) * cfg.temperature``; it is
-    not drawn at temperature 0.  With ``return_x0_every=k`` returns
-    ``(x, x0s)``, x0s the x0 prediction at the end of every k steps (and of
-    the last step), stacked.
-    """
-    T = sched.num_timesteps
-    c1, c2 = _f32(sched.posterior_mean_coef1), _f32(sched.posterior_mean_coef2)
-    sigma = _f32(np.exp(0.5 * np.asarray(sched.posterior_log_variance_clipped,
-                                         np.float32)))
-    sr = _f32(sched.sqrt_recip_alphas_cumprod)
-    srm1 = _f32(sched.sqrt_recipm1_alphas_cumprod)
-    device = cond.device
-    x = _start_latents(generators, shape, device, x_T)
-    eps_fn = _eps_fn(eps_model, cond, uncond, cfg, shape[0])
-    snaps = []
-    for i, t in enumerate(range(T - 1, -1, -1)):
-        eps = eps_fn(x, t)
-        x0 = sr[t] * x - srm1[t] * eps
-        if clip_denoised:
-            x0 = x0.clamp(-1.0, 1.0)
-        x = c1[t] * x0 + c2[t] * x
-        if t > 0 and cfg.temperature != 0.0:
-            x = x + sigma[t] * (batched_normal(generators, shape, device)
-                                * cfg.temperature)
-        if return_x0_every > 0 and ((i + 1) % return_x0_every == 0
-                                    or i == T - 1):
-            snaps.append(x0)
-    if return_x0_every <= 0:
-        return x
-    return x, torch.stack(snaps)
+    """One run of a :class:`DDPMChain` made for it (a caller that samples
+    more than once keeps the chain, and so its graphs).  With
+    ``return_x0_every=k`` returns ``(x, x0s)``, x0s the x0 prediction at
+    the end of every k steps (and of the last step), stacked."""
+    return DDPMChain(eps_model, sched, cfg, clip_denoised)(
+        generators=generators, shape=shape, cond=cond, uncond=uncond,
+        x_T=x_T, return_x0_every=return_x0_every)
 
 
 def stochastic_encode(x0: torch.Tensor, ddim_index: int, ddim: DDIMSchedule,

@@ -21,7 +21,11 @@ Counterpart of ``celebbasis_tpu/eval/evaluators.py`` (the reference's
 The networks take state dicts in the port's names (``convert_*`` of their
 modules) and run on ``device`` (``cuda`` unless the caller asks for the CPU)
 in float32 with TF32 off (``utils.precision.no_tf32``), as the JAX package
-scores at ``"highest"`` matmul precision.  ``face_cropper_from_nets``
+scores at ``"highest"`` matmul precision.  Each network's forward (the
+identity scorer's with its affine warp) is captured per batch shape
+(``utils.graphs``, the JAX package's ``jax.jit``): on a card a CUDA graph,
+captured inside ``no_tf32`` at the first batch of a shape and replayed
+after; the host preprocessing runs before it.  ``face_cropper_from_nets``
 builds the identity scorer's alignment cropper from the W0 nets (FaceBoxes
 and PIPNet, ``align/``); scoring without a cropper treats inputs as aligned
 crops.
@@ -46,6 +50,7 @@ from celebbasis_tpu_torch.models.clip_vit import (CLIPTextTower,
 from celebbasis_tpu_torch.ops.warp import (INSIGHTFACE_TRANS_MATRIX,
                                            batched_affine_warp_resize)
 from celebbasis_tpu_torch.text.tokenizer import CLIPTokenizer
+from celebbasis_tpu_torch.utils import graphs
 from celebbasis_tpu_torch.utils.precision import no_tf32
 
 
@@ -80,19 +85,22 @@ class CLIPEvaluator:
             self.text = _frozen(CLIPTextTower(text_cfg,
                                               proj_dim=vision_cfg.proj_dim),
                                 text_params)
+        # captured per batch shape on a card (module docstring)
+        self._vision = graphs.Captured(self.vision)
+        self._text = graphs.Captured(self.text)
         self.size = vision_cfg.image_size
 
     def image_features(self, images_minus1_1: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(preprocess_images(images_minus1_1, self.size))
         with torch.inference_mode(), no_tf32():
-            feats = self.vision(x.to(self.device)).cpu().numpy()
+            feats = self._vision(x.to(self.device)).cpu().numpy()
         return _norm(feats)
 
     def text_features(self, texts: Sequence[str]) -> np.ndarray:
         toks = torch.from_numpy(np.asarray(self.tokenizer(list(texts)),
                                            np.int64))
         with torch.inference_mode(), no_tf32():
-            feats = self.text(toks.to(self.device)).cpu().numpy()
+            feats = self._text(toks.to(self.device)).cpu().numpy()
         return _norm(feats)
 
     def img_to_img_similarity(self, src_images, generated_images) -> float:
@@ -166,6 +174,12 @@ class IdentityEvaluator:
         self.img_size = img_size
         self.face_size = face_size
         self._trans = INSIGHTFACE_TRANS_MATRIX.to(self.device)
+        self._embed = graphs.Captured(self._embed_fn)
+
+    def _embed_fn(self, crops: torch.Tensor) -> torch.Tensor:
+        faces = batched_affine_warp_resize(crops, self._trans,
+                                           (self.face_size, self.face_size))
+        return self.net(faces)
 
     def embed_crops(self, crops_minus1_1: np.ndarray) -> np.ndarray:
         """Two-stage resample (grid_sample at crop resolution, then
@@ -173,10 +187,7 @@ class IdentityEvaluator:
         crops = torch.from_numpy(np.ascontiguousarray(crops_minus1_1,
                                                       np.float32))
         with torch.inference_mode(), no_tf32():
-            faces = batched_affine_warp_resize(
-                crops.to(self.device), self._trans,
-                (self.face_size, self.face_size))
-            return self.net(faces).cpu().numpy()
+            return self._embed(crops.to(self.device)).cpu().numpy()
 
     def _check_lmk_box(self, imgs_minus1_1: np.ndarray):
         """uint8 round trip, a crop per image; the FIRST image is always

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from celebbasis_tpu_torch.models.iresnet import FrozenBN
 from celebbasis_tpu_torch.ops.basic import Conv, to_nchw
+from celebbasis_tpu_torch.utils import graphs
 from celebbasis_tpu_torch.utils.precision import no_tf32
 
 POOL3_DIM = 2048
@@ -264,7 +265,9 @@ def load_inception(weights_path: str | None = None, dtype=torch.float32,
 
     Without weights the net is random (``loader.init_weights`` from
     ``seed``): for shape and contract checks only; FID numbers need the
-    ``pt_inception`` file.  The features are computed with TF32 off."""
+    ``pt_inception`` file.  The features are computed with TF32 off, the
+    net's forward captured per batch shape on a card (``utils.graphs``)
+    after the resize; ``feature_fn.captured`` is that ``Captured``."""
     from celebbasis_tpu_torch.loader import init_weights, resolve_device
     from celebbasis_tpu_torch.utils.pt_io import load_pt
 
@@ -280,8 +283,11 @@ def load_inception(weights_path: str | None = None, dtype=torch.float32,
     else:
         init_weights(net, torch.Generator(device=dev).manual_seed(seed))
 
+    forward = graphs.Captured(net)     # a CUDA graph per batch shape
+
     def feature_fn(batch_uint8: np.ndarray) -> np.ndarray:
         with torch.inference_mode(), no_tf32():
-            return net(preprocess(batch_uint8, device=dev)).cpu().numpy()
+            return forward(preprocess(batch_uint8, device=dev)).cpu().numpy()
 
+    feature_fn.captured = forward
     return feature_fn, net

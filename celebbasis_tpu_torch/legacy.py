@@ -18,7 +18,9 @@ generators' draws come first (x_T, and the DDIM step noise at eta > 0), then
 the conditioning, the whole DDIM chain and the first-stage decode run as one
 CUDA graph, captured at the first call with a given shape signature and
 replayed after (``utils.graphs``); on CPU tensors the same Python runs
-eagerly.  The 1,000-step DDPM chain runs eagerly and draws at each step.
+eagerly.  The 1,000-step DDPM chain (``ddim=False``) runs as captured
+segments of ``diffusion.sampler.DDPMChain`` between an eager conditioning
+and an eager decode, each segment's step noise drawn before its replay.
 The graph reads the weights where they lie when it is captured: load or cast
 them before the first call.
 """
@@ -31,10 +33,10 @@ import torch
 import torch.nn as nn
 
 from celebbasis_tpu_torch.diffusion.ddpm import ScheduleArrays, q_sample
-from celebbasis_tpu_torch.diffusion.sampler import (SamplerConfig,
+from celebbasis_tpu_torch.diffusion.sampler import (DDPMChain,
+                                                    SamplerConfig,
                                                     batched_normal,
-                                                    ddim_sample, ddpm_sample,
-                                                    step_noise)
+                                                    ddim_sample, step_noise)
 from celebbasis_tpu_torch.diffusion.schedules import (make_ddim_schedule,
                                                       make_schedule)
 from celebbasis_tpu_torch.loader import init_weights, resolve_device
@@ -294,10 +296,11 @@ class LegacyLDM(nn.Module):
         ``guidance_scale`` != 1 guides against the empty prompt for text
         conditioning, or against the learned ``uncond_label`` class
         (default ``n_classes - 1``).  The DDIM path is captured on a card
-        (module docstring); ``fn.eager`` is the same function uncaptured,
-        and ``fn.body(c_in, u_in, x_T, noise)`` the chain and the decode from
-        the conditioning inputs and the draws, for callers that capture a
-        longer path around it (``cli/inpaint.py``).
+        (module docstring), the DDPM path a segment at a time (``fn.chains``
+        holds its ``DDPMChain``); ``fn.eager`` is the same function
+        uncaptured, and ``fn.body(c_in, u_in, x_T, noise)`` the DDIM chain
+        and the decode from the conditioning inputs and the draws, for
+        callers that capture a longer path around it (``cli/inpaint.py``).
         """
         sched = make_schedule("linear", self.timesteps,
                               linear_start=self.linear_start,
@@ -341,16 +344,26 @@ class LegacyLDM(nn.Module):
             return c_in, u_in
 
         if not ddim:
-            @torch.inference_mode()
-            def ddpm_fn(cond_batch, n, generators, x_T=None):
-                c_in, u_in = inputs(cond_batch, n)
-                model, cond, uncond = contexts(c_in, u_in, n)
-                z = ddpm_sample(model, sched, generators=generators,
-                                shape=shape(n), cond=cond, uncond=uncond,
-                                cfg=scfg, x_T=x_T)
-                return self.decode_first_stage(
-                    z, force_not_quantize=force_not_quantize)
-            return ddpm_fn
+            chains: Dict[bool, DDPMChain] = {}     # by "unconditional"
+
+            def make_ddpm(way):
+                @torch.inference_mode()
+                def ddpm_fn(cond_batch, n, generators, x_T=None):
+                    c_in, u_in = inputs(cond_batch, n)
+                    model, cond, uncond = contexts(c_in, u_in, n)
+                    if (c_in is None) not in chains:
+                        chains[c_in is None] = DDPMChain(model, sched, scfg)
+                    z = way(chains[c_in is None])(
+                        generators=generators, shape=shape(n), cond=cond,
+                        uncond=uncond, x_T=x_T)
+                    return self.decode_first_stage(
+                        z, force_not_quantize=force_not_quantize)
+                return ddpm_fn
+
+            fn = make_ddpm(lambda chain: chain)
+            fn.eager = make_ddpm(lambda chain: chain.eager)
+            fn.chains = chains
+            return fn
 
         def make(run):
             @torch.inference_mode()

@@ -129,7 +129,8 @@ class CLIPTextTower(nn.Module):
         hidden = self.encoder(input_ids)                    # (B, L, width)
         # CLIP pools at the EOT token, the largest token id
         eot = input_ids.argmax(dim=-1)
-        pooled = hidden[torch.arange(hidden.shape[0]), eot]
+        pooled = hidden[torch.arange(hidden.shape[0], device=eot.device),
+                        eot]
         return pooled @ self.proj
 
 

@@ -231,33 +231,34 @@ class LPIPSWithDiscriminator(nn.Module):
 
     # -- optimizer_idx == 0 ---------------------------------------------
     def generator_loss(self, inputs: torch.Tensor, recons: torch.Tensor,
-                       kl: torch.Tensor, global_step: int,
+                       kl: torch.Tensor, disc_factor: float,
                        last_layer: Optional[torch.Tensor] = None,
                        weights=None, cond=None, split: str = "train"
                        ) -> Tuple[torch.Tensor, Dict]:
-        """The generator pass.  ``last_layer`` is the decoder's last conv
-        weight, whose gradients set the adaptive weight; None gives
-        ``d_weight`` 0, as the reference's eval-mode branch does."""
+        """The generator pass.  ``disc_factor`` is ``adopt_weight``'s value
+        at the step (0 before ``disc_start``), resolved by the caller so
+        that a captured pass reads no step.  ``last_layer`` is the
+        decoder's last conv weight, whose gradients set the adaptive
+        weight; None gives ``d_weight`` 0, as the reference's eval-mode
+        branch does."""
         cfg = self.cfg
         wnll, nll, rec_mean = self.nll_of(inputs, recons, weights)
         kl_loss = kl.sum() / inputs.shape[0]
         g_loss = -self._logits_fake(recons, cond).mean()
         d_weight = self._d_weight(
             nll, g_loss, last_layer if cfg.disc_factor > 0.0 else None)
-        disc_factor = adopt_weight(cfg.disc_factor, global_step,
-                                   cfg.disc_start)
         loss = wnll + cfg.kl_weight * kl_loss \
             + d_weight * disc_factor * g_loss
         log = {f"{split}/total_loss": loss, f"{split}/logvar": self.logvar,
                f"{split}/kl_loss": kl_loss, f"{split}/nll_loss": nll,
                f"{split}/rec_loss": rec_mean, f"{split}/d_weight": d_weight,
-               f"{split}/disc_factor": torch.tensor(float(disc_factor)),
+               f"{split}/disc_factor": g_loss.new_full((), disc_factor),
                f"{split}/g_loss": g_loss}
         return loss, {k: v.detach() for k, v in log.items()}
 
     # -- optimizer_idx == 1 ---------------------------------------------
     def discriminator_loss(self, inputs: torch.Tensor, recons: torch.Tensor,
-                           global_step: int, cond=None,
+                           disc_factor: float, cond=None,
                            split: str = "train"
                            ) -> Tuple[torch.Tensor, Dict]:
         inputs, recons = inputs.detach(), recons.detach()
@@ -266,8 +267,6 @@ class LPIPSWithDiscriminator(nn.Module):
             recons = torch.cat([recons, cond], dim=-1)
         logits_real = self.disc(inputs)
         logits_fake = self.disc(recons)
-        disc_factor = adopt_weight(self.cfg.disc_factor, global_step,
-                                   self.cfg.disc_start)
         d_loss = disc_factor * self._d_loss(logits_real, logits_fake)
         log = {f"{split}/disc_loss": d_loss,
                f"{split}/logits_real": logits_real.mean(),
@@ -291,7 +290,7 @@ class VQLPIPSWithDiscriminator(LPIPSWithDiscriminator):
 
     def generator_loss(self, inputs: torch.Tensor,   # type: ignore[override]
                        recons: torch.Tensor, codebook_loss: torch.Tensor,
-                       global_step: int,
+                       disc_factor: float,
                        last_layer: Optional[torch.Tensor] = None,
                        predicted_indices: Optional[torch.Tensor] = None,
                        cond=None, split: str = "train"
@@ -300,15 +299,13 @@ class VQLPIPSWithDiscriminator(LPIPSWithDiscriminator):
         nll, _, rec_mean = self.nll_of(inputs, recons)
         g_loss = -self._logits_fake(recons, cond).mean()
         d_weight = self._d_weight(nll, g_loss, last_layer)
-        disc_factor = adopt_weight(cfg.disc_factor, global_step,
-                                   cfg.disc_start)
         loss = nll + d_weight * disc_factor * g_loss \
             + cfg.codebook_weight * codebook_loss.mean()
         log = {f"{split}/total_loss": loss,
                f"{split}/quant_loss": codebook_loss.mean(),
                f"{split}/nll_loss": nll, f"{split}/rec_loss": rec_mean,
                f"{split}/d_weight": d_weight,
-               f"{split}/disc_factor": torch.tensor(float(disc_factor)),
+               f"{split}/disc_factor": g_loss.new_full((), disc_factor),
                f"{split}/g_loss": g_loss}
         if predicted_indices is not None:
             assert cfg.n_classes is not None

@@ -5,15 +5,20 @@ Counterpart of ``celebbasis_tpu/train/classifier.py``: an
 ``EncoderUNetModel`` (or a full ``UNetModel`` for per-pixel
 ``'segmentation'`` labels) learns to classify latents noised to random
 diffusion timesteps by a frozen latent-diffusion model's schedule (used
-upstream for classifier guidance).  The step -- q_sample, the classifier,
-cross-entropy and top-k accuracies, AdamW -- runs eagerly on the tensors'
-device (it is small next to the legacy trainer's, which is captured).
-Randomness: t and the q-noise come from the generator handed to the step,
-t first, unless ``t_override`` / ``noise_override`` are given.
+upstream for classifier guidance).  The train step -- q_sample, the
+classifier, cross-entropy and top-k accuracies, AdamW -- and the eval step
+of the noise sweep each run as a captured function (``utils.graphs``; the
+JAX package's two ``jax.jit``): a CUDA graph on a card, captured at the
+first call and replayed after.  AdamW is ``capturable`` there, its rate a
+device tensor that a scheduler writes between steps.  Randomness: t and
+the q-noise are drawn before the step from the generator handed to it, t
+first, unless ``t_override`` / ``noise_override`` are given; the sweep's
+level reaches its graph as a tensor.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -25,6 +30,8 @@ from celebbasis_tpu_torch.loader import resolve_device
 from celebbasis_tpu_torch.models.unet import (EncoderUNetModel, UNetConfig,
                                               UNetModel)
 from celebbasis_tpu_torch.train.lr_schedule import set_lr
+from celebbasis_tpu_torch.train.step import allocate_state, written_in_place
+from celebbasis_tpu_torch.utils import graphs
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -86,6 +93,8 @@ class NoisyLatentClassifier:
                 self.model = UNetModel(ccfg, dtype=dtype)
             else:
                 raise NotImplementedError(cfg.label_key)
+        # (z, labels, t, noise) -> the logs, no update
+        self.eval_step = graphs.Captured(self._eval_body)
         self.sched = ScheduleArrays.from_schedule(
             make_schedule("linear", cfg.timesteps,
                           linear_start=cfg.linear_start,
@@ -94,17 +103,29 @@ class NoisyLatentClassifier:
     # -- setup ----------------------------------------------------------
     def make_optimizer(self, lr: float) -> torch.optim.AdamW:
         """AdamW at the config's weight decay (the reference's
-        ``configure_optimizers``)."""
-        return torch.optim.AdamW(self.model.parameters(), lr=lr,
-                                 weight_decay=self.cfg.weight_decay)
+        ``configure_optimizers``); on a card ``capturable``, its rate a
+        device tensor, its state and the gradients allocated now."""
+        params = list(self.model.parameters())
+        on_card = params[0].is_cuda
+        opt = torch.optim.AdamW(
+            params, lr=torch.tensor(lr, device=params[0].device)
+            if on_card else lr, weight_decay=self.cfg.weight_decay,
+            capturable=on_card)
+        if on_card:
+            allocate_state(opt)
+        return opt
 
     def init_state(self, lr: float = 1e-4,
                    scheduler: Optional[Callable[[int], float]] = None
                    ) -> Dict:
         """``scheduler``: a multiplier of ``lr`` by step (LambdaLR
-        style)."""
-        return {"opt": self.make_optimizer(lr), "lr": lr,
-                "scheduler": scheduler, "step": 0}
+        style).  ``state["graph"]`` is the captured train step of this
+        state's optimizer (``.eager``: the same uncaptured)."""
+        opt = self.make_optimizer(lr)
+        graph = graphs.Captured(functools.partial(self._train_body, opt),
+                                restore=lambda: written_in_place(opt))
+        return {"opt": opt, "lr": lr, "scheduler": scheduler, "step": 0,
+                "graph": graph}
 
     # -- steps ----------------------------------------------------------
     def _forward(self, z_noisy: torch.Tensor, t: torch.Tensor):
@@ -112,27 +133,27 @@ class NoisyLatentClassifier:
             return self.model(z_noisy, t, None)
         return self.model(z_noisy, t)
 
-    def shared(self, z: torch.Tensor, labels: torch.Tensor,
-               fixed_t: Optional[int] = None,
-               generator: Optional[torch.Generator] = None,
-               t_override: Optional[torch.Tensor] = None,
-               noise_override: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Dict]:
-        """Noise ``z`` to random (or ``fixed_t``) timesteps, classify, and
-        take the mean cross-entropy and top-1 / top-k accuracies.
-        Segmentation labels arrive as class indices on the latent grid."""
-        B = z.shape[0]
-        if t_override is not None:
-            t = t_override.long()
-        elif fixed_t is None:
-            t = torch.randint(0, self.cfg.timesteps, (B,),
-                              generator=generator,
-                              device=generator.device).to(z.device)
-        else:
-            t = torch.full((B,), fixed_t, dtype=torch.long, device=z.device)
+    def draw_t_noise(self, z: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     t_override: Optional[torch.Tensor] = None,
+                     noise_override: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Random timesteps (B,) and the q-noise, t first, from
+        ``generator``, unless given."""
+        t = t_override.long() if t_override is not None else \
+            torch.randint(0, self.cfg.timesteps, (z.shape[0],),
+                          generator=generator,
+                          device=generator.device).to(z.device)
         noise = noise_override if noise_override is not None else \
             torch.randn(z.shape, generator=generator,
                         device=generator.device).to(z.device)
+        return t, noise
+
+    def shared(self, z: torch.Tensor, labels: torch.Tensor, t: torch.Tensor,
+               noise: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """Noise ``z`` to the timesteps ``t`` (B,) with ``noise``, classify,
+        and take the mean cross-entropy and top-1 / top-k accuracies.
+        Segmentation labels arrive as class indices on the latent grid."""
         logits = self._forward(q_sample(self.sched, z, t, noise), t)
         loss = cross_entropy(logits, labels).mean()
         k5 = min(5, self.cfg.num_classes)
@@ -143,6 +164,13 @@ class NoisyLatentClassifier:
                f"acc@{k5}": top_k_accuracy(flat_l, flat_y, k5).detach()}
         return loss, log
 
+    def _train_body(self, opt, z, labels, t, noise) -> Dict:
+        loss, log = self.shared(z, labels, t, noise)
+        opt.zero_grad(set_to_none=False)
+        loss.backward()
+        opt.step()
+        return log
+
     def train_step(self, state: Dict, z: torch.Tensor, labels: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    t_override: Optional[torch.Tensor] = None,
@@ -152,13 +180,14 @@ class NoisyLatentClassifier:
         if state["scheduler"] is not None:
             set_lr(opt, state["lr"] * state["scheduler"](state["step"]))
         self.model.train()
-        loss, log = self.shared(z, labels, None, generator, t_override,
-                                noise_override)
-        opt.zero_grad()
-        loss.backward()
-        opt.step()
+        t, noise = self.draw_t_noise(z, generator, t_override,
+                                     noise_override)
+        log = state["graph"](z, labels, t, noise)
         state["step"] += 1
         return state, {f"train/{k}": v for k, v in log.items()}
+
+    def _eval_body(self, z, labels, t, noise) -> Dict:
+        return self.shared(z, labels, t, noise)[1]
 
     @torch.no_grad()
     def validate_noise_sweep(self, z: torch.Tensor, labels: torch.Tensor,
@@ -166,12 +195,15 @@ class NoisyLatentClassifier:
                              log_every_t: int = 200) -> Dict[int, Dict]:
         """Accuracy at the fixed noise levels 0, log_every_t, 2 *
         log_every_t, ...; one q-noise draw serves every level, as one key
-        does in the JAX sweep."""
+        does in the JAX sweep.  Each level is a call of one captured eval
+        step, the level a (B,) tensor."""
         noise = torch.randn(z.shape, generator=generator,
                             device=generator.device).to(z.device)
         self.model.eval()
         out = {}
         for t in range(0, self.cfg.timesteps, log_every_t):
-            _, log = self.shared(z, labels, t, noise_override=noise)
+            tb = torch.full((z.shape[0],), t, dtype=torch.long,
+                            device=z.device)
+            log = self.eval_step(z, labels, tb, noise)
             out[t] = {k: float(v) for k, v in log.items()}
         return out

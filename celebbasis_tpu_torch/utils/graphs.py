@@ -49,6 +49,26 @@ draw whose number and shapes only the captured function knows (the UNet's
 dropout masks): ``generators`` returns the CUDA generators ``fn`` draws from,
 and each is registered with the graph (``register_generator_state``), so
 that every replay draws anew from it.
+
+A value that changes from call to call (a step index, a timestep, a rate)
+is passed as a tensor, never as a Python number: each value would be a
+signature of its own, with its own capture and pool.  A number that takes
+a few values only may stay one (the AE trainer's discriminator factor: one
+graph before ``disc_start`` and one after).  A rate lives in the
+optimizer as a device tensor written between calls (``capturable`` AdamW).
+
+**Segments.**  A loop too long for one graph (the 1,000-step DDPM chain,
+``diffusion.sampler.DDPMChain``) captures one segment of k steps whose
+per-step constants arrive as tensors, and replays it T/k times, with a
+second graph for a tail of T mod k steps; the segment's random numbers are
+drawn just before each replay.  That is the counterpart of a segmented
+``lax.scan``.
+
+Captured in the port: the three txt2img samplers and img2img
+(``pipeline.py``, ``cli/img2img.py``), the legacy DDIM chains and the DDPM
+segments (``legacy.py``), the train, cached, eval and TI steps, the legacy
+and AE train steps, the classifier's train and eval steps, and the W4
+scorers' forwards (``eval/``).
 """
 from __future__ import annotations
 

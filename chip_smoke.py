@@ -135,8 +135,12 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
 11. ``generate`` the generation CLIs in process on ``configs/aigc_id.yaml``
                (bf16, 512x512, two samples, the output convs drawn): a
                20-step PLMS txt2img (21 UNet calls), txt2img on two face
-               crops, a masked img2img at strength 0.5; ``ddpm_sample`` over
-               the full 1000-step schedule with guidance; ``build_basis`` and
+               crops, a masked img2img at strength 0.5, each one graph; on
+               one assembly img2img masked and plain on its graph and
+               eagerly in turns (``graph_turns``), and ``DDPMChain`` over
+               the full 1000-step schedule with guidance on its 20-step
+               segment graph against one eager chain (latents and pixels
+               bit for bit, launches a replay); ``build_basis`` and
                ``extract`` on the CLI training run's checkpoint (the
                files' shapes as the JAX package writes them).  Each with
                its wall time, peak memory, UNet calls and flash launches;
@@ -162,6 +166,10 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
                off (allowed before the call, allowed again after), 12
                packed launches a ViT forward; the ViT's image features on
                the kernel route within 2e-5 (relative) of the plain route;
+               each scorer forward (ViT at two batches, the text tower,
+               the warp and sphere20, Inception at two batches) on its
+               graph and eagerly in turns; ``eval_imgs`` once more with
+               its forwards uncaptured (the wall the graphs save);
                then ``eval_imgs`` with ``--detector_ckpt`` / ``--pipnet_ckpt``
                (the align phase's files): scores finite, the cropper
                launching no hand-written kernel;
@@ -173,7 +181,9 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
                ``cli/sample_diffusion.py`` on ``celebahq-ldm-vq-4.yaml``
                (VQ-f4, 4 samples, 50 DDIM steps; each of its three
                attention levels' AttentionBlock in fp32 against the
-               reference's arithmetic written out) and ``cli/inpaint.py`` at
+               reference's arithmetic written out), ``--vanilla`` (the
+               1000-step DDPM chain on its segment graph: the CLI's pixels
+               a replay's, the replay the eager chain's bits) and ``cli/inpaint.py`` at
                the tiny concat configuration: wall, peak memory, launches
                of the flash forward per chain, per UNet call and per BERT
                encode, device ms per (guided) UNet forward, the CLI's images
@@ -206,12 +216,17 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
                ``txt2img-1p4B-eval.yaml`` with BERT trainable (batch 4, two
                steps and two timed, remat on; launches a step equal to
                ``step_1p4b_launches``); ``cli/train_ae.py`` on
-               ``autoencoder_kl_32x32x4.yaml`` at 256^2 (batch 12, eager),
-               then one step of the same model with the discriminator on
-               (``disc_start`` 0: its loss positive, its parameters moved,
-               the adaptive weight below its clamp and equal to its value
-               recomputed from the same pass); a tiny noisy-latent
-               classifier step (#3-#5 launched);
+               ``autoencoder_kl_32x32x4.yaml`` at 256^2 (batch 12, the
+               step on its graph), then one step of the same model with the
+               discriminator on (``disc_start`` 0: its loss positive, its
+               parameters moved, the adaptive weight below its clamp and
+               equal to its value recomputed from the same pass), the step
+               on its graph and eagerly in turns before and after
+               ``disc_start`` (logs and both modules after Adam bit for
+               bit), the VQ-f4 first stage (batch 4) the same way; a tiny
+               noisy-latent classifier's train step (#3-#5 launched) and
+               noise sweep on their graphs, and both against their eager
+               runs in turns;
 16. ``warmup`` ``python -m celebbasis_tpu_torch.cli.warmup`` at its defaults
                in a process of its own: the kernel libraries built, the
                train-step and txt2img graphs captured, seconds of each;
@@ -254,7 +269,8 @@ holds every hand-written kernel against its plain PyTorch version.  Phases:
                largest output); ms a step by rank, peak memory, seconds in
                gloo's collectives.
 
-The generation and training paths run as CUDA graphs (``utils/graphs.py``):
+The generation, training and scoring paths run as CUDA graphs
+(``utils/graphs.py``):
 a graph's warm-up and capture run its Python (hooks that count UNet calls
 see both), its warm-up and each replay launch its kernels (the launch
 counts hold both), and the checks count them so.
@@ -3505,6 +3521,91 @@ def measured(name, ctx, fn, phase="generate"):
     return out, rec
 
 
+def kernel_counts():
+    """Every hand-written kernel's launch counter that is not zero: flash
+    (the dk/dv split reduction's among them), GEGLU and int8."""
+    counts = {**flash_counts(), **geglu.launch_counts(),
+              **quant.launch_counts()}
+    return {n: c for n, c in counts.items() if c}
+
+
+def reset_kernel_counts():
+    for module in (fa, geglu, quant):
+        module.reset_launch_count()
+
+
+def graph_turns(phase, name, graph, eager, captured, reset=lambda: None,
+                units=1):
+    """A captured path against its eager run.  ``graph()`` and ``eager()``
+    each run the path ``units`` times (a run of steps, a chain of segments)
+    and return a list of tensors (outputs, and the state a training path
+    writes); ``reset()`` puts back what they change.  The first ``graph()``
+    captures (its seconds, warm-up and first replay included, are
+    ``capture_s``); then the two run in turns (graph, eager, eager, graph),
+    each to a sync.  Every turn must give the first call's bits, launch
+    what every other turn launches (= a replay's launches, ``units`` times)
+    and capture nothing.  -> a record: ms a unit, launches a unit,
+    peak GiB allocated and reserved, for each turn; ``launches`` and
+    ``wall_ms`` over all five runs.  ``captured``: the path's
+    ``graphs.Captured``, which must hold a graph after the first call."""
+    def run(fn):
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        caps0 = graphs.captures()
+        t0 = time.perf_counter()
+        out = [o.clone() for o in fn()]
+        torch.cuda.synchronize()
+        return out, {
+            "ms": (time.perf_counter() - t0) * 1e3 / units,
+            "captures": graphs.captures() - caps0,
+            "launches": {n: c / units for n, c in kernel_counts().items()},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+
+    first, cap = run(graph)
+    rec = {"capture_s": cap["ms"] * units / 1e3,
+           "capture_captures": cap["captures"], "graph": [], "eager": []}
+    totals = {n: c * units for n, c in cap["launches"].items()}
+    same = True
+    for way in ("graph", "eager", "eager", "graph"):
+        out, r = run(graph if way == "graph" else eager)
+        same = same and len(out) == len(first) and all(
+            torch.equal(a, b) for a, b in zip(out, first))
+        rec[way].append(r)
+        for n, c in r["launches"].items():
+            totals[n] = totals.get(n, 0) + c * units
+    reset()
+    # every launch of the turns, the capture's warm-up included (the
+    # kernels line's count), and their wall
+    rec["launches"] = {n: int(round(c)) for n, c in totals.items()}
+    rec["wall_ms"] = cap["ms"] * units + sum(
+        r["ms"] * units for r in rec["graph"] + rec["eager"])
+    turns = rec["graph"] + rec["eager"]
+    rec["bits_equal"] = same
+    rec["launches_per_unit"] = turns[0]["launches"]
+    med = lambda xs: round(float(np.median(xs)), 3)
+    rec["ms_graph"] = med([r["ms"] for r in rec["graph"]])
+    rec["ms_eager"] = med([r["ms"] for r in rec["eager"]])
+    log(phase, f"{name} graph vs eager in turns: bits equal {same}; "
+               f"first call {rec['capture_s']:.2f} s (graphs captured "
+               f"{cap['captures']}); ms a unit graph "
+               f"{[round(r['ms'], 2) for r in rec['graph']]} eager "
+               f"{[round(r['ms'], 2) for r in rec['eager']]}; launches a "
+               f"unit {json.dumps(rec['launches_per_unit'])}; peak GiB "
+               f"allocated / reserved graph "
+               f"{[(round(r['peak_gib'], 2), round(r['peak_reserved_gib'], 2)) for r in rec['graph']]}"
+               f" eager "
+               f"{[(round(r['peak_gib'], 2), round(r['peak_reserved_gib'], 2)) for r in rec['eager']]}")
+    if not same or not captured.capture_s \
+            or any(r["launches"] != rec["launches_per_unit"]
+                   or r["captures"] for r in turns):
+        raise RuntimeError(f"{phase}: {name}'s graph does not give its eager "
+                           f"bits or launches: {rec}")
+    return rec
+
+
 def check_images(name, imgs, n, size):
     if imgs.shape != (n, size, size, 3) or imgs.dtype != np.uint8:
         raise RuntimeError(f"generate: {name} gave {imgs.shape} {imgs.dtype}")
@@ -3519,10 +3620,7 @@ def phase_generate(work, ckpt):
                                           txt2img)
     from celebbasis_tpu_torch.cli.serve import encode_png
     from celebbasis_tpu_torch import loader
-    from celebbasis_tpu_torch.diffusion.sampler import (SamplerConfig,
-                                                        ddpm_sample,
-                                                        sample_seed)
-    from celebbasis_tpu_torch.pipeline import finish_images
+    from celebbasis_tpu_torch.diffusion.sampler import sample_seed
     from celebbasis_tpu_torch.utils.config import load_run_spec
 
     config = os.path.join(REPO, "configs", "aigc_id.yaml")
@@ -3564,45 +3662,33 @@ def phase_generate(work, ckpt):
                 imgs, recs[name] = measured(name, ctx, run)
                 check_images(name, imgs, 2, 512)
                 want[name] = calls
-            if [recs[n]["captures"] for n in runs] != [1, 1, 0]:
+            if [recs[n]["captures"] for n in runs] != [1, 1, 1]:
                 raise RuntimeError(f"generate: captures "
                                    f"{[recs[n]['captures'] for n in runs]}; "
-                                   f"expected the two txt2img runs captured "
-                                   f"and img2img eager")
+                                   f"expected one graph a CLI run")
             plms_files = sorted(os.listdir(os.path.join(
                 work, "plms", os.listdir(os.path.join(work, "plms"))[0])))
             if plms_files != ["00000.jpg", "00001.jpg", "grid.jpg"]:
                 raise RuntimeError(f"generate: txt2img wrote {plms_files}")
 
-            # the ancestral chain over the full 1000-step schedule, CFG
+            # img2img (masked and not) and the ancestral chain over the
+            # full 1000-step schedule, CFG, on one assembly
             spec = load_run_spec([config])
             asm = loader.assemble(spec, image_size=512, seed=7,
                                   param_dtype=torch.bfloat16)
             pipe = asm.pipeline
-            T = pipe.schedule.num_timesteps
             as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int64)).cuda()
             k = len(pipe.manager_cfg.placeholder_token_ids)
-
-            def ddpm():
-                with torch.inference_mode():
-                    cond = pipe.conditioning(
-                        as_dev(asm.tokenizer(["a photo of a sks person"] * 2)),
-                        asm.manager_state, asm.basis,
-                        as_dev([[0, 1] + [0] * (k - 2)] * 2), as_dev([2, 2]))
-                    uncond = pipe.conditioning(as_dev(asm.tokenizer([""] * 2)))
-                    gens = [torch.Generator(device="cuda").manual_seed(
-                        sample_seed(13, j)) for j in range(2)]
-                    x = ddpm_sample(pipe.eps_model(), pipe.schedule,
-                                    generators=gens, shape=(2, 64, 64, 4),
-                                    cond=cond, uncond=uncond,
-                                    cfg=SamplerConfig(guidance_scale=10.0))
-                    img = pipe.vae.decode(x / pipe.cfg.scale_factor)
-                    return finish_images(img, "uint8").cpu().numpy()
-
-            imgs, recs["ddpm_full_chain"] = measured("ddpm_full_chain", ctx,
-                                                     ddpm)
-            check_images("ddpm_full_chain", imgs, 2, 512)
-            want["ddpm_full_chain"] = T
+            tokens = as_dev(asm.tokenizer(["a photo of a sks person"] * 2))
+            uncond_tokens = as_dev(asm.tokenizer([""] * 2))
+            ids, num_ids = as_dev([[0, 1] + [0] * (k - 2)] * 2), as_dev([2, 2])
+            gens = lambda: [torch.Generator(device="cuda").manual_seed(
+                sample_seed(13, j)) for j in range(2)]
+            recs.update(img2img_turns(asm, tokens, uncond_tokens, ids,
+                                      num_ids, gens))
+            recs.update(ddpm_graph_vs_eager(ctx, pipe, asm, tokens,
+                                            uncond_tokens, ids, num_ids,
+                                            gens))
             del asm, pipe
 
             basis_path = os.path.join(work, "weights", "celeb_basis.pt")
@@ -3620,12 +3706,9 @@ def phase_generate(work, ckpt):
     for name, calls in want.items():
         got = recs[name]
         # a captured run's Python runs twice (warm-up, capture) and its
-        # kernels twice (warm-up, replay); img2img and DDPM run eagerly
-        if got["captures"]:
-            expected = (graphed_unet_calls(calls, got),
-                        graphed_launches(calls, 1, got))
-        else:
-            expected = (calls, {"flash_attention_nhd": ATTN_PER_UNET * calls})
+        # kernels twice (warm-up, replay)
+        expected = (graphed_unet_calls(calls, got),
+                    graphed_launches(calls, 1, got))
         if (got["unet_calls"], got["launches"]) != expected:
             raise RuntimeError(f"generate: {name} made {got['unet_calls']} "
                                f"UNet calls and launched {got['launches']}; "
@@ -3648,6 +3731,95 @@ def phase_generate(work, ckpt):
         raise RuntimeError(f"build_basis / extract: basis {basis.shape}")
     log("generate", f"build_basis and extract: {json.dumps(shapes)}")
     return recs
+
+
+def img2img_turns(asm, tokens, uncond_tokens, ids, num_ids, gens):
+    """``make_img2img_fn`` at the CLI's settings (20 DDIM steps, strength
+    0.5: 10 guided UNet calls), masked (the right half regenerated) and
+    not, on its graph against its eager run (``graph_turns``).  -> the two
+    records."""
+    from celebbasis_tpu_torch.cli import img2img
+
+    fn = img2img.make_img2img_fn(asm.pipeline, DDIM_STEPS, 0.5, 10.0, 512,
+                                 output="uint8")
+    init = torch.from_numpy(face_crops(512, 51, k=3)[2].astype(np.float32)
+                            / 127.5 - 1.0).cuda()[None].expand(2, -1, -1, -1)
+    mask = torch.zeros(1, 64, 64, 1, device="cuda")
+    mask[:, :, 32:] = 1.0
+    out = {}
+    for name, m in (("img2img_mask_turns", mask),
+                    ("img2img_plain_turns", None)):
+        args = lambda: (asm.manager_state, asm.basis, init, m, tokens,
+                        uncond_tokens, ids, num_ids, gens())
+        out[name] = graph_turns("generate", name, lambda: [fn(*args())],
+                                lambda: [fn.eager(*args())], fn.captured)
+        want = {"flash_attention_nhd": ATTN_PER_UNET * DDIM_STEPS // 2}
+        if fn.captured.launches_per_replay() != dict(
+                (n, c * (1 + (m is None))) for n, c in want.items()) \
+                or out[name]["launches_per_unit"] != want:
+            raise RuntimeError(f"generate: {name} launched "
+                               f"{out[name]['launches_per_unit']} a run; "
+                               f"expected {want}")
+    return out
+
+
+def ddpm_graph_vs_eager(ctx, pipe, asm, tokens, uncond_tokens, ids, num_ids,
+                        gens):
+    """The ancestral chain over the full 1000-step schedule with guidance
+    10 (``diffusion.sampler.DDPMChain``), then the VAE decode: once on its
+    segment graph (one capture of DDPM_SEGMENT steps, replayed T /
+    DDPM_SEGMENT times) and once eagerly.  The latents and pixels bit for
+    bit, a replay's launches equal to a segment's eager launches, the UNet
+    calls each way.  -> the two records."""
+    from celebbasis_tpu_torch.diffusion.sampler import (DDPM_SEGMENT,
+                                                        DDPMChain,
+                                                        SamplerConfig)
+    from celebbasis_tpu_torch.pipeline import finish_images
+
+    T = pipe.schedule.num_timesteps
+    with torch.inference_mode():
+        cond = pipe.conditioning(tokens, asm.manager_state, asm.basis, ids,
+                                 num_ids)
+        uncond = pipe.conditioning(uncond_tokens)
+    chain = DDPMChain(pipe.eps_model(), pipe.schedule,
+                      SamplerConfig(guidance_scale=10.0))
+
+    def ddpm(way):
+        with torch.inference_mode():
+            x = way(generators=gens(), shape=(2, 64, 64, 4), cond=cond,
+                    uncond=uncond)
+            img = pipe.vae.decode(x / pipe.cfg.scale_factor)
+            return x, finish_images(img, "uint8")
+
+    (x_g, imgs_g), graph = measured("ddpm_full_chain", ctx,
+                                    lambda: ddpm(chain))
+    (x_e, imgs_e), eager = measured("ddpm_full_chain_eager", ctx,
+                                    lambda: ddpm(chain.eager))
+    check_images("ddpm_full_chain", imgs_g.cpu().numpy(), 2, 512)
+    per_unet = {"flash_attention_nhd": ATTN_PER_UNET}
+    per_replay = {n: c * DDPM_SEGMENT for n, c in per_unet.items()}
+    graph.update(bits_equal=bool(torch.equal(x_g, x_e)
+                                 and torch.equal(imgs_g, imgs_e)),
+                 launches_per_replay=chain.segment.launches_per_replay(),
+                 capture_s=sum(chain.segment.capture_s.values()))
+    log("generate", f"ddpm_full_chain: {T} steps on a {DDPM_SEGMENT}-step "
+                    f"segment graph {graph['wall_ms']:.0f} ms (capture "
+                    f"{graph['capture_s']:.2f} s, {graph['captures']} graphs)"
+                    f" vs eager {eager['wall_ms']:.0f} ms; bits equal "
+                    f"{graph['bits_equal']}; launches a replay "
+                    f"{json.dumps(graph['launches_per_replay'])}")
+    want = ((1, 2 * DDPM_SEGMENT, {n: c * (T + DDPM_SEGMENT)
+                                   for n, c in per_unet.items()}),
+            (0, T, {n: c * T for n, c in per_unet.items()}))
+    got = tuple((r["captures"], r["unet_calls"], r["launches"])
+                for r in (graph, eager))
+    if not graph["bits_equal"] or got != want \
+            or graph["launches_per_replay"] != per_replay:
+        raise RuntimeError(f"generate: the DDPM chain's graph gave bits "
+                           f"equal {graph['bits_equal']}, (captures, UNet "
+                           f"calls, launches) {got}, expected {want}, "
+                           f"{graph['launches_per_replay']} a replay")
+    return {"ddpm_full_chain": graph, "ddpm_full_chain_eager": eager}
 
 
 # -- phase 12 -----------------------------------------------------------------
@@ -4020,6 +4192,115 @@ class ForwardProbe:
             cls.forward = fwd
 
 
+class MethodCalls:
+    """While entered, counts the calls of ``cls.<name>`` (``n``)."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name, self.n = cls, name, 0
+
+    def __enter__(self):
+        self.saved = getattr(self.cls, self.name)
+
+        def method(obj, *args, **kw):
+            self.n += 1
+            return self.saved(obj, *args, **kw)
+        setattr(self.cls, self.name, method)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.saved)
+
+
+def vit_launches(probe, image_calls):
+    """The ViT's packed launches over a window of captured image features:
+    each call replays (12), each capture's warm-up launches too; the probe
+    sees a forward's Python twice a capture (warm-up and capture)."""
+    forwards = sum(1 for c in probe.calls if c[0] == "CLIPVisionEncoder")
+    if forwards % 2:
+        raise RuntimeError(f"evaluate: {forwards} ViT forwards ran their "
+                           f"Python: not two a capture")
+    return VIT_LAYERS * (image_calls + forwards // 2)
+
+
+def scorer_turns(files, imgs):
+    """Each scorer forward of an evaluation at the shapes the smoke's
+    evaluation gives it, on its graph and eagerly in turns
+    (``graph_turns``; fresh scorers, cuDNN's deterministic algorithms, TF32
+    off): the ViT at the generated batch and at one source image, the text
+    tower on a prompt, the identity scorer's warp and sphere20 on the
+    source and the samples, Inception at the flat folder's batch and the
+    sources'.  -> {name: record}."""
+    from celebbasis_tpu_torch.cli import eval_imgs
+    from celebbasis_tpu_torch.eval.inception import load_inception, preprocess
+    from celebbasis_tpu_torch.models.clip_vit import preprocess_images
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        idclip, clip_eval = eval_imgs.build_scorers(files["clip"],
+                                                    files["sphere"])
+        feat_fn, _ = load_inception(files["inception"], device="cuda")
+        r = np.random.default_rng(5)
+        u8 = lambda n: r.integers(0, 256, (n, 512, 512, 3), dtype=np.uint8)
+        vit_in = torch.from_numpy(preprocess_images(
+            imgs, clip_eval.size)).cuda()
+        toks = torch.from_numpy(np.asarray(clip_eval.tokenizer(
+            ["a photo of person"]), np.int64)).cuda()
+        crops = torch.from_numpy(r.uniform(-1, 1, (1 + EVAL_SAMPLES, 512, 512,
+                                                   3)).astype(np.float32))
+        cases = {
+            f"vit_b{len(imgs)}": (clip_eval._vision, vit_in),
+            "vit_b1": (clip_eval._vision, vit_in[:1].clone()),
+            "text_b1": (clip_eval._text, toks),
+            f"sphere_b{1 + EVAL_SAMPLES}": (idclip.id._embed, crops.cuda()),
+            "inception_b8": (feat_fn.captured,
+                             preprocess(u8(8), device="cuda")),
+            "inception_b2": (feat_fn.captured,
+                             preprocess(u8(2), device="cuda"))}
+        with torch.inference_mode(), no_tf32():
+            for name, (fn, x) in cases.items():
+                out[name] = graph_turns("evaluate", f"scorer {name}",
+                                        lambda: [fn(x)],
+                                        lambda: [fn.eager(x)], fn)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    want = {"flash_attention_nhd": float(VIT_LAYERS)}
+    if any(rec["launches_per_unit"] != (want if name.startswith("vit")
+                                        else {})
+           for name, rec in out.items()):
+        raise RuntimeError(f"evaluate: scorer launches "
+                           f"{ {n: r['launches_per_unit'] for n, r in out.items()} }")
+    return out
+
+
+def eager_evaluation(gen, files, scores):
+    """``cli/eval_imgs.py --fid`` once more with every captured forward run
+    as it is (``graphs.Captured`` patched to call ``eager``, for this run
+    only): the wall an evaluation's graphs save, and whether the scores
+    are the graphs' bits.  -> a record."""
+    from celebbasis_tpu_torch.cli import eval_imgs
+
+    real = graphs.Captured.__call__
+    graphs.Captured.__call__ = lambda self, *args: self.eager(*args)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = eval_imgs.main([
+            "--eval_folder", gen, "--clip_ckpt", files["clip"],
+            "--sphere_ckpt", files["sphere"], "--fid", "--inception_ckpt",
+            files["inception"], "--out", os.path.join(gen, "eager.json")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        graphs.Captured.__call__ = real
+    rec = {"eager_scoring_s": wall, "eager_scores_equal": eager == scores}
+    log("evaluate", f"eval_imgs with its forwards uncaptured: {wall:.1f} s; "
+                    f"scores equal to the graphs' {rec['eager_scores_equal']}"
+                    f" ({json.dumps(eager)})")
+    return rec
+
+
 def phase_evaluate(work, ckpt, align_files):
     """W4 at full width: ``cli/gen_imgs.py`` (512x512, EVAL_IDS identities
     x two prompts x EVAL_SAMPLES samples, DDIM_STEPS steps, output convs
@@ -4031,7 +4312,8 @@ def phase_evaluate(work, ckpt, align_files):
     ViT's image features on the kernel route against the plain route.
     -> a record."""
     from celebbasis_tpu_torch.cli import eval_imgs, gen_imgs
-    from celebbasis_tpu_torch.eval.evaluators import GeneratedEvalFolder
+    from celebbasis_tpu_torch.eval.evaluators import (CLIPEvaluator,
+                                                      GeneratedEvalFolder)
     from celebbasis_tpu_torch.eval.inception import InceptionV3
     from celebbasis_tpu_torch.eval.sphere import SphereNet
     from celebbasis_tpu_torch.models.clip_vit import (CLIPTextTower,
@@ -4076,7 +4358,8 @@ def phase_evaluate(work, ckpt, align_files):
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         with ForwardProbe(CLIPVisionEncoder, CLIPTextTower, SphereNet,
-                          InceptionV3) as probe:
+                          InceptionV3) as probe, \
+                MethodCalls(CLIPEvaluator, "image_features") as image_calls:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launch_count()
@@ -4098,15 +4381,17 @@ def phase_evaluate(work, ckpt, align_files):
     for name, *_ in probe.calls:
         forwards[name] = forwards.get(name, 0) + 1
     tf32_on = [c for c in probe.calls if c[1] or c[2]]
-    vit_launches = VIT_LAYERS * forwards.get("CLIPVisionEncoder", 0)
+    vit = vit_launches(probe, image_calls.n)
     rec = {"gen_imgs": gen_rec, "files_s": files_s, "scoring_s": scoring_s,
            "scores": scores, "forwards": forwards,
-           "vit_launches": vit_launches, "launches": launches,
+           "image_feature_calls": image_calls.n,
+           "vit_launches": vit, "launches": launches,
            "peak_gib": peak}
     log("evaluate", f"eval_imgs at full width (ViT-B/32, sphere20, "
                     f"Inception-v3; fp32): {scoring_s:.1f} s (scorer files "
                     f"made in {files_s:.1f} s); scores {json.dumps(scores)}; "
-                    f"forwards {json.dumps(forwards)}, {len(tf32_on)} with "
+                    f"forwards run in Python (a graph's warm-up and capture) "
+                    f"{json.dumps(forwards)}, {len(tf32_on)} with "
                     f"TF32 on, TF32 after {after}; flash launches "
                     f"{json.dumps(launches)}; peak memory {peak:.2f} GiB")
     if set(scores) != SCORE_KEYS or not all(
@@ -4119,9 +4404,10 @@ def phase_evaluate(work, ckpt, align_files):
             "InceptionV3"}:
         raise RuntimeError(f"evaluate: TF32 on in {tf32_on}, after {after}, "
                            f"forwards {forwards}")
-    if launches != {"flash_attention_nhd": vit_launches}:
+    if launches != {"flash_attention_nhd": vit}:
         raise RuntimeError(f"evaluate: launched {launches}; expected "
-                           f"{vit_launches} for the ViT's forwards")
+                           f"{vit} for the ViT's {image_calls.n} replays and "
+                           f"its captures' warm-ups")
 
     # the ViT's features: kernel route against plain route, fp32
     _, clip_eval = eval_imgs.build_scorers(files["clip"], files["sphere"])
@@ -4138,16 +4424,20 @@ def phase_evaluate(work, ckpt, align_files):
     rel = float(np.abs(f_k - f_p).max() / np.abs(f_p).max())
     rec["vit_route_rel_err"] = rel
     log("evaluate", f"ViT-B/32 image features of {len(imgs)} images, kernel "
-                    f"route ({n_k} launches) vs plain route: max |diff| / "
-                    f"max |feature| {rel:.3e} (limit {VIT_REL_TOL:g})")
-    if n_k != VIT_LAYERS or not rel <= VIT_REL_TOL:
+                    f"route ({n_k} launches: the capture's warm-up and the "
+                    f"replay) vs plain route: max |diff| / max |feature| "
+                    f"{rel:.3e} (limit {VIT_REL_TOL:g})")
+    if n_k != 2 * VIT_LAYERS or not rel <= VIT_REL_TOL:
         raise RuntimeError(f"evaluate: the ViT's kernel route differs by "
                            f"{rel:.3e} ({n_k} launches)")
 
+    rec["scorer_turns"] = scorer_turns(files, imgs)
+    rec.update(eager_evaluation(gen, files, scores))
+
     # identity scored on crops: the align phase's nets as the cropper
-    with ForwardProbe(CLIPVisionEncoder) as probe:
-        for module in (fa, geglu, quant):
-            module.reset_launch_count()
+    with ForwardProbe(CLIPVisionEncoder) as probe, \
+            MethodCalls(CLIPEvaluator, "image_features") as image_calls:
+        reset_kernel_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cropped = eval_imgs.main([
@@ -4160,7 +4450,7 @@ def phase_evaluate(work, ckpt, align_files):
         cropped_s = time.perf_counter() - t0
         launches = {**fa.launch_counts(), **geglu.launch_counts(),
                     **quant.launch_counts()}
-    vit = VIT_LAYERS * len(probe.calls)
+    vit = vit_launches(probe, image_calls.n)
     # each item scores its source and its samples; the first image of an
     # item counts as a face whether or not one is found
     faces_in_gen = cropped["num_has_face"] - cropped["n_items"]
@@ -4178,8 +4468,8 @@ def phase_evaluate(work, ckpt, align_files):
     if {k: c for k, c in launches.items() if c} != {
             "flash_attention_nhd": vit}:
         raise RuntimeError(f"evaluate: the cropped run launched {launches}; "
-                           f"the ViT's {len(probe.calls)} forwards alone "
-                           f"account for {vit}")
+                           f"the ViT's {image_calls.n} replays and its "
+                           f"captures' warm-ups alone account for {vit}")
     return rec
 
 
@@ -4269,14 +4559,16 @@ def legacy_unet_probe(ldm, x, ctx):
 
 def legacy_chain(name, rec, fn, cond, per_replay):
     """The CLI's sample function after its run: one replay's launches are
-    ``per_replay``, the window held one capture and its launches were
+    ``per_replay``, the window held one capture of the chain (and the
+    scorers' graphs, where it scored) and its launches were
     ``per_replay`` for the warm-up and for the replay, the UNet hook saw
     the warm-up's and the capture's calls; a replay and the same function
     uncaptured give the same bits.  -> the replayed images."""
     got = fn.captured.launches_per_replay()
-    if rec["captures"] != 1 or got != per_replay \
-            or rec["unet_calls"] != graphed_unet_calls(LEGACY_STEPS, rec):
-        raise RuntimeError(f"legacy: {name} captured {rec['captures']} "
+    chains = len(fn.captured.capture_s)     # the scorers capture their own
+    if chains != 1 or got != per_replay or rec["unet_calls"] \
+            != graphed_unet_calls(LEGACY_STEPS, {"captures": chains}):
+        raise RuntimeError(f"legacy: {name} captured {chains} chain "
                            f"graphs, {got} launches a replay (expected "
                            f"{per_replay}), {rec['unet_calls']} UNet calls")
     for entry, n in per_replay.items():
@@ -4551,6 +4843,78 @@ def legacy_sample_diffusion(work):
     return rec
 
 
+def legacy_sample_vanilla(work):
+    """``cli/sample_diffusion.py --vanilla`` on celebahq-ldm-vq-4.yaml: the
+    1000-step ancestral chain (``DDPMChain``: one capture of DDPM_SEGMENT
+    steps, replayed T / DDPM_SEGMENT times; #2 on the AttentionBlocks'
+    views), then the VQ decode.  The CLI's pixels equal a replay's, and
+    the replay the same chain run eagerly, bit for bit.  -> its record."""
+    from celebbasis_tpu_torch.cli import sample_diffusion
+    from celebbasis_tpu_torch.diffusion.sampler import DDPM_SEGMENT
+    from celebbasis_tpu_torch.pipeline import finish_images
+
+    n, T = LEGACY_SAMPLES, 1000
+    out = os.path.join(work, "legacy_vanilla")
+    with LegacyRuns() as runs:
+        imgs, rec = measured("sample_diffusion_vanilla", runs,
+                             lambda: sample_diffusion.main([
+                                 "--config", os.path.join(
+                                     LEGACY_CONFIGS,
+                                     "celebahq-ldm-vq-4.yaml"),
+                                 "--logdir", out, "-n", str(n),
+                                 "--batch-size", str(n), "--vanilla",
+                                 "--seed", "7"]), phase="legacy")
+    (ldm,), fn = runs.models, runs.samplers[-1]
+    check_images("sample_diffusion_vanilla", imgs, n, 256)
+    per_unet = {"flash_attention": CELEBAHQ_ATTN}
+    chain = fn.chains[True]
+    got = (rec["captures"], rec["unet_calls"], rec["launches"],
+           chain.segment.launches_per_replay())
+    want = (1, 2 * DDPM_SEGMENT,
+            {k: c * (T + DDPM_SEGMENT) for k, c in per_unet.items()},
+            {k: c * DDPM_SEGMENT for k, c in per_unet.items()})
+    if got != want:
+        raise RuntimeError(f"legacy: sample_diffusion --vanilla (captures, "
+                           f"UNet calls, launches, launches a replay) {got}, "
+                           f"expected {want}")
+    torch.cuda.synchronize()
+    fa.reset_launch_count()
+    t0 = time.perf_counter()
+    replay = fn(None, n, legacy_gens(7, n))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    replay_launches = flash_counts()
+    fa.reset_launch_count()
+    eager = fn.eager(None, n, legacy_gens(7, n))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rec.update(
+        replay_ms=(t1 - t0) * 1e3, eager_ms=(t2 - t1) * 1e3,
+        replay_launches=replay_launches, eager_launches=flash_counts(),
+        capture_s=sum(chain.segment.capture_s.values()),
+        cli_is_replay=bool(np.array_equal(
+            finish_images(replay, "uint8").cpu().numpy(), imgs)),
+        graph_equals_eager=bool(torch.equal(replay, eager)))
+    log("legacy", f"sample_diffusion --vanilla: {T} steps, chain and decode "
+                  f"on the segment graph {rec['replay_ms']:.0f} ms (capture "
+                  f"{rec['capture_s']:.2f} s) vs eager "
+                  f"{rec['eager_ms']:.0f} ms; the CLI's images a replay's "
+                  f"{rec['cli_is_replay']}, graph bits = eager bits "
+                  f"{rec['graph_equals_eager']}; eager launches "
+                  f"{json.dumps(rec['eager_launches'])}")
+    chain_launches = {k: c * T for k, c in per_unet.items()}
+    if not (rec["cli_is_replay"] and rec["graph_equals_eager"]) \
+            or rec["eager_launches"] != chain_launches \
+            or rec["replay_launches"] != chain_launches:
+        raise RuntimeError(f"legacy: sample_diffusion --vanilla {rec}")
+    # the CLI's, the replay's and the eager chain's, for the kernels line
+    rec["launches"] = {k: c + rec["replay_launches"][k]
+                       + rec["eager_launches"][k]
+                       for k, c in rec["launches"].items()}
+    del ldm, runs, fn
+    return rec
+
+
 def legacy_inpaint(work):
     """``cli/inpaint.py`` at the tiny concat configuration (module
     docstring, phase 14).  -> its record."""
@@ -4626,10 +4990,12 @@ def legacy_inpaint(work):
 def legacy_summary(legacy):
     """The legacy phase's walls, device ms per UNet forward and peaks."""
     out = {"phase_s": round(legacy["phase_wall_s"], 1)}
-    for name in ("evaluate_model", "sample_diffusion", "inpaint"):
+    for name in ("evaluate_model", "sample_diffusion",
+                 "sample_diffusion_vanilla", "inpaint"):
         rec = legacy[name]
-        out[name] = {k: round(rec[k], 3) for k in ("wall_ms", "unet_ms",
-                                                   "peak_gib") if k in rec}
+        out[name] = {k: round(rec[k], 3) for k in (
+            "wall_ms", "unet_ms", "peak_gib", "replay_ms", "eager_ms",
+            "capture_s") if k in rec}
     out["vq_flip_share"] = legacy["sample_diffusion"]["vq"]["flip_share"]
     return out
 
@@ -4641,6 +5007,7 @@ def phase_legacy(work):
     out = {"route_parity": legacy_route_parity()}
     for name, run in (("evaluate_model", legacy_evaluate_model),
                       ("sample_diffusion", legacy_sample_diffusion),
+                      ("sample_diffusion_vanilla", legacy_sample_vanilla),
                       ("inpaint", legacy_inpaint)):
         gc.collect()                  # the last run's model and graphs
         torch.cuda.empty_cache()
@@ -5077,46 +5444,139 @@ def legacy_train_1p4b(work):
 
 def legacy_train_ae(work):
     """``cli/train_ae.py --fake-data`` on autoencoder_kl_32x32x4.yaml at
-    256^2 (module docstring, phase 15).  -> its record."""
+    256^2 (module docstring, phase 15), on its step graph; the step on its
+    graph and eagerly in turns before ``disc_start`` and, after the GAN
+    step that captures the second signature, after it; then the VQ-f4
+    first stage's step the same way.  With cuDNN's deterministic algorithms
+    (the discriminator convolves in float32, whose eager steps repeated
+    only so).  -> its record."""
     from celebbasis_tpu_torch.cli import train_ae
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_count()
-    t0 = time.perf_counter()
-    run = train_ae.main([
-        "--config", os.path.join(LEGACY_CONFIGS, "autoencoder_kl_32x32x4.yaml"),
-        "--fake-data", str(LEGACY_AE_BATCH), "--max-steps", "2",
-        "--log-every", "1", "--logdir", os.path.join(work, "legacy_ae")])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    tr = run["trainer"]
-    x = torch.from_numpy(np.random.default_rng(0).uniform(
-        -1, 1, (LEGACY_AE_BATCH, 256, 256, 3)).astype(np.float32)).cuda()
-    gen = torch.Generator("cuda").manual_seed(0)
-    ms = []
-    for _ in range(2):
-        t1 = time.perf_counter()
-        log_ = tr.train_batch(x, gen)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
         torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t1) * 1e3)
-    rec = {"batch": LEGACY_AE_BATCH, "wall_s": wall, "ms": ms,
-           "logs": run["logs"], "launches": fa.launch_count(),
-           "d_weight": float(log_["train/d_weight"]),
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    log("legacy_train", f"cli/train_ae.py KL-f8 256^2, batch "
-                        f"{LEGACY_AE_BATCH}: 2 steps in {wall:.1f} s; ms a "
-                        f"step (generator + discriminator pass, eager) "
-                        f"{[round(v, 1) for v in ms]}; d_weight "
-                        f"{rec['d_weight']:.4e}; flash launches "
-                        f"{rec['launches']}; peak allocated GiB "
-                        f"{rec['peak_gib']:.2f}")
-    if not all(np.isfinite(v) for r in run["logs"].values()
-               for v in r.values()) or not rec["d_weight"] > 0:
-        raise RuntimeError(f"legacy_train: train_ae logged {run['logs']}")
-    rec["gan_step"] = legacy_ae_gan_step(tr, x)
-    del run, tr
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        run = train_ae.main([
+            "--config", os.path.join(LEGACY_CONFIGS,
+                                     "autoencoder_kl_32x32x4.yaml"),
+            "--fake-data", str(LEGACY_AE_BATCH), "--max-steps", "2",
+            "--log-every", "1", "--logdir", os.path.join(work, "legacy_ae")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr = run["trainer"]
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            -1, 1, (LEGACY_AE_BATCH, 256, 256, 3)).astype(np.float32)).cuda()
+        gen = torch.Generator("cuda").manual_seed(0)
+        ms = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            log_ = tr.train_batch(x, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        rec = {"batch": LEGACY_AE_BATCH, "wall_s": wall, "ms": ms,
+               "logs": run["logs"], "launches": kernel_counts(),
+               "capture_s": list(tr.train_batch.captured.capture_s.values()),
+               "d_weight": float(log_["train/d_weight"]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log("legacy_train", f"cli/train_ae.py KL-f8 256^2, batch "
+                            f"{LEGACY_AE_BATCH}: 2 steps in {wall:.1f} s "
+                            f"(capture {rec['capture_s']} s); ms a step "
+                            f"(generator + discriminator pass, on its graph) "
+                            f"{[round(v, 1) for v in ms]}; d_weight "
+                            f"{rec['d_weight']:.4e}; kernel launches "
+                            f"{rec['launches']}; peak allocated GiB "
+                            f"{rec['peak_gib']:.2f}")
+        if not all(np.isfinite(v) for r in run["logs"].values()
+                   for v in r.values()) or not rec["d_weight"] > 0 \
+                or rec["launches"] or len(rec["capture_s"]) != 1:
+            raise RuntimeError(f"legacy_train: train_ae {rec}")
+        rec["turns_before"] = ae_turns("train_ae KL-f8 before disc_start",
+                                       tr, x)
+        rec["gan_step"] = legacy_ae_gan_step(tr, x)
+        rec["turns_after"] = ae_turns("train_ae KL-f8 after disc_start", tr,
+                                      x)
+        if len(tr.train_batch.captured.capture_s) != 2:
+            raise RuntimeError(f"legacy_train: train_ae captured "
+                               f"{len(tr.train_batch.captured.capture_s)} "
+                               f"graphs; expected one each side of "
+                               f"disc_start")
+        del run, tr
+        rec["vq"] = legacy_train_vq()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return rec
+
+
+def ae_turns(name, tr, x, steps=2):
+    """``steps`` AE steps from the trainer's state on the step's graph and
+    eagerly in turns (``graph_turns``): both passes' logs, both modules'
+    parameters after Adam bit for bit; the generator's draws from one seed
+    each run.  -> the record."""
+    snap = [t.detach().clone() for t in tr.written_in_place()]
+    step0 = tr.global_step
+
+    def reset():
+        with torch.no_grad():
+            for t, v in zip(tr.written_in_place(), snap, strict=True):
+                t.copy_(v)
+        tr.global_step = step0
+
+    def run(fn):
+        gen = torch.Generator("cuda").manual_seed(3)
+        logs = [fn(x, gen) for _ in range(steps)]
+        return [v for lg in logs for v in lg.values()] + [
+            p.detach() for m in (tr.model, tr.loss.disc)
+            for p in m.parameters()]
+
+    return graph_turns("legacy_train", name, lambda: run(tr.train_batch),
+                       lambda: run(tr.train_batch.eager),
+                       tr.train_batch.captured, reset, units=steps)
+
+
+VQ_F4 = {   # CompVis latent-diffusion models/first_stage_models/vq-f4
+    "model": {"base_learning_rate": 4.5e-6,
+              "target": "ldm.models.autoencoder.VQModel",
+              "params": {"embed_dim": 3, "n_embed": 8192, "ddconfig": {
+                  "double_z": False, "z_channels": 3, "resolution": 256,
+                  "in_channels": 3, "out_ch": 3, "ch": 128,
+                  "ch_mult": [1, 2, 4], "num_res_blocks": 2,
+                  "attn_resolutions": [], "dropout": 0.0},
+                  "lossconfig": {
+                      "target": "taming.modules.losses.vqperceptual."
+                                "VQLPIPSWithDiscriminator",
+                      "params": {"disc_conditional": False,
+                                 "disc_in_channels": 3, "disc_start": 0,
+                                 "disc_weight": 0.75,
+                                 "codebook_weight": 1.0}}}},
+    "data": {"params": {"batch_size": 4}}}
+
+
+def legacy_train_vq():
+    """The VQ-f4 first stage (``VQ_F4``, 256^2, batch 4, the
+    discriminator on from step 0) through ``build_first_stage_trainer``: a
+    step on its graph (the codebook float32, the logs finite, ``d_weight``
+    above 0), then ``ae_turns``.  -> its record."""
+    from celebbasis_tpu_torch.cli import train_ae
+
+    tr, size = train_ae.build_first_stage_trainer(VQ_F4, device="cuda",
+                                                  seed=5)
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (4, size, size, 3)).astype(np.float32)).cuda()
+    log_ = tr.train_batch(x)
+    rec = {"logs": {k: float(v) for k, v in log_.items()},
+           "codebook_dtype": str(tr.model.quantize.weight.dtype)}
+    log("legacy_train", f"VQ-f4 256^2 batch 4 step on its graph: "
+                        f"{json.dumps(rec)}")
+    if not tr.is_vq or rec["codebook_dtype"] != "torch.float32" \
+            or not all(np.isfinite(v) for v in rec["logs"].values()) \
+            or not rec["logs"]["train/d_weight"] > 0 \
+            or not rec["logs"]["train/disc_factor"] == 1.0:
+        raise RuntimeError(f"legacy_train: the VQ-f4 step {rec}")
+    rec["turns"] = ae_turns("train_ae VQ-f4", tr, x)
     return rec
 
 
@@ -5177,11 +5637,15 @@ def legacy_ae_gan_step(tr, x):
 
 
 def legacy_train_classifier():
-    """One step of the noisy-latent classifier at a tiny size on the card
-    (an EncoderUNetModel, its AttentionBlocks on the per-head entry, the
-    attention pool on the packed one).  -> its record."""
+    """The noisy-latent classifier at a tiny size on the card (an
+    EncoderUNetModel, its AttentionBlocks on the per-head entry, the
+    attention pool on the packed one): a train step on its graph (#3-#5
+    launched), the noise sweep on its eval step's graph; then both on their
+    graphs and eagerly in turns (logs, parameters after AdamW bit for bit;
+    cuDNN's deterministic algorithms).  -> its record."""
     from celebbasis_tpu_torch.models.unet import UNetConfig
     from celebbasis_tpu_torch.train import classifier as clf
+    from celebbasis_tpu_torch.train.step import written_in_place
 
     cfg = clf.ClassifierConfig(
         num_classes=5, unet=UNetConfig(
@@ -5190,24 +5654,66 @@ def legacy_train_classifier():
             attention_resolutions=(2,), num_head_channels=32,
             use_spatial_transformer=False),
         image_size=16, timesteps=1000)
-    c = clf.NoisyLatentClassifier(cfg, device="cuda")
-    gen = torch.Generator("cuda").manual_seed(0)
-    z = torch.randn(4, 16, 16, 4, device="cuda", generator=gen)
-    labels = torch.tensor([0, 1, 2, 4], device="cuda")
-    state = c.init_state(lr=1e-4)
-    fa.reset_launch_count()
-    state, log_ = c.train_step(state, z, labels, gen)
-    torch.cuda.synchronize()
-    counts = {n: n_ for n, n_ in fa.launch_counts().items() if n_}
-    sweep = c.validate_noise_sweep(z, labels, gen, log_every_t=250)
-    rec = {"loss": float(log_["train/loss"]), "launches": counts,
-           "sweep_levels": sorted(sweep)}
-    log("legacy_train", f"classifier tiny step: loss {rec['loss']:.4f}, "
-                        f"launches {json.dumps(counts)}, noise sweep levels "
-                        f"{rec['sweep_levels']}")
-    if not np.isfinite(rec["loss"]) or \
-            any(counts.get(n, 0) == 0 for n in TRAIN_KERNELS):
-        raise RuntimeError(f"legacy_train: the classifier step {rec}")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        c = clf.NoisyLatentClassifier(cfg, device="cuda")
+        gen = torch.Generator("cuda").manual_seed(0)
+        z = torch.randn(4, 16, 16, 4, device="cuda", generator=gen)
+        labels = torch.tensor([0, 1, 2, 4], device="cuda")
+        state = c.init_state(lr=1e-4)
+        reset_kernel_counts()
+        state, log_ = c.train_step(state, z, labels, gen)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        sweep = c.validate_noise_sweep(z, labels, gen, log_every_t=250)
+        rec = {"loss": float(log_["train/loss"]), "launches": counts,
+               "sweep_levels": sorted(sweep),
+               "graphs": [len(state["graph"].capture_s),
+                          len(c.eval_step.capture_s)]}
+        log("legacy_train", f"classifier tiny step: loss {rec['loss']:.4f}, "
+                            f"launches {json.dumps(counts)} (warm-up and "
+                            f"replay), noise sweep levels "
+                            f"{rec['sweep_levels']}, graphs (train, eval) "
+                            f"{rec['graphs']}")
+        if not np.isfinite(rec["loss"]) or rec["graphs"] != [1, 1] or \
+                any(counts.get(n, 0) == 0 for n in TRAIN_KERNELS):
+            raise RuntimeError(f"legacy_train: the classifier step {rec}")
+
+        snap = [t.detach().clone() for t in written_in_place(state["opt"])]
+
+        def reset():
+            with torch.no_grad():
+                for t, v in zip(written_in_place(state["opt"]), snap,
+                                strict=True):
+                    t.copy_(v)
+
+        def train(fn):
+            c.model.train()
+            g, out = torch.Generator("cuda").manual_seed(1), []
+            for _ in range(2):
+                out += list(fn(z, labels, *c.draw_t_noise(z, g)).values())
+            return out + [p.detach() for p in c.model.parameters()]
+
+        rec["train_turns"] = graph_turns(
+            "legacy_train", "classifier train step", lambda: train(
+                state["graph"]), lambda: train(state["graph"].eager),
+            state["graph"], reset, units=2)
+        noise = torch.randn(z.shape, device="cuda", generator=gen)
+        levels = range(0, cfg.timesteps, 250)
+
+        @torch.no_grad()
+        def sweep_of(fn):
+            c.model.eval()
+            return [v for t in levels for v in fn(z, labels, torch.full(
+                (4,), t, device="cuda"), noise).values()]
+
+        rec["eval_turns"] = graph_turns(
+            "legacy_train", "classifier eval step", lambda: sweep_of(
+                c.eval_step), lambda: sweep_of(c.eval_step.eager),
+            c.eval_step, units=len(levels))
+    finally:
+        torch.backends.cudnn.deterministic = saved
     return rec
 
 
@@ -5230,7 +5736,15 @@ def legacy_train_summary(rec):
         "1p4b_peak_gib": [round(rec["1p4b"]["peak_gib"], 2),
                           round(rec["1p4b"]["peak_reserved_gib"], 2)],
         "ae_step_ms": med(rec["train_ae"]["ms"]),
-        "ae_peak_gib": round(rec["train_ae"]["peak_gib"], 2)}
+        "ae_peak_gib": round(rec["train_ae"]["peak_gib"], 2),
+        **{f"{name}_ms_{way}": turns[f"ms_{way}"]
+           for name, turns in (
+               ("ae_kl_before", rec["train_ae"]["turns_before"]),
+               ("ae_kl_after", rec["train_ae"]["turns_after"]),
+               ("ae_vq", rec["train_ae"]["vq"]["turns"]),
+               ("classifier_train", rec["classifier"]["train_turns"]),
+               ("classifier_eval", rec["classifier"]["eval_turns"]))
+           for way in ("graph", "eager")}}
 
 
 def phase_legacy_train(work):
@@ -5667,10 +6181,15 @@ def main() -> int:
                 + ti["graph_vs_eager_launches"].get(entry, 0),
                 "ti_txt2img": ti["txt2img"]["launches"][entry],
                 "gen_imgs": evaluate["gen_imgs"]["launches"][entry],
-                "eval_vit": evaluate["launches"][entry]})
+                "eval_vit": evaluate["launches"][entry],
+                "eval_scorer_turns": sum(
+                    r["launches"].get(entry, 0)
+                    for r in evaluate["scorer_turns"].values())})
         by_path.update({f"legacy_{name}": legacy[name]["launches"].get(
             entry, 0) for name in ("evaluate_model", "sample_diffusion",
-                                   "inpaint")})
+                                   "sample_diffusion_vanilla", "inpaint")})
+        by_path["classifier_eval"] = legacy_train["classifier"][
+            "eval_turns"]["launches"].get(entry, 0)
         by_path.update(mesh_launches(mesh, entry))
         kernels.append({
             "name": entry, "route": "cuda", "source": FWD_SOURCE,
@@ -5720,6 +6239,8 @@ def main() -> int:
                        legacy_train["1p4b"]["launches"].get(name, 0),
                    "classifier":
                        legacy_train["classifier"]["launches"].get(name, 0),
+                   "classifier_turns": legacy_train["classifier"][
+                       "train_turns"]["launches"].get(name, 0),
                    **mesh_launches(mesh, name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -5821,8 +6342,11 @@ def main() -> int:
                 f"{json.dumps(generate_ms)}; ti txt2img wall ms "
                 f"{ti['txt2img']['wall_ms']:.1f}; gen_imgs wall ms "
                 f"{evaluate['gen_imgs']['wall_ms']:.1f}; eval_imgs "
-                f"{evaluate['scoring_s']:.1f} s (with the cropper "
-                f"{evaluate['cropped_scoring_s']:.1f} s); align "
+                f"{evaluate['scoring_s']:.1f} s (forwards uncaptured "
+                f"{evaluate['eager_scoring_s']:.1f} s; with the cropper "
+                f"{evaluate['cropped_scoring_s']:.1f} s); scorer forward ms "
+                f"graph / eager "
+                f"{json.dumps({n: (r['ms_graph'], r['ms_eager']) for n, r in evaluate['scorer_turns'].items()})}; align "
                 f"{ALIGN_PHOTOS} photos {json.dumps(align['wall_s'])} s, ms "
                 f"per photo {json.dumps(align['stage_ms_per_photo'])}; "
                 f"align_train ms a step: PIPNet ResNet-101 "

@@ -8,7 +8,9 @@ carried across by ``bridge.from_jax_params``):
 * one ``AETrainer.train_batch`` of a KL autoencoder
   (``LPIPSWithDiscriminator``) and of a VQ one
   (``VQLPIPSWithDiscriminator``, with perplexity; its perceptual weight 0,
-  and both with a one-layer PatchGAN, for the JAX compile's sake): both
+  and both with a one-layer PatchGAN, for the JAX compile's sake), from the
+  same weights at step 0 and at step 1 of ``disc_start`` 1 (the factor the
+  port resolves before its step against the JAX step's own): both
   passes' logs --
   the losses, the adaptive ``d_weight`` (the reference's
   ``torch.autograd.grad`` against the decoder's last conv here, a pullback
@@ -16,7 +18,9 @@ carried across by ``bridge.from_jax_params``):
   discriminator's gradients within 1e-4 of each leaf's largest entry, the
   parameters of both optimizers after Adam within 2e-2 of each one's lr
   (``assert_adamw_close``; the generator at lr_g_factor 0.1), ``logvar``
-  in neither optimizer.  The JAX
+  in neither optimizer; before ``disc_start`` the logs and the
+  generator's gradients, the discriminator's gradients zero on both sides
+  and its parameters unmoved.  The JAX
   trainer's posterior noise comes from ``sample_posterior``, which is
   patched to hand it the port's draws (generator pass, then discriminator
   pass); its optimizers are Adam (betas 0.5 / 0.9) chained behind
@@ -108,23 +112,29 @@ def _vae_cfgs(double_z):
 
 @pytest.mark.parametrize("kind", ["kl", "vq"])
 def test_ae_trainer_step_matches_jax(kind, monkeypatch):
+    """One batch from the same weights on both sides of ``disc_start`` 1:
+    at step 0 (the discriminator's factor 0: its pass moves nothing) and at
+    step 1 (the full GAN step, every check)."""
     jcfg, tcfg = _vae_cfgs(kind == "kl")
     # a one-layer PatchGAN: the three-layer one (checked above) doubles the
     # JAX compile
-    dkw = dict(disc_start=0, disc_ndf=8, disc_weight=0.5, disc_num_layers=1)
+    dkw = dict(disc_start=1, disc_ndf=8, disc_weight=0.5, disc_num_layers=1)
     if kind == "kl":
         jmodel = jvae.AutoencoderKL(jcfg, dtype=jnp.float32)
-        tmodel = tvae.AutoencoderKL(tcfg, dtype=torch.float32)
+        make_model = lambda: tvae.AutoencoderKL(tcfg, dtype=torch.float32)
         dcfg = dict(dkw, kl_weight=1e-3, logvar_init=0.3)
         jl = jloss.LPIPSWithDiscriminator(jloss.DiscLossConfig(**dcfg))
-        tl = tloss.LPIPSWithDiscriminator(tloss.DiscLossConfig(**dcfg))
+        make_loss = lambda: tloss.LPIPSWithDiscriminator(
+            tloss.DiscLossConfig(**dcfg))
     else:
         jmodel = jvq.VQModel(jcfg, n_embed=16, dtype=jnp.float32)
-        tmodel = tvq.VQModel(tcfg, n_embed=16, dtype=torch.float32)
+        make_model = lambda: tvq.VQModel(tcfg, n_embed=16,
+                                         dtype=torch.float32)
         # LPIPS has its checks above and in the KL case
         dcfg = dict(dkw, n_classes=16, perceptual_weight=0.0)
         jl = jloss.VQLPIPSWithDiscriminator(jloss.DiscLossConfig(**dcfg))
-        tl = tloss.VQLPIPSWithDiscriminator(tloss.DiscLossConfig(**dcfg))
+        make_loss = lambda: tloss.VQLPIPSWithDiscriminator(
+            tloss.DiscLossConfig(**dcfg))
     adam = lambda lr: compiled_optimizer(optax.chain(
         stash_grads(), optax.adam(lr, b1=0.5, b2=0.9)))
     jt = jtrainer.AETrainer(jmodel, jl, LR, tx_g=adam(LR * G_FACTOR),
@@ -132,40 +142,59 @@ def test_ae_trainer_step_matches_jax(kind, monkeypatch):
     params = random_params(lambda k: jt.init(k, image_size=32).params, KEY,
                            seed=5)
     params["loss"]["logvar"] = np.asarray(0.3, np.float32)
-    tmodel.load_state_dict(bridge.from_jax_params(np_tree(params["ae"])),
-                           strict=True)
-    tl.load_state_dict(bridge.from_jax_params(np_tree(params["loss"])),
-                       strict=True)
-    tt = AETrainer(tmodel, tl, LR, lr_g_factor=G_FACTOR)
-
     x = _images(3)
     gen = torch.Generator().manual_seed(4)
     zshape = (2, 16, 16, 3)
     eps = [torch.randn(zshape, generator=gen) for _ in range(2)]
-    before = {**{f"ae.{n}": p.detach().clone()
-                 for n, p in tmodel.named_parameters()},
-              **{f"disc.{n}": p.detach().clone()
-                 for n, p in tl.disc.named_parameters()}}
-    log = tt.train_batch(torch.from_numpy(x), override_eps=tuple(eps))
-    assert tt.global_step == 1
-    grads = {**{f"ae.{n}": p.grad for n, p in tmodel.named_parameters()},
-             **{f"disc.{n}": p.grad for n, p in tl.disc.named_parameters()}}
-
-    draws = [jnp.asarray(e.numpy()) for e in eps]
+    draws = []
     monkeypatch.setattr(
         jtrainer, "sample_posterior",
         lambda rng, mean, logvar: mean + jnp.exp(0.5 * logvar) * draws.pop(0))
-    state = jtrainer.AETrainState(params, jt.tx_g.init(params["ae"]),
-                                  jt.tx_d.init(params["loss"]["disc"]))
-    state, jlog = jt.train_batch(state, jnp.asarray(x), jax.random.key(1))
-    assert sorted(log) == sorted(jlog)
-    for k, v in jlog.items():
-        ref = float(v)
-        assert abs(float(log[k]) - ref) <= 1e-4 * max(abs(ref), 1e-3), \
-            (k, float(log[k]), ref)
-    assert float(jlog["train/d_weight"]) > 0
-    jgrads = bridge.from_jax_params(np_tree(
-        {"ae": state.opt_g[0], "disc": state.opt_d[0]}))
+
+    def both_sides(step):
+        tmodel, tl = make_model(), make_loss()
+        tmodel.load_state_dict(bridge.from_jax_params(np_tree(params["ae"])),
+                               strict=True)
+        tl.load_state_dict(bridge.from_jax_params(np_tree(params["loss"])),
+                           strict=True)
+        tt = AETrainer(tmodel, tl, LR, lr_g_factor=G_FACTOR)
+        tt.global_step = step
+        log = tt.train_batch(torch.from_numpy(x), override_eps=tuple(eps))
+        assert tt.global_step == step + 1
+        draws[:] = [jnp.asarray(e.numpy()) for e in eps]
+        state = jtrainer.AETrainState(params, jt.tx_g.init(params["ae"]),
+                                      jt.tx_d.init(params["loss"]["disc"]),
+                                      step)
+        state, jlog = jt.train_batch(state, jnp.asarray(x),
+                                     jax.random.key(1))
+        assert sorted(log) == sorted(jlog)
+        for k, v in jlog.items():
+            ref = float(v)
+            assert abs(float(log[k]) - ref) <= 1e-4 * max(abs(ref), 1e-3), \
+                (k, float(log[k]), ref)
+        assert float(jlog["train/d_weight"]) > 0
+        assert float(log["train/disc_factor"]) == float(step >= 1)
+        grads = {**{f"ae.{n}": p.grad for n, p in tmodel.named_parameters()},
+                 **{f"disc.{n}": p.grad
+                    for n, p in tl.disc.named_parameters()}}
+        jgrads = bridge.from_jax_params(np_tree(
+            {"ae": state.opt_g[0], "disc": state.opt_d[0]}))
+        return tmodel, tl, state, grads, jgrads
+
+    before = {f"{part}.{k}": v for part, tree in (
+        ("ae", params["ae"]), ("disc", params["loss"]["disc"]))
+        for k, v in bridge.from_jax_params(np_tree(tree)).items()}
+    # before disc_start: the generator's gradients hold, the
+    # discriminator's are zero on both sides and its parameters stay
+    tmodel, tl, state, grads, jgrads = both_sides(0)
+    ae = lambda d: {k: v for k, v in d.items() if k.startswith("ae.")}
+    assert_trained_grads_close(ae(grads), ae(jgrads))
+    for n, p in tl.disc.named_parameters():
+        assert float(grads[f"disc.{n}"].abs().max()) == 0.0 \
+            == float(np.abs(np.asarray(jgrads[f"disc.{n}"])).max())
+        assert torch.equal(p.detach(), before[f"disc.{n}"])
+
+    tmodel, tl, state, grads, jgrads = both_sides(1)
     assert_trained_grads_close(grads, jgrads)
     for part, module, lr, new_ in (
             ("ae", tmodel, LR * G_FACTOR, state.params["ae"]),
@@ -178,3 +207,4 @@ def test_ae_trainer_step_matches_jax(kind, monkeypatch):
         assert_adamw_close(now, bridge.from_jax_params(np_tree(
             {part: new_})), lr, {k: jgrads[k] for k in now})
     assert float(tl.logvar) == pytest.approx(0.3)   # in neither optimizer
+

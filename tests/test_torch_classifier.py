@@ -11,7 +11,9 @@ weights on every leaf carried across by ``bridge.from_jax_params``):
   leaf's largest entry and the parameters after AdamW within 2e-2 lr
   (``assert_trained_grads_close`` / ``assert_adamw_close`` of
   ``_torch_port_helpers``: leaves of rounding noise and entries whose
-  gradient nears Adam's eps apart); the noise sweep's levels and keys;
+  gradient nears Adam's eps apart); the noise sweep's levels and keys, a
+  level of its eval step equal to the shared step there; the draws taken
+  before the step (t, then the q-noise) in the generator's order;
 * dropout: ``p = 0`` in training mode and ``p > 0`` in ``eval()`` give the
   JAX UNet's output (whose dropout is deterministic); at ``p > 0`` in
   training mode one seed gives the same masks twice, another seed others,
@@ -140,6 +142,21 @@ def test_classifier_step_matches_jax(monkeypatch):
     assert sorted(sweep) == [0, 40, 80]
     assert all(set(v) == {"loss", "acc@1", "acc@5"} for v in sweep.values())
     assert all(0.0 <= v["acc@1"] <= v["acc@5"] <= 1.0 for v in sweep.values())
+    # the sweep's eval step takes its level as a tensor: the shared step at
+    # that level, from the sweep's one noise draw
+    tz, tl = torch.from_numpy(z), torch.from_numpy(labels).long()
+    q = torch.randn(z.shape, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        _, at80 = tc.shared(tz, tl, torch.full((4,), 80), q)
+    assert {k: float(v) for k, v in at80.items()} == sweep[80]
+    assert tc.eval_step.capture_s == {} == state["graph"].capture_s  # CPU
+
+    # the draws, taken before the step: t first, then the q-noise
+    g = torch.Generator().manual_seed(3)
+    want_t = torch.randint(0, 100, (4,), generator=g)
+    want_noise = torch.randn(z.shape, generator=g)
+    got_t, got_noise = tc.draw_t_noise(tz, torch.Generator().manual_seed(3))
+    assert torch.equal(got_t, want_t) and torch.equal(got_noise, want_noise)
 
 
 def test_dropout():

@@ -9,7 +9,8 @@ over.
   ``manifests/fid_inception.json``'s shapes, at a 75x75 input, the least
   the net takes) and ``IdentityEvaluator``'s embeddings and scores agree to
   1e-4 of the largest output (summation order over up to 2048 terms a
-  layer);
+  layer); the identity scorer's captured forward (warp and net) runs as it
+  is on the CPU, bit for bit, and builds no graph;
 * the CLIP readers (OpenAI and HuggingFace layouts), the image
   preprocessing and the Inception resize are exactly equal (numpy on both
   sides, or a change of layout only); the bicubic weight matrices agree
@@ -276,7 +277,13 @@ def test_identity_evaluator_matches_jax():
                                   device="cpu")
     r = np.random.default_rng(10)
     crops = r.uniform(-1, 1, (3, 64, 64, 3)).astype(np.float32)
-    _close(teval.embed_crops(crops), jeval.embed_crops(crops))
+    got = teval.embed_crops(crops)
+    _close(got, jeval.embed_crops(crops))
+    # the captured forward runs as it is on CPU tensors: no graph
+    with torch.no_grad():
+        plain = teval._embed_fn(torch.from_numpy(crops)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    assert teval._embed.capture_s == {}
     src, gen = crops[:1], r.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
     got, ref = teval.start_calc(src, gen), jeval.start_calc(src, gen)
     assert sorted(got) == sorted(ref)

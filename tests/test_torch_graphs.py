@@ -7,7 +7,9 @@ the CPU.
   host raises;
 * the DDIM chain with its draws taken before the chain (``step_noise``)
   equal, bit for bit, to a chain that draws at each step in the per-row
-  order it replaces, at eta > 0;
+  order it replaces, at eta > 0; the DDPM chain in captured segments, each
+  segment's noise drawn before it, equal to the per-step chain it
+  replaces, snapshots included;
 * the train step's draws (``draw_step_noise``) equal to those the loss would
   take from the same generator;
 * AdamW's state and the gradients allocated up front (``allocate_state``)
@@ -138,6 +140,68 @@ def _check_predrawn_chain(eta, temperature):
     assert torch.equal(alone[0], ref[1])
     at_zero = tsched.make_ddim_schedule(tsched.make_schedule(), 6, 0.0)
     assert tsampler.step_noise(gens(), at_zero, shape, "cpu") is None
+
+
+def _per_step_ddpm(generators, sched, shape, cond, uncond, cfg, every):
+    """The DDPM chain as it ran before its segments: Python-float constants,
+    each step's noise drawn at that step, row i from generator i."""
+    f32 = lambda a: [float(v) for v in np.asarray(a, np.float32)]
+    c1, c2 = f32(sched.posterior_mean_coef1), f32(sched.posterior_mean_coef2)
+    sigma = f32(np.exp(0.5 * np.asarray(sched.posterior_log_variance_clipped,
+                                        np.float32)))
+    sr = f32(sched.sqrt_recip_alphas_cumprod)
+    srm1 = f32(sched.sqrt_recipm1_alphas_cumprod)
+    T = sched.num_timesteps
+    x = tsampler.batched_normal(generators, shape, cond.device)
+    eps_fn = tsampler._eps_fn(_toy_eps, cond, uncond, cfg, shape[0])
+    snaps = []
+    for i, ts in enumerate(range(T - 1, -1, -1)):
+        eps = eps_fn(x, ts)
+        x0 = (sr[ts] * x - srm1[ts] * eps).clamp(-1.0, 1.0)
+        x = c1[ts] * x0 + c2[ts] * x
+        if ts > 0 and cfg.temperature != 0.0:
+            x = x + sigma[ts] * (tsampler.batched_normal(
+                generators, shape, cond.device) * cfg.temperature)
+        if (i + 1) % every == 0 or i == T - 1:
+            snaps.append(x0)
+    return x, torch.stack(snaps)
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7, 0.0])
+def test_ddpm_segments_equal_per_step_draws(temperature):
+    """A 45-step chain in segments of 20 (two full segments and a tail of
+    5) with each segment's noise drawn before it, and its snapshots every
+    15 steps across the segments' bounds, equal the per-step chain bit for
+    bit; the steps' timesteps and constants reach a segment as tensors, so
+    the full segments share one signature."""
+    assert tsampler.DDPM_SEGMENT == 20
+    sched = tsched.make_schedule(n_timestep=45)
+    shape = (2, 4, 4, 4)
+    r = np.random.default_rng(2)
+    cond = t(r.standard_normal((2, 5, 8)).astype(np.float32))
+    uncond = t(r.standard_normal((2, 5, 8)).astype(np.float32))
+    cfg = tsampler.SamplerConfig(guidance_scale=3.0, temperature=temperature)
+    gens = lambda: [torch.Generator().manual_seed(s) for s in (7, 8)]
+    ref_x, ref_snaps = _per_step_ddpm(gens(), sched, shape, cond, uncond,
+                                      cfg, 15)
+    chain = tsampler.DDPMChain(_toy_eps, sched, cfg)
+    seen = []
+    real = chain.segment.eager
+    chain.segment.eager = lambda *a: seen.append(a[3:5]) or real(*a)
+    kw = dict(shape=shape, cond=cond, uncond=uncond, return_x0_every=15)
+    x, snaps = chain(generators=gens(), **kw)
+    assert torch.equal(x, ref_x) and torch.equal(snaps, ref_snaps)
+    assert snaps.shape == (3,) + shape
+    assert [tuple(c.shape) for ts, c in seen] == [(20, 5), (20, 5), (5, 5)]
+    assert [ts.tolist() for ts, _ in seen][-1] == [4, 3, 2, 1, 0]
+    assert all(ts.dtype == torch.int64 for ts, _ in seen)
+    assert chain.segment.capture_s == {}       # CPU: no graph
+    chain.segment.eager = real
+    eager_x = chain.eager(generators=gens(), **kw)[0]
+    plain = tsampler.ddpm_sample(_toy_eps, sched, generators=gens(),
+                                 shape=shape, cond=cond, uncond=uncond,
+                                 cfg=cfg)
+    assert torch.equal(eager_x, ref_x) and torch.equal(plain, ref_x)
 
 
 def test_step_draws_follow_the_loss_order():

@@ -7,7 +7,9 @@ the oracle hooks ``override_z0`` / ``override_noise`` pass the latents and
 the encode noise to both sides.  fp32 on the CPU, 32x32.  Float images agree
 within 1e-3 and uint8 pixels within one level (``test_torch_pipeline.py``'s
 limits).  The port's own draws (VAE posterior and encode noise, one
-generator per row) are checked for row independence.
+generator per row), taken before its captured body, are checked for row
+independence and against the single function that drew as it went (bit
+for bit).
 """
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,10 @@ import torch
 
 from celebbasis_tpu.cli import img2img as jimg2img
 from celebbasis_tpu_torch.cli import img2img as timg2img
+from celebbasis_tpu_torch.diffusion import sampler as tsampler
+from celebbasis_tpu_torch.diffusion import schedules as tsched
+from celebbasis_tpu_torch.models import vae as tvae
+from celebbasis_tpu_torch.pipeline import finish_images
 
 from _torch_port_helpers import t, tiny_pipelines
 from _torch_threads import one_blas_thread  # noqa: F401  (one thread)
@@ -97,9 +103,46 @@ def test_full_strength_is_txt2img_from_the_noise(both):
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
+def _single_function(both, mask, generators):
+    """img2img as one function that draws as it goes (before its draws
+    were taken out and the rest made a captured body), masked."""
+    pipe, B = both["tp"], 2
+    ddim = tsched.make_ddim_schedule(pipe.schedule, STEPS, eta=0.0)
+    t_enc = int(0.5 * STEPS)
+    with torch.inference_mode():
+        cond = pipe.conditioning(L(both["tokens"]), both["tstate"],
+                                 both["tbasis"], L(both["ids"]),
+                                 L(both["num_ids"]))
+        uncond = pipe.conditioning(L(both["uncond"]))
+        mean, logvar = pipe.vae.encode(t(both["init"]))
+        z0 = torch.cat([tvae.sample_posterior(g, mean[i:i + 1],
+                                              logvar[i:i + 1])
+                        for i, g in enumerate(generators)]) \
+            * pipe.cfg.scale_factor
+        noise = tsampler.batched_normal(generators, z0.shape, "cpu")
+        x = tsampler.stochastic_encode(z0, t_enc, ddim, noise=noise)
+        for ts, a_t, a_prev, soma, _ in tsampler.step_constants(ddim)[
+                STEPS - t_enc:]:
+            z_known = a_t ** 0.5 * z0 + (1 - a_t) ** 0.5 * noise
+            x = z_known * (1 - mask) + x * mask
+            e = tsampler.guided_eps(pipe.eps_model(), x,
+                                    torch.full((B,), ts), cond, uncond, 10.0)
+            x, _ = tsampler.ddim_step(x, e, a_t, a_prev, soma, 0.0, 0.0)
+        x = z0 * (1 - mask) + x * mask
+        return finish_images(pipe.vae.decode(x / pipe.cfg.scale_factor),
+                             "float")
+
+
 def test_encode_draws_per_row(both):
+    """Masked, from the generators: the draws taken before the captured
+    body give the single function's bits; each row draws from its own
+    generator."""
     gens = lambda *s: [torch.Generator().manual_seed(v) for v in s]
-    a = _port(both, "float", None, generators=gens(1, 2), z0=False).numpy()
-    b = _port(both, "float", None, generators=gens(1, 3), z0=False).numpy()
+    mask = t(both["mask"])
+    a = _port(both, "float", both["mask"], generators=gens(1, 2), z0=False)
+    assert torch.equal(a, _single_function(both, mask, gens(1, 2)))
+    a = a.numpy()
+    b = _port(both, "float", both["mask"], generators=gens(1, 3),
+              z0=False).numpy()
     np.testing.assert_allclose(a[0], b[0], atol=1e-5)
     assert np.abs(a[1] - b[1]).max() > 1e-2
